@@ -1,7 +1,8 @@
 """Typed configuration of the SMPL track (`interdiff_tpu/config.py:16-68`).
 
-The defaults are the reference's training-time values; ``build`` and
-``build_model`` return the port's objects on ``device`` (CUDA unless given).
+The defaults are the reference's training-time values; ``build``,
+``build_model`` and ``build_smpl_body`` return the port's objects on
+``device`` (CUDA unless given).
 """
 
 from __future__ import annotations
@@ -62,3 +63,40 @@ class SmplTrackConfig:
             latent_usage=self.latent_usage,
             use_pointnet2=self.use_pointnet2, fps_groups=self.fps_groups,
             device=device)
+
+
+@dataclass(frozen=True)
+class CorrectionConfig:
+    """`train_correction_smpl.py:286-330` / `correction.ckpt` hparams, SMPL
+    track (the skeleton-track projector is not ported yet)."""
+
+    num_nodes: int = 67  # markers
+    dct: int = 10  # n_pre, the kept DCT coefficients
+    past_len: int = 10
+    future_len: int = 25
+
+    def build_model(self, device=None):
+        from interdiff_torch.models.correction import ObjProjectorSmpl
+
+        return ObjProjectorSmpl(
+            num_markers=self.num_nodes, n_pre=self.dct,
+            past_len=self.past_len, future_len=self.future_len,
+            device=device)
+
+
+def build_smpl_body(arrays=None, *, seed: int = 0, num_verts: int = 6890,
+                    num_joints: int = 52, device=None):
+    """The body model on ``device``: from ``arrays`` (the keyword arguments
+    of `SmplModel.create`, e.g. read from an SMPL-H pkl) or, without them,
+    the closed stand-in body at SMPL-H's sizes made from ``seed``."""
+    from interdiff_torch.smpl.model import SmplModel
+
+    if arrays is not None:
+        return SmplModel.create(**arrays, device=device)
+    import numpy as np
+
+    from interdiff_torch.cli.common import synthetic_smpl_body
+
+    return synthetic_smpl_body(np.random.default_rng(seed),
+                               num_verts=num_verts, num_joints=num_joints,
+                               device=device)

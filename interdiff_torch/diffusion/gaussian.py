@@ -12,6 +12,8 @@ the variational-bound terms are not ported yet.
 from __future__ import annotations
 
 import enum
+import functools
+import inspect
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -233,8 +235,14 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def p_sample_loop(self, model_fn, shape=None, *, noise=None,
-                      step_noise=None, generator=None, denoised_fn=None, inpaint: Optional[Inpaint] = None):
+                      step_noise=None, generator=None, denoised_fn=None,
+                      inpaint: Optional[Inpaint] = None):
         """The full reverse process, t = T-1 .. 0.
+
+        A ``denoised_fn(x0, t)`` that also takes a keyword ``step`` is handed
+        the loop's own index as a Python int, so that a hook which fires on
+        some steps only can decide so on the host, without reading ``t``
+        back from the device.
 
         With explicit ``noise`` the initial inpainting overwrite is skipped
         (the eval harnesses pass explicit noise); with noise drawn here it
@@ -248,11 +256,15 @@ class GaussianDiffusion:
         else:
             img = noise
         B = img.shape[0]
+        takes_step = denoised_fn is not None and "step" in \
+            inspect.signature(denoised_fn).parameters
         for n, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+            hook = (functools.partial(denoised_fn, step=i) if takes_step
+                    else denoised_fn)
             img = self.p_sample(
                 model_fn, img, t,
                 noise=None if step_noise is None else step_noise[n],
-                generator=generator, denoised_fn=denoised_fn,
+                generator=generator, denoised_fn=hook,
                 inpaint=inpaint)["sample"]
         return img

@@ -1,5 +1,6 @@
 """Transformer building blocks (`interdiff_tpu/models/layers.py:33-327`),
-batch-first [B, T, D].
+batch-first [B, T, D], and the ST-GCNN graph blocks of the correction
+networks (`:335-398`), channels-last [B, T, V, C].
 
 Submodule and parameter names follow the flax modules so that the weight
 bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
@@ -7,7 +8,8 @@ bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
 packed ``in_proj_kernel`` [D, 3D] layout, QaN layers keep ``queries``
 [N, D] and ``wk`` [N, 1].  Every layer is post-norm, LayerNorm eps is 1e-5,
 GELU is the exact erf form.  Dropout is inference-only (rate 0 in every
-reference run), so it is not modelled.
+reference run), so it is not modelled.  BatchNorm runs in inference mode on
+its running statistics; train-mode BatchNorm is not ported yet.
 """
 
 from __future__ import annotations
@@ -234,3 +236,86 @@ def mdm_stack_kinds(num_layers: int, cross: bool) -> Tuple[str, ...]:
     if cross:
         return ("dec",) + ("qan_dec",) * (num_layers - 2) + ("dec",)
     return ("enc",) + ("qan_enc",) * (num_layers - 2) + ("enc",)
+
+
+# ---------------------------------------------------------------------------
+# ST-GCNN graph blocks (`sublayers.py:378-516`, `layers.py:271-345`)
+# ---------------------------------------------------------------------------
+
+
+class BatchNormEval(nn.Module):
+    """BatchNorm over the last axis on running statistics (eps 1e-5), with
+    flax's arithmetic: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+def _uniform(shape: Tuple[int, ...], bound: float) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape).uniform_(-bound, bound))
+
+
+class GraphConv(nn.Module):
+    """Learned-adjacency graph convolution, channels-last [B, T, V, C].
+
+    version 0 (`ConvTemporalGraphical`): learned T x T temporal mixing shared
+    across joints; version 1 (`ConvSpatialGraphical`): learned V x V spatial
+    mixing shared across time; version 2 (`ConvSpatialTemporalGraphical`):
+    per-joint T x T then per-time V x V.  The parameters ``T``, ``S``, ``A``
+    keep the flax names and orientations.
+    """
+
+    def __init__(self, time_dim: int, joints_dim: int, version: int = 0):
+        super().__init__()
+        T, V = time_dim, joints_dim
+        self.version = version
+        if version == 0:
+            self.T = _uniform((T, T), 1.0 / math.sqrt(T))
+        elif version == 1:
+            self.S = _uniform((V, V), 1.0 / math.sqrt(V))
+        elif version == 2:
+            self.T = _uniform((V, T, T), 1.0 / math.sqrt(T))
+            self.A = _uniform((T, V, V), 1.0 / math.sqrt(V))
+        else:
+            raise ValueError(f"bad version {version}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.version == 0:
+            return torch.einsum("btvc,tq->bqvc", x, self.T)
+        if self.version == 1:
+            return torch.einsum("btvc,vw->btwc", x, self.S)
+        x = torch.einsum("btvc,vtq->bqvc", x, self.T)
+        return torch.einsum("btvc,tvw->btwc", x, self.A)
+
+
+class STGCNNLayer(nn.Module):
+    """`ST_GCNN_layer` (`layers.py:271-345`), channels-last [B, T, V, C]:
+    gcn -> 1x1 conv (Linear over C) -> BatchNorm, plus a residual (identity,
+    or 1x1 conv + BatchNorm when the channels change), then a PReLU with one
+    shared slope (the 0-d parameter ``prelu``).  Inference mode only."""
+
+    def __init__(self, in_channels: int, out_channels: int, time_dim: int,
+                 joints_dim: int, version: int = 0):
+        super().__init__()
+        self.has_res_conv = in_channels != out_channels
+        if self.has_res_conv:
+            self.res_conv = nn.Linear(in_channels, out_channels)
+            self.res_bn = BatchNormEval(out_channels)
+        self.gcn = GraphConv(time_dim, joints_dim, version)
+        self.tcn_conv = nn.Linear(in_channels, out_channels)
+        self.tcn_bn = BatchNormEval(out_channels)
+        self.prelu = nn.Parameter(torch.tensor(0.25))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        res = self.res_bn(self.res_conv(x)) if self.has_res_conv else x
+        h = self.tcn_bn(self.tcn_conv(self.gcn(x))) + res
+        return torch.where(h >= 0, h, self.prelu * h)

@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from interdiff_torch.models.layers import BatchNormEval
 from interdiff_torch.ops.group import MAX_C, fused_query_group, pairwise_sqdist_t
 from interdiff_torch.ops.pointcloud import (
     furthest_point_sample,
@@ -23,23 +24,6 @@ from interdiff_torch.ops.pointcloud import (
     pairwise_sqdist,
     query_and_group,
 )
-
-
-class BatchNormEval(nn.Module):
-    """BatchNorm over the last axis on running statistics (eps 1e-5), with
-    flax's arithmetic: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
 
 
 class SharedMLP(nn.Module):

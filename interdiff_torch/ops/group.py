@@ -21,14 +21,11 @@ package, into ``_build/`` beside it, and rebuilt when the source changes.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Optional
 
 import torch
 
+from interdiff_torch.ops import _build
 from interdiff_torch.ops.pointcloud import (
     pairwise_sqdist,
     query_and_group,
@@ -41,9 +38,6 @@ MAX_C = 8  # widest data row the kernel takes (xyz + up to 5 features)
 # reads it back to show that the path went through the kernel
 launches = 0
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_SOURCE = os.path.join(os.path.dirname(_HERE), "csrc", "ball_group.cu")
-_BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _lib = None
 
 
@@ -54,28 +48,10 @@ def pairwise_sqdist_t(xyz: torch.Tensor, new_xyz: torch.Tensor
     return pairwise_sqdist(xyz, new_xyz)
 
 
-def _nvcc() -> str:
-    for path in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if path and os.path.exists(path):
-            return path
-    raise RuntimeError("nvcc not found: the K1 kernel cannot be built")
-
-
 def build() -> str:
     """Compile `csrc/ball_group.cu` into a shared library (once per source
     hash) and return its path."""
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    so_path = os.path.join(_BUILD_DIR, f"ball_group_{digest}.so")
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        subprocess.run(
-            [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-             "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
-             _SOURCE], check=True)
-        os.replace(tmp, so_path)
-    return so_path
+    return _build.build("ball_group")
 
 
 def _library() -> ctypes.CDLL:

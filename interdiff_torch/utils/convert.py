@@ -6,8 +6,10 @@ only renames leaves and transposes dense kernels:
 * ``kernel`` (Dense, [in, out]) -> ``weight`` = kernel.T;
 * ``scale`` / ``bias`` (LayerNorm, BatchNorm) -> ``weight`` / ``bias``;
 * ``batch_stats`` ``mean`` / ``var`` -> ``running_mean`` / ``running_var``;
-* every other leaf (``queries``, ``wk``, ``in_proj_kernel``,
-  ``in_proj_bias``) is copied as it is.
+* ``bias``, ``queries``, ``wk``, ``in_proj_kernel``, ``in_proj_bias``, the
+  graph-convolution matrices ``T``, ``S``, ``A`` and the PReLU slope
+  ``prelu`` are copied as they are;
+* any other leaf raises.
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables); the bridge itself needs neither jax nor flax.
@@ -21,6 +23,8 @@ import numpy as np
 import torch
 
 _PARAM_NAMES = {"kernel": "weight", "scale": "weight"}
+_PARAM_COPIED = {"bias", "queries", "wk", "in_proj_kernel", "in_proj_bias",
+                 "T", "S", "A", "prelu"}
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
 
 
@@ -47,8 +51,9 @@ def flax_to_torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                               ("batch_stats", _STAT_NAMES)):
         for path, value in _flatten(variables.get(collection, {})):
             module, _, leaf = path.rpartition(".")
-            if collection == "batch_stats" and leaf not in names:
-                raise ValueError(f"unknown batch_stats leaf {path}")
+            if leaf not in names and (collection == "batch_stats"
+                                      or leaf not in _PARAM_COPIED):
+                raise ValueError(f"unknown {collection} leaf {path}")
             if leaf == "kernel":
                 if value.ndim != 2:
                     raise ValueError(f"dense kernel {path} is not 2-D")

@@ -32,12 +32,17 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 13
+    assert n_modules >= 32
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
     from interdiff_torch import resolve_device
-    from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
+    from interdiff_torch.config import (
+        CorrectionConfig,
+        DiffusionConfig,
+        SmplTrackConfig,
+        build_smpl_body,
+    )
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -47,4 +52,8 @@ def test_default_device_without_cuda_raises(monkeypatch):
                         num_layers=3).build_model()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DiffusionConfig(timestep_respacing="10").build()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CorrectionConfig(num_nodes=8, dct=4).build_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_smpl_body(num_verts=16)
     assert resolve_device("cpu") == torch.device("cpu")
