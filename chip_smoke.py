@@ -4,8 +4,9 @@
 
 Phases, each printing JSON lines (any failure exits non-zero):
 
-1. build: compiles `interdiff_torch/csrc/ball_group.cu` (kernel K1) and
-   `interdiff_torch/csrc/nn.cu` (K2, K3, K4) with nvcc, both at once.
+1. build: compiles `interdiff_torch/csrc/ball_group.cu` (kernel K1),
+   `interdiff_torch/csrc/nn.cu` (K2, K3, K4) and `interdiff_torch/csrc/sa.cu`
+   (K6) with nvcc, all three at once.
 2. kernels: each kernel against its plain PyTorch version on the card,
    bitwise, at the main-path shapes; kernel and plain times by CUDA events
    (median of 30 runs after warm-up) beside the bound of this run's data.
@@ -20,14 +21,22 @@ Phases, each printing JSON lines (any failure exits non-zero):
    segments skipped and frames with every segment skipped.  K4: 2240 frames
    of 67 markers against 2048 points, whole.  All three also on a small
    case with duplicated surface rows (exact ties), a one-point cloud and an
-   all-far frame.
+   all-far frame.  K6: K1's shape and inputs, both scales with the encoder's
+   chains 4->16->16->32 (S=16) and 4->32->32->64 (S=32) on seeded weights
+   folded by `folded_affine`, and K1's edge rows; beside its time the plain
+   version's (5 runs) and, in place of a library call, the unfused route's
+   (K1 + `SharedMLP` + `amax`).
 3. slice_cpu_vs_gpu: the small sampler (3 layers, d=32, "10" respacing) on
    the card and on the CPU with the same weights and noise, without
    correction (within 1e-5) and with correction in the loop on a 256-vertex
    stand-in body (tolerance and reason in the line; no gate value within
-   reach of its threshold, and the same rows corrected on both).
-4. sampler: the main path at full width, as `cli/eval_smpl_short.py` drives
-   it: `MDMSmpl` defaults, 32 clips of 35 frames with 2048 object points,
+   reach of its threshold, and the same rows corrected on both).  Then the
+   small `evaluate` of the eval entry point, with correction, once each for
+   the ddpm, ddim and plms samplers: every metric within 1e-4, `penetrate`
+   by counts of negative signs, each sign that differs between the devices
+   accounted for (sdot near 0, or a tie of the two nearest vertices).
+4. sampler: the sampler at full width: `MDMSmpl` defaults, 32 clips of 35
+   frames with 2048 object points,
    one `encode` (K1 launches twice), 2-fold diverse tiling to 64 rows, one
    `make_sampler(use_correction=True)` call with 1000 DDPM steps on the
    V=6890 stand-in body: 11 firings of the correction (K2 and K4 launch 11
@@ -38,14 +47,25 @@ Phases, each printing JSON lines (any failure exits non-zero):
    `full_width_models`) so that the object lies within reach of the body.  Then the same with
    `nn_prune_delta=None` at "100" respacing (2 firings, through K3), and
    the no-correction sampler at 1000 steps (past frames equal to gt).
-5. profile: a 10-step respaced corrected sampler call at full width (two
+5. eval: the main path, as `python -m interdiff_torch.cli.eval_smpl_short`
+   drives it, at the same width: `evaluate` on one batch of 32 clips, fold
+   2, 4 diverse samples (two sampler calls of 1000 DDPM steps with
+   correction), gt and sampled FK, `smpl_metrics` with the full sweep: the
+   six metrics, the wall time of each part, sampled sequences per second,
+   launches K1=2, K2=22, K4=22, K3=2, K6=0.  Then one encode and one
+   100-step corrected sampler call with INTERDIFF_FUSED_SA=1 (set and
+   restored here): K6=2, K1=0, the memory within 1e-4 of the default
+   route's, output finite.
+6. profile: a 10-step respaced corrected sampler call at full width (two
    firings) under torch.profiler: device busy time against wall time.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
-JSON line, and the device line.  Weights and data come from numpy seeds;
+JSON line (launches: those of the eval phase, K6's of its opt-in route), and
+the device line.  Weights and data come from numpy seeds;
 no file outside this repository and no network is needed.  The run uses one
 card: it sees only device 0 unless CUDA_VISIBLE_DEVICES says otherwise, and
-stops if that shows more than one.
+stops if that shows more than one.  About 85 s on an H100; no path's depth
+is cut to fit.
 """
 
 from __future__ import annotations
@@ -70,6 +90,20 @@ CORRECTED_TOL = 5e-5
 CORRECTED_TOL_REASON = ("summation order of the card's kernels through FK, "
                         "the 6D-to-axis-angle conversion and the projector, "
                         "full f32 (no TF32)")
+# the encoder's memory through K6 against the default route
+FUSED_MEMORY_TOL = 1e-4
+FUSED_MEMORY_TOL_REASON = ("K6 folds BatchNorm into a*(x@W)+b and sums the "
+                           "products one by one in f32; the default route "
+                           "computes (x@W - mean)*mul + bias with a library "
+                           "GEMM; both in full f32")
+# a sign test n.(a - b) may come out differently on the card and on the CPU
+# only below this |sdot|: the sampled states that feed it agree to
+# CORRECTED_TOL, and a is a rotated object point of at most 0.21 m plus a
+# translation, b a skinned vertex
+SIGN_TOL = CORRECTED_TOL
+# ... or where the squared distances to the two nearest vertices differ by
+# less than this: 2 * d * (error of a + error of b) at d up to 0.5 m
+TIE_TOL = 2 * 0.5 * 2 * CORRECTED_TOL
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 # K2-K4, per pair: 3 mul + 2 add (a.b), 1 mul + 1 sub (score), 1 compare
@@ -79,6 +113,10 @@ DEV = "cuda"
 # the main path's sizes: 32 clips x 2 diverse samples of 35 frames (10 past,
 # 25 future), 2048 object points, the SMPL-H body's 6890 vertices
 CLIPS, FOLD, FRAMES, FUTURE, POINTS, VERTS = 32, 2, 35, 25, 2048, 6890
+# stage 1 of the encoder: centers, (radius, nsample) and MLP of each scale
+CENTERS = 1024
+SCALES = ((0.05, 16), (0.1, 32))
+STAGE1_MLPS = ((16, 16, 32), (32, 32, 64))
 
 
 def emit(obj) -> None:
@@ -150,25 +188,27 @@ def seeded_state(model: torch.nn.Module, seed: int) -> dict:
     return state
 
 
-def phase_build(group, nn, gpu: str) -> None:
-    """Both libraries, one nvcc each, started together."""
+def phase_build(group, nn, sa, gpu: str) -> None:
+    """The three libraries, one nvcc each, started together."""
     def timed(kernels, module):
         t0 = time.perf_counter()
         path = module.build()
         return {"phase": "build", "gpu": gpu, "kernels": kernels,
                 "library": path, "seconds": time.perf_counter() - t0}
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
         jobs = [pool.submit(timed, "K1", group),
-                pool.submit(timed, "K2 K3 K4", nn)]
+                pool.submit(timed, "K2 K3 K4", nn),
+                pool.submit(timed, "K6", sa)]
         for job in jobs:
             emit(job.result())
 
 
-def _k1_edge_rows(group, pointcloud) -> dict:
-    """K1 against its plain version on the rows the main-path data rarely
-    has: zero-hit and short rows, M not a multiple of the block, and C = 3
-    (no features).  Returns the row counts the comparison covered."""
+def _edge_rows(group, pointcloud, name: str, kernel, plain) -> dict:
+    """``kernel`` against ``plain`` (both called as f(d2t, data, new_xyz,
+    radius, S)) on the rows the main-path data rarely has: zero-hit and
+    short rows, M not a multiple of the block, and C = 3 (no features).
+    Returns the row counts the comparison covered."""
     rng = np.random.default_rng(SEED + 3)
     B, N, M = 2, 256, 120
     xyz = np.concatenate([rng.normal(0.0, 0.015, (B, N // 4, 3)),
@@ -182,13 +222,13 @@ def _k1_edge_rows(group, pointcloud) -> dict:
     rows = {"zero_hit": 0, "short": 0, "full": 0}
     for data in (torch.cat([xyz, feats], -1).contiguous(), xyz):
         for radius, S in ((0.05, 16), (0.1, 32)):
-            got = group.group_cuda(d2t, data, new_xyz, radius, S)
-            want = group.group_plain(d2t, data, new_xyz, radius, S)
+            got = kernel(d2t, data, new_xyz, radius, S)
+            want = plain(d2t, data, new_xyz, radius, S)
             torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"K1 differs from its plain version on "
-                                     f"edge rows, C={data.shape[-1]}, "
-                                     f"r={radius}")
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain "
+                                     f"version on edge rows, "
+                                     f"C={data.shape[-1]}, r={radius}")
             hits = (d2t < pointcloud.radius_sq(radius)).sum(dim=1)
             rows["zero_hit"] += int((hits == 0).sum())
             rows["short"] += int(((hits > 0) & (hits < S)).sum())
@@ -198,20 +238,37 @@ def _k1_edge_rows(group, pointcloud) -> dict:
     return rows
 
 
+def _stage1_inputs(group, pointcloud):
+    """Stage 1 of the encoder at the main-path shape: (data [B, N, 4],
+    new_xyz [B, M, 3], d2t [B, N, M]) of 32 seeded ellipsoid clouds."""
+    rng = np.random.default_rng(SEED)
+    xyz = torch.from_numpy(object_cloud(rng, CLIPS, POINTS)[..., :3]).to(DEV)
+    new_xyz = pointcloud.gather_points(
+        xyz, pointcloud.hierarchical_fps(xyz, CENTERS, 16)).contiguous()
+    data = torch.cat([xyz, torch.linalg.norm(xyz, dim=-1, keepdim=True)],
+                     -1).contiguous()
+    return data, new_xyz, group.pairwise_sqdist_t(xyz, new_xyz).contiguous()
+
+
+def _walk_reads(d2t, r2: float, S: int):
+    """(reads, hits) [B, M]: the candidates a query's walk reads (up to the
+    one that fills its last slot; all N when the row is short) and its
+    in-radius candidates."""
+    rank = torch.cumsum(d2t < r2, dim=1)  # [B, N, M]
+    hits = rank[:, -1]
+    reads = torch.where(hits >= S, (rank < S).sum(dim=1) + 1,
+                        torch.full_like(hits, d2t.shape[1]))
+    return reads, hits
+
+
 def phase_kernels(group, pointcloud, gpu: str) -> dict:
     """K1 at the main-path shape against its plain version, both scales,
     and on edge rows."""
-    rng = np.random.default_rng(SEED)
-    B, N, M = CLIPS, POINTS, 1024
-    xyz = torch.from_numpy(object_cloud(rng, B, N)[..., :3]).to(DEV)
-    new_xyz = pointcloud.gather_points(
-        xyz, pointcloud.hierarchical_fps(xyz, M, 16)).contiguous()
-    data = torch.cat([xyz, torch.linalg.norm(xyz, dim=-1, keepdim=True)],
-                     -1).contiguous()
-    d2t = group.pairwise_sqdist_t(xyz, new_xyz).contiguous()
+    data, new_xyz, d2t = _stage1_inputs(group, pointcloud)
+    B, N, M = d2t.shape
     scales, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "bytes": 0, "ops": 0, "max_abs_err": 0.0}
-    for radius, S in ((0.05, 16), (0.1, 32)):
+    for radius, S in SCALES:
         got = group.group_cuda(d2t, data, new_xyz, radius, S)
         want = group.group_plain(d2t, data, new_xyz, radius, S)
         torch.cuda.synchronize()
@@ -224,21 +281,16 @@ def phase_kernels(group, pointcloud, gpu: str) -> dict:
             lambda: group.group_plain(d2t, data, new_xyz, radius, S))
         # bytes this run's data needs: each query reads d2t up to the
         # candidate that fills its last slot (all N when the row is short)
-        inside = d2t < pointcloud.radius_sq(radius)
-        rank = torch.cumsum(inside, dim=1)  # [B, N, M]
-        full = rank[:, -1] >= S
-        reads = torch.where(full, (rank < S).sum(dim=1) + 1,
-                            torch.full_like(rank[:, -1], N))
+        reads, hits = _walk_reads(d2t, pointcloud.radius_sq(radius), S)
         n_bytes = int(reads.sum()) * 4 + 4 * (B * N * 4 + B * M * 3
                                               + B * M * S * 4)
         n_ops = int(reads.sum())  # one compare per candidate read
         bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
-        hits = rank[:, -1]
         scales.append({
             "radius": radius, "nsample": S, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bytes": n_bytes,
             "full_d2t_bytes": B * N * M * 4, "max_abs_err": err,
-            "rows_full": float(full.float().mean()),
+            "rows_full": float((hits >= S).float().mean()),
             "rows_zero_hit": float((hits == 0).float().mean()),
             "library_ms": None})
         for k in ("ms", "plain_ms", "bound_ms"):
@@ -248,7 +300,97 @@ def phase_kernels(group, pointcloud, gpu: str) -> dict:
         total["max_abs_err"] = max(total["max_abs_err"], err)
     emit({"phase": "kernels", "gpu": gpu, "shape": [B, N, M, 4],
           "bitwise_equal": True, "scales": scales,
-          "edge_rows_bitwise_equal": _k1_edge_rows(group, pointcloud)})
+          "edge_rows_bitwise_equal": _edge_rows(
+              group, pointcloud, "K1", group.group_cuda, group.group_plain)})
+    total["library_ms"] = None
+    total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
+                         >= total["ops"] / F32_OPS_PER_S else "operations")
+    return total
+
+
+def _seeded_shared_mlp(c_in: int, channels, seed: int):
+    from interdiff_torch.models.pointnet import SharedMLP
+
+    mlp = SharedMLP(c_in, channels)
+    mlp.load_state_dict(seeded_state(mlp, seed), strict=True)
+    return mlp.to(DEV).eval()
+
+
+def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
+    """K6 at the main-path shape (both radius scales of stage 1, seeded
+    `SharedMLP` weights folded by `folded_affine`) against `sa_plain`,
+    bitwise, and on edge rows; its time beside the plain version's and the
+    unfused route's (K1 + `SharedMLP` + `amax`), which stands in for a
+    library call: no single PyTorch call computes a scale."""
+    data, new_xyz, d2t = _stage1_inputs(group, pointcloud)
+    B, N, M = d2t.shape
+    C = data.shape[-1]
+    scales, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "unfused_ms": 0.0, "bytes": 0, "ops": 0,
+                         "max_abs_err": 0.0}
+    with torch.no_grad():
+        for i, ((radius, S), channels) in enumerate(zip(SCALES,
+                                                        STAGE1_MLPS)):
+            mlp = _seeded_shared_mlp(C, channels, SEED + 8 + i)
+            params = sa.folded_affine(mlp)
+            got = sa.sa_cuda(d2t, data, new_xyz, params, radius, S)
+            want = sa.sa_plain(d2t, data, new_xyz, params, radius, S)
+            torch.cuda.synchronize()
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(
+                    f"K6 differs from its plain version at r={radius}, "
+                    f"S={S}: max abs "
+                    f"{float((got - want).abs().max())}")
+
+            def unfused():
+                return mlp(group.group_cuda(d2t, data, new_xyz, radius,
+                                            S)).amax(dim=2)
+
+            vs_unfused = float((got - unfused()).abs().max())
+            ms = cuda_ms(lambda: sa.sa_cuda(d2t, data, new_xyz, params,
+                                            radius, S))
+            plain_ms = cuda_ms(lambda: sa.sa_plain(d2t, data, new_xyz,
+                                                   params, radius, S),
+                               runs=5, warmup=1)
+            unfused_ms = cuda_ms(unfused)
+            # what this run's data needs: the walk's reads of d2t, data,
+            # centers and weights once, the output once; the chain once per
+            # distinct slot of a query (a repeated first hit adds nothing)
+            reads, hits = _walk_reads(d2t, pointcloud.radius_sq(radius), S)
+            widths = (C,) + tuple(channels)
+            macs = sum(a * b for a, b in zip(widths, widths[1:]))
+            n_params = macs + 2 * sum(widths[1:])
+            slots = int(hits.clamp(min=1, max=S).sum())
+            n_bytes = int(reads.sum()) * 4 + 4 * (
+                B * N * C + B * M * 3 + n_params + B * M * widths[-1])
+            n_ops = 2 * macs * slots
+            bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                           n_ops / F32_OPS_PER_S) * 1e3
+            scales.append({
+                "radius": radius, "nsample": S, "widths": list(widths),
+                "ms": ms, "plain_ms": plain_ms, "unfused_ms": unfused_ms,
+                "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops,
+                "ops_all_slots": 2 * macs * S * M * B,
+                "distinct_slots_mean": slots / (B * M),
+                "max_abs_err": float((got - want).abs().max()),
+                "max_abs_diff_vs_unfused": vs_unfused})
+            for k in ("ms", "plain_ms", "unfused_ms", "bound_ms", "bytes",
+                      "ops"):
+                total[k] += scales[-1][k]
+
+        def edge_params(c):
+            return sa.folded_affine(_seeded_shared_mlp(c, (8, 8, 16),
+                                                       SEED + 10))
+
+        edge = _edge_rows(
+            group, pointcloud, "K6",
+            lambda d, x, c, r, S: sa.sa_cuda(d, x, c, edge_params(
+                x.shape[-1]), r, S),
+            lambda d, x, c, r, S: sa.sa_plain(d, x, c, edge_params(
+                x.shape[-1]), r, S))
+    emit({"phase": "kernels", "gpu": gpu, "kernels": "K6",
+          "shape": [B, N, M, C], "bitwise_equal": True, "scales": scales,
+          "edge_rows_bitwise_equal": edge})
     total["library_ms"] = None
     total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
                          >= total["ops"] / F32_OPS_PER_S else "operations")
@@ -550,22 +692,157 @@ def phase_slice_cpu_vs_gpu(gpu: str) -> None:
                              f"{err} > {tol}")
 
 
+def _small_evaluate(device, sampler: str, state, projector_state, batch,
+                    noises):
+    """The small `evaluate` on ``device``: 2 clips, fold 2, 2 diverse
+    samples, "10" respacing, correction in the loop on the 256-vertex
+    stand-in body, full-sweep `penetrate`.  Returns (totals, the metric
+    sweep's (queries, vertices, sdot) per call)."""
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.config import (
+        CorrectionConfig,
+        DiffusionConfig,
+        SmplTrackConfig,
+        build_smpl_body,
+    )
+    from interdiff_torch.eval import metrics as metrics_mod
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+
+    track = SmplTrackConfig(**SMALL,
+                            diffusion=DiffusionConfig(timestep_respacing="10"))
+    model = track.build_model(device)
+    model.load_state_dict(state, strict=True)
+    projector = CorrectionConfig(num_nodes=40, dct=4).build_model(device)
+    projector.load_state_dict(projector_state, strict=True)
+    body = build_smpl_body(seed=SEED, num_verts=256, device=device)
+    sdots, sweep = [], metrics_mod.signed_nearest
+
+    def recording_sweep(a, b, n, **kwargs):
+        out = sweep(a, b, n, **kwargs)
+        sdots.append((a, b, out[1]))
+        return out
+
+    metrics_mod.signed_nearest = recording_sweep
+    try:
+        totals, _ = evaluate(
+            SmplEvalConfig(correction_t_max=9, correction_every=3), model,
+            track.diffusion.build(device), body, [batch],
+            projector=projector, diverse_samples=2, diverse_fold=2,
+            sampler=sampler, markers_idx=SMALL_MARKERS,
+            noises=iter([tuple(t.to(device) for t in pair)
+                         for pair in noises]),
+            report=lambda nb, means: None)
+    finally:
+        metrics_mod.signed_nearest = sweep
+    return totals, sdots
+
+
+def phase_slice_eval_cpu_vs_gpu(gpu: str) -> None:
+    """The small `evaluate` on the card against the CPU, same weights and
+    noise, once per sampler: every metric within 1e-4; `penetrate` (a mean
+    of sign tests) by counts, which may differ only by signs whose sdot lies
+    within SIGN_TOL of 0 on one of the devices or whose two nearest
+    vertices are equidistant within TIE_TOL."""
+    from interdiff_torch.config import CorrectionConfig, SmplTrackConfig
+
+    rng = np.random.default_rng(36)
+    B, T, P = 2, 35, 64
+    batch = {k: np.float32(scale) * rng.standard_normal(shape).astype(
+        np.float32) for k, shape, scale in (
+            ("body_pose", (B, T, 156), 0.3), ("body_trans", (B, T, 3), 0.2),
+            ("obj_angles", (B, T, 3), 1.0), ("obj_trans", (B, T, 3), 0.2),
+            ("body_betas", (B, T, 10), 0.5))}
+    batch["obj_points"] = rng.uniform(-0.12, 0.12, (B, P, 6)).astype(
+        np.float32)
+    xyz = batch["obj_points"][..., :3].astype(np.float64)
+    d2 = ((xyz[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+    margin = min(float(np.abs(d2 - np.float32(r * r)).min())
+                 for r in (0.05, 0.1, 0.2))
+    if margin <= 1e-6:  # a pair on a radius could flip between devices
+        raise AssertionError(f"cloud has a pair {margin} from a radius")
+    noises = [(torch.from_numpy(rng.standard_normal(
+        (2 * B, T, 144)).astype(np.float32)), torch.from_numpy(
+            rng.standard_normal((10, 2 * B, T, 144)).astype(np.float32)))]
+    state = seeded_state(SmplTrackConfig(**SMALL).build_model("cpu"), SEED)
+    projector_state = seeded_state(
+        CorrectionConfig(num_nodes=40, dct=4).build_model("cpu"), SEED + 6)
+    tol, signs = 1e-4, B * (T - 10) * P  # sign tests behind one penetrate
+    for sampler in ("ddpm", "ddim", "plms"):
+        cpu, sdots_cpu = _small_evaluate("cpu", sampler, state,
+                                         projector_state, batch, noises)
+        cuda, sdots = _small_evaluate(DEV, sampler, state, projector_state,
+                                      batch, noises)
+        sdot_cpu = torch.cat([s[2] for s in sdots_cpu]).flatten()
+        a, b, sdot = (torch.cat([s[i] for s in sdots]).cpu()
+                      for i in range(3))
+        sdot = sdot.flatten()
+        least = torch.minimum(sdot_cpu.abs(), sdot.abs())
+        flipped = (sdot_cpu < 0) != (sdot < 0)
+        # a sign may differ between the devices where sdot lies within
+        # their difference of 0, or where the two nearest vertices are so
+        # nearly equidistant that the devices pick different ones
+        unexplained, ties = 0, []
+        for flat in flipped.nonzero().flatten().tolist():
+            frame, q = divmod(flat, a.shape[1])
+            d2 = ((b[frame].double() - a[frame, q].double()) ** 2).sum(-1)
+            first, second = torch.topk(d2, 2, largest=False).values.tolist()
+            ties.append(second - first)
+            if least[flat] >= SIGN_TOL and second - first >= TIE_TOL:
+                unexplained += 1
+        # totals["penetrate"] is the mean over B clips of counts / (Tf * P)
+        counts = {dev: round(m["penetrate"] * signs)
+                  for dev, m in (("cpu", cpu), ("cuda", cuda))}
+        errs = {k: abs(cpu[k] - cuda[k]) for k in cpu if k != "penetrate"}
+        emit({"phase": "slice_cpu_vs_gpu", "gpu": gpu, "entry": "evaluate",
+              "sampler": sampler, "clips": B, "diverse_samples": 2,
+              "steps": 10, "metrics_cuda": cuda, "max_abs_err": errs,
+              "tolerance": tol, "tolerance_reason": CORRECTED_TOL_REASON,
+              "penetrate_counts": counts, "sign_tests": signs,
+              "sign_tests_swept": sdot.numel(),
+              "sdot_within_1e-6_of_0": int((sdot.abs() < 1e-6).sum()),
+              "sdot_within_tolerance_of_0": int(
+                  (sdot.abs() < SIGN_TOL).sum()),
+              "signs_flipped": int(flipped.sum()),
+              "flipped_sdot_least_abs": least[flipped].tolist(),
+              "flipped_gap_of_two_nearest_vertices_m2": ties,
+              "sign_tolerance": SIGN_TOL, "tie_tolerance_m2": TIE_TOL})
+        if not max(errs.values()) <= tol:
+            raise AssertionError(f"evaluate({sampler}): card vs CPU differ "
+                                 f"by {errs}")
+        if unexplained or \
+                abs(counts["cpu"] - counts["cuda"]) > int(flipped.sum()):
+            raise AssertionError(f"evaluate({sampler}): penetrate counts "
+                                 f"{counts}, {int(flipped.sum())} signs "
+                                 f"flipped, {unexplained} of them neither "
+                                 f"near 0 nor at a tie of the nearest vertex")
+
+
+def _main_path_batch(rng, B, T, P) -> dict:
+    """One raw batch in the layout of the eval entry point's loader: seeded
+    poses and ellipsoid object clouds."""
+    pose, trans, obj_angles, obj_trans = (
+        rng.standard_normal((B, T, 66)) * 0.4,
+        rng.standard_normal((B, T, 3)) * 0.5,
+        rng.standard_normal((B, T, 3)),
+        rng.standard_normal((B, T, 3)) * 0.5)
+    pts = object_cloud(rng, B, P)
+    hand = rng.standard_normal((B, T, 90)) * 0.1
+    betas = np.broadcast_to(rng.standard_normal((B, 1, 10)) * 0.5, (B, T, 10))
+    batch = {"body_pose": np.concatenate([pose, hand], -1),
+             "body_trans": trans, "obj_angles": obj_angles,
+             "obj_trans": obj_trans, "obj_points": pts, "body_betas": betas}
+    return {k: np.ascontiguousarray(v, dtype=np.float32)
+            for k, v in batch.items()}
+
+
 def _main_path_inputs(rng, B, T, P, device):
     from interdiff_torch.models.mdm_smpl import smpl_gt_from_raw
 
-    raw = [rng.standard_normal((B, T, 66)) * 0.4,
-           rng.standard_normal((B, T, 3)) * 0.5,
-           rng.standard_normal((B, T, 3)),
-           rng.standard_normal((B, T, 3)) * 0.5]
-    raw = [torch.from_numpy(a.astype(np.float32)).to(device) for a in raw]
-    gt = smpl_gt_from_raw(*raw)
-    pts = torch.from_numpy(object_cloud(rng, B, P)).to(device)
-    hand = torch.from_numpy(
-        (rng.standard_normal((B, T, 90)) * 0.1).astype(np.float32)).to(device)
-    betas = torch.from_numpy(np.broadcast_to(
-        rng.standard_normal((B, 1, 10)) * 0.5, (B, T, 10)).astype(
-            np.float32)).to(device)
-    return gt, pts, hand, betas
+    b = {k: torch.from_numpy(v).to(device)
+         for k, v in _main_path_batch(rng, B, T, P).items()}
+    gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
+                          b["obj_angles"], b["obj_trans"])
+    return gt, b["obj_points"], b["body_pose"][..., 66:], b["body_betas"]
 
 
 def full_width_models():
@@ -600,16 +877,17 @@ def full_width_models():
     return model, projector, build_smpl_body(seed=SEED, num_verts=VERTS)
 
 
-def _reset_launches(group, nn) -> None:
+def _reset_launches(group, nn, sa) -> None:
     group.launches = 0
+    sa.launches = 0
     for name in nn.launches:
         nn.launches[name] = 0
 
 
-def _read_launches(group, nn) -> dict:
+def _read_launches(group, nn, sa) -> dict:
     return {"K1": group.launches, "K2": nn.launches["signed_nearest_pruned"],
             "K3": nn.launches["signed_nearest"],
-            "K4": nn.launches["nearest_neighbor"]}
+            "K4": nn.launches["nearest_neighbor"], "K6": sa.launches}
 
 
 def _check_sample(x, gt, cfg, past_channels: int) -> None:
@@ -621,7 +899,7 @@ def _check_sample(x, gt, cfg, past_channels: int) -> None:
         raise AssertionError("past frames differ from gt")
 
 
-def phase_sampler(group, nn, models, gpu: str) -> dict:
+def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
     """The three sampler paths at full width; returns the launches of each
     kernel on the path that runs it."""
     from interdiff_torch.config import DiffusionConfig
@@ -656,7 +934,7 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     nn.segment_flags = recording_flags
     try:
-        _reset_launches(group, nn)
+        _reset_launches(group, nn, sa)
         t0 = time.perf_counter()
         memory = model.encode(gt, pts)
         torch.cuda.synchronize()
@@ -665,10 +943,10 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
         x = run(*tiled, generator=gen)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        launches = _read_launches(group, nn)
+        launches = _read_launches(group, nn, sa)
     finally:
         nn.segment_flags = segment_flags
-    if launches != {"K1": 2, "K2": 11, "K3": 0, "K4": 11}:
+    if launches != {"K1": 2, "K2": 11, "K3": 0, "K4": 11, "K6": 0}:
         raise AssertionError(f"launches on the corrected path: {launches}")
     _check_sample(x, tiled[0], cfg, 135)  # the blend may move the object
     steps = diffusion.num_timesteps
@@ -696,13 +974,13 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
     run_full = make_sampler(cfg_full, model, short, smpl=body,
                             projector=projector, use_correction=True,
                             reuse_memory=True, trace=trace_full)
-    _reset_launches(group, nn)
+    _reset_launches(group, nn, sa)
     t0 = time.perf_counter()
     x = run_full(*tiled, generator=gen)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches_full = _read_launches(group, nn)
-    if launches_full != {"K1": 0, "K2": 0, "K3": 2, "K4": 2}:
+    launches_full = _read_launches(group, nn, sa)
+    if launches_full != {"K1": 0, "K2": 0, "K3": 2, "K4": 2, "K6": 0}:
         raise AssertionError(f"launches on the full-sweep path: "
                              f"{launches_full}")
     _check_sample(x, tiled[0], cfg_full, 135)
@@ -717,7 +995,7 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
 
     # -- the sampler without correction, full depth
     plain = make_sampler(cfg, model, diffusion, reuse_memory=True)
-    _reset_launches(group, nn)
+    _reset_launches(group, nn, sa)
     t0 = time.perf_counter()
     memory = model.encode(gt, pts)
     torch.cuda.synchronize()
@@ -726,8 +1004,8 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
     x = plain(*tiled, generator=gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    launches_plain = _read_launches(group, nn)
-    if launches_plain != {"K1": 2, "K2": 0, "K3": 0, "K4": 0}:
+    launches_plain = _read_launches(group, nn, sa)
+    if launches_plain != {"K1": 2, "K2": 0, "K3": 0, "K4": 0, "K6": 0}:
         raise AssertionError(f"launches without correction: "
                              f"{launches_plain}")
     _check_sample(x, tiled[0], cfg, 144)
@@ -737,6 +1015,100 @@ def phase_sampler(group, nn, models, gpu: str) -> dict:
           "ms_per_step": (t2 - t1) * 1e3 / steps,
           "launches": launches_plain})
     return {**launches, "K3": launches_full["K3"]}
+
+
+def phase_eval(group, nn, sa, models, gpu: str) -> dict:
+    """The eval entry point's loop at full width: `evaluate` on one batch of
+    32 clips, fold 2, 4 diverse samples (two 1000-step sampler calls of 64
+    rows with correction in the loop), `smpl_metrics` with the full sweep
+    (K3).  Then the opt-in route of the encoder: one encode and one 100-step
+    corrected sampler call with INTERDIFF_FUSED_SA=1 (K6 instead of K1).
+    Returns the launches of each kernel on the path that runs it."""
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig, make_sampler
+    from interdiff_torch.parallel.sample_parallel import (
+        tile_for_diverse_samples,
+    )
+
+    rng = np.random.default_rng(SEED + 11)
+    model, projector, body = models
+    cfg, diffusion = SmplEvalConfig(), DiffusionConfig().build()
+    batch = _main_path_batch(rng, CLIPS, FRAMES, POINTS)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    samples, timings, running = 2 * FOLD, {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(group, nn, sa)
+    t0 = time.perf_counter()
+    totals, batches = evaluate(
+        cfg, model, diffusion, body, [batch], projector=projector,
+        diverse_samples=samples, diverse_fold=FOLD, generator=gen,
+        timings=timings, report=lambda nb, means: running.append(means))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _read_launches(group, nn, sa)
+    if launches != {"K1": 2, "K2": 22, "K3": 2, "K4": 22, "K6": 0}:
+        raise AssertionError(f"launches of the eval loop: {launches}")
+    keys = {"global_mpjpe", "local_mpjpe", "body_translation",
+            "obj_translation", "obj_rot_error", "penetrate"}
+    if batches != 1 or set(totals) != keys or running != [totals] \
+            or not all(np.isfinite(v) and v >= 0 for v in totals.values()) \
+            or not 0.0 < totals["penetrate"] < 1.0:
+        raise AssertionError(f"bad metrics: {totals} over {batches} batches")
+    emit({"phase": "eval", "gpu": gpu, "clips": CLIPS, "fold": FOLD,
+          "diverse_samples": samples, "frames": FRAMES, "points": POINTS,
+          "verts": VERTS, "steps": diffusion.num_timesteps,
+          "metrics": totals, "wall_s": wall,
+          "part_s": timings, "part_share": {k: v / wall
+                                            for k, v in timings.items()},
+          "seq_per_s": CLIPS * samples / wall, "launches": launches,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    # -- the encoder's opt-in route through K6
+    gt, pts, hand, betas = _main_path_inputs(
+        np.random.default_rng(SEED + 11), CLIPS, FRAMES, POINTS, DEV)
+    short = DiffusionConfig(timestep_respacing="100").build()
+    run = make_sampler(cfg, model, short, smpl=body, projector=projector,
+                       use_correction=True, reuse_memory=True)
+
+    def encode_ms():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        memory = model.encode(gt, pts)
+        torch.cuda.synchronize()
+        return memory, (time.perf_counter() - t0) * 1e3
+
+    model.encode(gt, pts)  # warm-up of both timed encodes
+    memory_unfused, unfused_ms = encode_ms()
+    before = os.environ.get("INTERDIFF_FUSED_SA")
+    os.environ["INTERDIFF_FUSED_SA"] = "1"
+    try:
+        _reset_launches(group, nn, sa)
+        memory, fused_ms = encode_ms()
+        tiled = tile_for_diverse_samples((gt, pts, hand, betas, memory), FOLD)
+        x = run(*tiled, generator=gen)
+        torch.cuda.synchronize()
+        launches_fused = _read_launches(group, nn, sa)
+    finally:
+        if before is None:
+            del os.environ["INTERDIFF_FUSED_SA"]
+        else:
+            os.environ["INTERDIFF_FUSED_SA"] = before
+    if launches_fused != {"K1": 0, "K2": 2, "K3": 0, "K4": 2, "K6": 2}:
+        raise AssertionError(f"launches on the fused route: {launches_fused}")
+    _check_sample(x, tiled[0], cfg, 135)
+    err = float((memory - memory_unfused).abs().max())
+    emit({"phase": "eval", "gpu": gpu, "path": "INTERDIFF_FUSED_SA=1",
+          "steps": short.num_timesteps, "launches": launches_fused,
+          "encode_ms_fused": fused_ms, "encode_ms_unfused": unfused_ms,
+          "memory_max_abs_diff_vs_unfused": err,
+          "tolerance": FUSED_MEMORY_TOL,
+          "tolerance_reason": FUSED_MEMORY_TOL_REASON})
+    if not err <= FUSED_MEMORY_TOL:
+        raise AssertionError(f"fused encode differs from the unfused by "
+                             f"{err} > {FUSED_MEMORY_TOL}")
+    return {**launches, "K6": launches_fused["K6"]}
 
 
 def phase_profile(models, gpu: str) -> None:
@@ -793,17 +1165,20 @@ def main() -> int:
         print(f"chip_smoke: sees {torch.cuda.device_count()} devices, runs "
               "on one: set CUDA_VISIBLE_DEVICES to one card", file=sys.stderr)
         return 2
-    from interdiff_torch.ops import group, nn, pointcloud
+    from interdiff_torch.ops import group, nn, pointcloud, sa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_name_and_power()
-    phase_build(group, nn, gpu)
+    phase_build(group, nn, sa, gpu)
     models = full_width_models()
     timed = {"K1": phase_kernels(group, pointcloud, gpu),
-             **phase_kernels_nn(nn, models[2], gpu)}
+             **phase_kernels_nn(nn, models[2], gpu),
+             "K6": phase_kernels_sa(sa, group, pointcloud, gpu)}
     phase_slice_cpu_vs_gpu(gpu)
-    launches = phase_sampler(group, nn, models, gpu)
+    phase_slice_eval_cpu_vs_gpu(gpu)
+    phase_sampler(group, nn, sa, models, gpu)
+    launches = phase_eval(group, nn, sa, models, gpu)
     phase_profile(models, gpu)
 
     print(gpu)
@@ -815,14 +1190,16 @@ def main() -> int:
         **{k: timed[key][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        **{k: timed[key][k] for k in ("frames", "plain_frames")
+        **{k: timed[key][k] for k in ("frames", "plain_frames", "unfused_ms")
            if k in timed[key]}}
         for key, name, source, replaces in (
             ("K1", "K1 ball_group", "ball_group.cu", "pallas_group.py:143"),
             ("K2", "K2 signed_nearest_pruned", "nn.cu", "pallas_nn.py:352"),
             ("K3", "K3 signed_nearest (forward)", "nn.cu",
              "pallas_nn.py:145"),
-            ("K4", "K4 nearest_neighbor", "nn.cu", "pallas_nn.py:107"))]})
+            ("K4", "K4 nearest_neighbor", "nn.cu", "pallas_nn.py:107"),
+            ("K6", "K6 fused_sa_scale (forward)", "sa.cu",
+             "pallas_sa.py:194"))]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

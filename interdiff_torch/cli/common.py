@@ -1,12 +1,72 @@
-"""Shared set-up of the SMPL entry points (`interdiff_tpu/cli/common.py`).
-This slice holds the stand-in body only; the argument parsers and loaders
-come with the eval CLI."""
+"""Shared set-up of the SMPL entry points (`interdiff_tpu/cli/common.py`):
+seeding, the `--synthetic` batches and stand-in body, and the loader of the
+port's own weight files.  The readers of orbax directories and of the
+reference's Lightning checkpoints are not ported: a checkpoint comes across
+once, through `utils/convert.py`, and is kept as a `torch.save`d state dict.
+"""
 
 from __future__ import annotations
 
+from typing import Dict, Iterator, Optional
+
 import numpy as np
+import torch
 
 from interdiff_torch.smpl.model import SmplModel
+from interdiff_torch.utils.convert import load_state_dict
+
+
+def seed_everything(seed: int = 233) -> np.random.Generator:
+    """Seed numpy's and torch's global generators and return the numpy
+    `Generator` that the synthetic data is drawn from."""
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    return np.random.default_rng(seed)
+
+
+def synthetic_smpl_batches(rng: np.random.Generator, *, batch_size: int,
+                           seq_len: int, num_points: int = 512,
+                           num_verts: int = 64, steps: int = 4
+                           ) -> Iterator[Dict[str, np.ndarray]]:
+    """Random BEHAVE-shaped batches, the same draws in the same order as
+    `interdiff_tpu/cli/common.py::synthetic_smpl_batches`, so that one seed
+    gives one batch on both sides."""
+    B, T = batch_size, seq_len
+    for _ in range(steps):
+        yield {
+            "body_pose": rng.standard_normal((B, T, 156)).astype(np.float32) * 0.2,
+            "body_betas": rng.standard_normal((B, T, 10)).astype(np.float32),
+            "body_trans": rng.standard_normal((B, T, 3)).astype(np.float32),
+            "obj_angles": rng.standard_normal((B, T, 3)).astype(np.float32),
+            "obj_trans": rng.standard_normal((B, T, 3)).astype(np.float32),
+            "markers": rng.standard_normal((B, T, 67, 7)).astype(np.float32),
+            "human_verts": rng.standard_normal(
+                (B, T, num_verts, 7)).astype(np.float32),
+            "obj_points": rng.standard_normal(
+                (B, num_points, 6)).astype(np.float32),
+            "obj_points_frames": rng.standard_normal(
+                (B, T, num_points, 7)).astype(np.float32),
+            "ground_joint_label": np.zeros((B, T, 2), np.float32),
+            "gender": np.zeros((B,), np.int32),
+        }
+
+
+def fit_batch_size(num_clips: int, batch_size: int) -> int:
+    """Shrink the batch to the corpus so that drop-last batching cannot
+    yield zero batches on a small corpus."""
+    if 0 < num_clips < batch_size:
+        print(f"only {num_clips} clip windows; shrinking batch "
+              f"{batch_size} -> {num_clips}")
+        return num_clips
+    return batch_size
+
+
+def load_weights(module: torch.nn.Module, path: Optional[str]) -> None:
+    """Load a `utils/convert.py::save_state_dict` file into ``module``, every
+    key matched; without a path the module keeps its initial weights."""
+    if path:
+        device = next(module.parameters()).device
+        module.load_state_dict(load_state_dict(path, device), strict=True)
 
 
 def synthetic_smpl_body(rng: np.random.Generator, *, num_verts: int = 128,

@@ -15,9 +15,12 @@
 // Design: one thread per (b, m) query, the threads of a warp on neighbouring
 // m, so each step of the walk over n reads 32 consecutive floats of a d2t
 // row (coalesced).  No [N, M] intermediate is kept: the running hit count
-// lives in a register and a thread stops at its S-th hit.
+// lives in a register and a thread stops at its S-th hit.  The walk itself is
+// ball_walk.cuh, which K6 (sa.cu) shares.
 
 #include <cuda_runtime.h>
+
+#include "ball_walk.cuh"
 
 namespace {
 
@@ -36,18 +39,14 @@ __global__ void ball_group_kernel(const float* __restrict__ d2t,
   float* row_out = out + ((size_t)b * M + m) * S * C;
   const float cx = center[0], cy = center[1], cz = center[2];
 
-  int hits = 0;
-  for (int n = 0; n < N && hits < S; ++n) {
-    if (col[(size_t)n * M] < r2) {
-      const float* src = rows + (size_t)n * C;
-      float* dst = row_out + (size_t)hits * C;
-      dst[0] = src[0] - cx;
-      dst[1] = src[1] - cy;
-      dst[2] = src[2] - cz;
-      for (int c = 3; c < C; ++c) dst[c] = src[c];
-      ++hits;
-    }
-  }
+  int hits = ball_walk(col, N, M, S, r2, [&](int slot, int n) {
+    const float* src = rows + (size_t)n * C;
+    float* dst = row_out + (size_t)slot * C;
+    dst[0] = src[0] - cx;
+    dst[1] = src[1] - cy;
+    dst[2] = src[2] - cz;
+    for (int c = 3; c < C; ++c) dst[c] = src[c];
+  });
 
   if (hits == 0) {  // zero-hit row: candidate 0, recentered
     row_out[0] = rows[0] - cx;

@@ -1,12 +1,14 @@
 """Gaussian diffusion engine over a precomputed schedule
-(`interdiff_tpu/diffusion/gaussian.py`), ancestral DDPM sampling only.
+(`interdiff_tpu/diffusion/gaussian.py`): ancestral DDPM, DDIM and PLMS
+sampling.
 
 The schedule is computed in float64 numpy and cast once to float32 tensors
-on the engine's device.  ``p_sample_loop`` is a Python loop over the kept
+on the engine's device.  Each sampling loop is a Python loop over the kept
 timesteps; observation inpainting overwrites the model's x0 prediction on
 the masked (past) elements, and ``denoised_fn`` is the correction hook.
-DDIM, PLMS, learned variances, x_{t-1} prediction, the training losses and
-the variational-bound terms are not ported yet.
+Learned variances, x_{t-1} prediction, classifier guidance (``cond_fn``),
+``ddim_reverse_sample``, the training losses and the variational-bound terms
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -182,6 +184,12 @@ class GaussianDiffusion:
         return (_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
                 - _extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
 
+    def predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        nd = x_t.ndim
+        return ((_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
+                 - pred_xstart)
+                / _extract(self.sqrt_recipm1_alphas_cumprod, t, nd))
+
     # -- reverse process -------------------------------------------------------
     def p_mean_variance(self, model_fn: Callable, x, t, *,
                         denoised_fn: Optional[Callable] = None,
@@ -233,6 +241,17 @@ class GaussianDiffusion:
                   + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise)
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
+    def _initial(self, shape, noise, generator, inpaint):
+        """The loops' first image: explicit ``noise`` as it is (the eval
+        harnesses pass it, and the initial inpainting overwrite is then
+        skipped), else a draw from ``generator`` with the overwrite."""
+        if noise is not None:
+            return noise
+        img = torch.randn(shape, generator=generator, device=self.device)
+        if inpaint is not None:
+            img = torch.where(inpaint.mask, inpaint.motion, img)
+        return img
+
     @torch.no_grad()
     def p_sample_loop(self, model_fn, shape=None, *, noise=None,
                       step_noise=None, generator=None, denoised_fn=None,
@@ -249,22 +268,127 @@ class GaussianDiffusion:
         is applied.  ``step_noise`` [num_timesteps, *shape] replaces the
         per-step draws, first row for t = T-1.
         """
-        if noise is None:
-            img = torch.randn(shape, generator=generator, device=self.device)
-            if inpaint is not None:
-                img = torch.where(inpaint.mask, inpaint.motion, img)
-        else:
-            img = noise
+        img = self._initial(shape, noise, generator, inpaint)
         B = img.shape[0]
-        takes_step = denoised_fn is not None and "step" in \
-            inspect.signature(denoised_fn).parameters
+        hook_at = _step_hook(denoised_fn)
         for n, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
             t = torch.full((B,), i, dtype=torch.int64, device=img.device)
-            hook = (functools.partial(denoised_fn, step=i) if takes_step
-                    else denoised_fn)
             img = self.p_sample(
                 model_fn, img, t,
                 noise=None if step_noise is None else step_noise[n],
-                generator=generator, denoised_fn=hook,
+                generator=generator, denoised_fn=hook_at(i),
                 inpaint=inpaint)["sample"]
         return img
+
+    # -- DDIM -------------------------------------------------------------------
+    def ddim_sample(self, model_fn, x, t, *, generator=None,
+                    denoised_fn=None, inpaint=None, eta: float = 0.0):
+        """One DDIM step (`interdiff_tpu/diffusion/gaussian.py:405-422`);
+        with ``eta`` = 0 it is deterministic and draws nothing."""
+        out = self.p_mean_variance(model_fn, x, t, denoised_fn=denoised_fn,
+                                   inpaint=inpaint)
+        nd = x.ndim
+        eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar = _extract(self.alphas_cumprod, t, nd)
+        alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
+        sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                     + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+        sample = mean_pred
+        if eta != 0.0:
+            noise = torch.randn(x.shape, generator=generator, device=x.device,
+                                dtype=x.dtype)
+            nonzero_mask = (t != 0).to(x.dtype).reshape(
+                (-1,) + (1,) * (nd - 1))
+            sample = mean_pred + nonzero_mask * sigma * noise
+        return {"sample": sample, "pred_xstart": out["pred_xstart"]}
+
+    @torch.no_grad()
+    def ddim_sample_loop(self, model_fn, shape=None, *, noise=None,
+                         generator=None, denoised_fn=None,
+                         inpaint: Optional[Inpaint] = None,
+                         eta: float = 0.0):
+        """DDIM sampling, t = T-1 .. 0; ``noise``, ``inpaint`` and the
+        ``step`` keyword of ``denoised_fn`` as in :meth:`p_sample_loop`."""
+        img = self._initial(shape, noise, generator, inpaint)
+        B = img.shape[0]
+        hook_at = _step_hook(denoised_fn)
+        for i in range(self.num_timesteps - 1, -1, -1):
+            t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+            img = self.ddim_sample(model_fn, img, t, generator=generator,
+                                   denoised_fn=hook_at(i), inpaint=inpaint,
+                                   eta=eta)["sample"]
+        return img
+
+    # -- PLMS (pseudo linear multistep) -----------------------------------------
+    @torch.no_grad()
+    def plms_sample_loop(self, model_fn, shape=None, *, noise=None,
+                         generator=None, denoised_fn=None,
+                         inpaint: Optional[Inpaint] = None, order: int = 2):
+        """PLMS sampling (`interdiff_tpu/diffusion/gaussian.py:466-543`).
+
+        The first step uses the pseudo improved Euler warm-up: a second
+        model call at t - 1 on the first estimate, which passes through the
+        inpainting and ``denoised_fn`` like every call (the hook's ``step``
+        is then t - 1).  Later steps combine up to ``order`` stored eps
+        predictions with the Adams-Bashforth weights.
+        """
+        if not 1 <= order <= 4:
+            raise ValueError("order must be 1..4")
+        img = self._initial(shape, noise, generator, inpaint)
+        B, nd = img.shape[0], img.ndim
+        hook_at = _step_hook(denoised_fn)
+
+        def model_eps(x, t, step):
+            out = self.p_mean_variance(model_fn, x, t,
+                                       denoised_fn=hook_at(step),
+                                       inpaint=inpaint)
+            return (self.predict_eps_from_xstart(x, t, out["pred_xstart"]),
+                    out["pred_xstart"])
+
+        # Adams-Bashforth weights in float32, row cur_order - 1; columns
+        # weight the newest eps first
+        ab = np.asarray([
+            [1.0, 0.0, 0.0, 0.0],
+            [3 / 2, -1 / 2, 0.0, 0.0],
+            [23 / 12, -16 / 12, 5 / 12, 0.0],
+            [55 / 24, -59 / 24, 37 / 24, -9 / 24],
+        ], dtype=np.float32)
+
+        hist = []  # earlier eps predictions, newest first, order - 1 kept
+        for count, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+            eps, x0 = model_eps(img, t, i)
+            alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
+            if count == 0 and order > 1:
+                mean1 = (x0 * torch.sqrt(alpha_bar_prev)
+                         + torch.sqrt(1 - alpha_bar_prev) * eps)
+                eps2, _ = model_eps(mean1, (t - 1).clamp(min=0),
+                                    max(i - 1, 0))
+                eps_prime = (eps + eps2) / 2.0
+            else:
+                w = ab[min(count + 1, order) - 1]
+                eps_prime = float(w[0]) * eps
+                # slots the history has not filled yet hold zeros on the
+                # JAX side: adding nothing is the same
+                for k, old in enumerate(hist, start=1):
+                    eps_prime = eps_prime + float(w[k]) * old
+            pred_prime = self.predict_xstart_from_eps(img, t, eps_prime)
+            mean_pred = (pred_prime * torch.sqrt(alpha_bar_prev)
+                         + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
+            # at t = 0 the sample is the x0 prediction itself
+            img = mean_pred if i != 0 else x0
+            if order > 1:
+                hist = [eps] + hist[:order - 2]
+        return img
+
+
+def _step_hook(denoised_fn: Optional[Callable]) -> Callable:
+    """``hook_at(step)``: the hook a loop hands to `p_mean_variance` at
+    timestep ``step``.  A ``denoised_fn`` that takes a keyword ``step`` gets
+    the Python int bound, so it need not read ``t`` back from the device."""
+    if denoised_fn is None or "step" not in inspect.signature(
+            denoised_fn).parameters:
+        return lambda step: denoised_fn
+    return lambda step: functools.partial(denoised_fn, step=step)

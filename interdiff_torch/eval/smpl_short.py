@@ -9,8 +9,8 @@ vertex normals, the object->body signed nearest-neighbour sweep (kernel K2,
 or K3 without pruning), the marker->object nearest neighbour (kernel K4),
 the projector and a per-sample gated blend.  The loop is a Python loop; the
 hook decides on the host whether a step fires, and everything per row stays
-a `torch.where` on the device.  The DDIM and PLMS samplers come with a later
-slice, and asking for them raises.
+a `torch.where` on the device.  ``make_sampler(sampler=...)`` picks the
+ancestral DDPM loop (the reference's default), DDIM or PLMS.
 """
 
 from __future__ import annotations
@@ -220,10 +220,9 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
     if use_correction and (smpl is None or projector is None):
         raise ValueError("use_correction=True needs the body model `smpl` "
                          "and the `projector`")
-    if sampler != "ddpm":
-        raise NotImplementedError(
-            f"the {sampler!r} sampler comes with a later slice of the port; "
-            "this one has 'ddpm'")
+    if sampler not in ("ddpm", "ddim", "plms"):
+        raise ValueError(f"unknown sampler {sampler!r}: the port has "
+                         "'ddpm', 'ddim' and 'plms'")
     # tie selection in the ball query, the skinning products and parity
     # with the reference need full-f32 matmuls and convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -242,10 +241,18 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
         if noise is None:
             noise = torch.randn(gt.shape, generator=generator,
                                 device=gt.device, dtype=gt.dtype)
-        return diffusion.p_sample_loop(
-            lambda x, ts: model.denoise(x, ts, memory), noise=noise,
-            step_noise=step_noise, generator=generator,
-            inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
+        kwargs = dict(noise=noise, generator=generator,
+                      inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
+
+        def model_fn(x, ts):
+            return model.denoise(x, ts, memory)
+
+        if sampler == "ddim":
+            return diffusion.ddim_sample_loop(model_fn, **kwargs)
+        if sampler == "plms":
+            return diffusion.plms_sample_loop(model_fn, **kwargs)
+        return diffusion.p_sample_loop(model_fn, step_noise=step_noise,
+                                       **kwargs)
 
     if reuse_memory:
         return _run

@@ -4,12 +4,16 @@ i.e. bias-free Linear layers over the channel axis.
 
 Stage 1 (4 data channels) groups through kernel K1 (`ops/group.py`), which
 runs on the card for a CUDA tensor; stage 2 (99 channels, one center) uses
-plain `query_and_group`.  BatchNorm runs in inference mode on its running
-statistics; train-mode BatchNorm is not ported yet.
+plain `query_and_group`.  With the environment variable
+``INTERDIFF_FUSED_SA`` set (the JAX package reads the same one), a narrow
+stage runs each radius scale whole through kernel K6 (`ops/sa.py`) instead
+of K1 + `SharedMLP` + ``amax``.  BatchNorm runs in inference mode on its
+running statistics; train-mode BatchNorm is not ported yet.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -24,6 +28,7 @@ from interdiff_torch.ops.pointcloud import (
     pairwise_sqdist,
     query_and_group,
 )
+from interdiff_torch.ops.sa import folded_affine, fused_sa_scale
 
 
 class SharedMLP(nn.Module):
@@ -78,12 +83,20 @@ class SAModuleMSG(nn.Module):
         # route by width alone: a CUDA cloud that is not float32 reaches K1's
         # wrapper and raises there rather than grouping off the kernel
         fused = c_data <= MAX_C
+        # opt-in: the whole scale in one kernel (K6), read at call time
+        fused_sa = fused and bool(os.environ.get("INTERDIFF_FUSED_SA"))
         # one distance matrix shared by every radius scale; K1 streams the
         # transposed [B, N, M] layout
         d2 = (pairwise_sqdist_t(xyz, new_xyz) if fused
               else pairwise_sqdist(new_xyz, xyz))
         outs = []
         for s, (radius, nsample) in enumerate(zip(self.radii, self.nsamples)):
+            if fused_sa:
+                outs.append(fused_sa_scale(
+                    xyz, new_xyz, features,
+                    folded_affine(getattr(self, f"mlp{s}")), radius, nsample,
+                    d2))
+                continue
             if fused:
                 grouped = fused_query_group(xyz, new_xyz, features, radius,
                                             nsample, d2)

@@ -1,12 +1,14 @@
 """Builds the package's CUDA sources into shared libraries with nvcc.
 
 A source `csrc/<name>.cu` with a plain C interface becomes
-``_build/<name>_<hash of the source>.so`` at first use and is rebuilt when
-the source changes.  The wrappers load it with `ctypes`.
+``_build/<name>_<hash of the source and of the headers `csrc/*.cuh`>.so`` at
+first use and is rebuilt when any of them changes.  The wrappers load it
+with `ctypes`.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -24,11 +26,15 @@ def _nvcc() -> str:
 
 
 def build(name: str) -> str:
-    """Compile `csrc/<name>.cu` for sm_90a (once per source hash) and return
-    the library's path."""
+    """Compile `csrc/<name>.cu` for sm_90a (once per hash of the source and
+    the shared headers) and return the library's path."""
     source = os.path.join(_PACKAGE, "csrc", f"{name}.cu")
-    with open(source, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    sha = hashlib.sha256()
+    for path in [source] + sorted(
+            glob.glob(os.path.join(_PACKAGE, "csrc", "*.cuh"))):
+        with open(path, "rb") as f:
+            sha.update(f.read())
+    digest = sha.hexdigest()[:16]
     so_path = os.path.join(_BUILD_DIR, f"{name}_{digest}.so")
     if not os.path.exists(so_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)

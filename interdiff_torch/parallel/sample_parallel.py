@@ -4,6 +4,8 @@ axis, so one sampler call covers them all."""
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 
@@ -19,3 +21,11 @@ def tile_for_diverse_samples(batch, n: int):
 def split_diverse_samples(x: torch.Tensor, n: int) -> torch.Tensor:
     """[n*B, ...] -> [n, B, ...]."""
     return x.reshape((n, -1) + tuple(x.shape[1:]))
+
+
+def best_of_n_metrics(metrics: Dict[str, torch.Tensor], n: int
+                      ) -> Dict[str, torch.Tensor]:
+    """Per-sample metric dict over a tiled batch [n*B] -> the minimum over
+    the n samples of each clip [B] (the reference's `.min(dim=0)`)."""
+    return {k: split_diverse_samples(v, n).amin(dim=0)
+            for k, v in metrics.items()}

@@ -13,11 +13,16 @@ only renames leaves and transposes dense kernels:
 
 The tree is nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables); the bridge itself needs neither jax nor flax.
+
+``save_state_dict`` / ``load_state_dict`` keep a bridged ``state_dict`` in the
+port's own checkpoint format, a plain `torch.save` of the dict, which the
+entry points read (`cli/eval_smpl_short.py --diffusion_ckpt`).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import os
+from typing import Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -64,3 +69,21 @@ def flax_to_torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
                 raise ValueError(f"two flax leaves map to {key}")
             out[key] = torch.from_numpy(np.array(value, order="C"))
     return out
+
+
+def save_state_dict(path: Union[str, os.PathLike],
+                    state: Mapping[str, torch.Tensor]) -> None:
+    """Write ``state`` (name -> tensor) with `torch.save`, tensors on the
+    CPU."""
+    torch.save({k: v.detach().cpu() for k, v in state.items()}, path)
+
+
+def load_state_dict(path: Union[str, os.PathLike], device=None
+                    ) -> Dict[str, torch.Tensor]:
+    """Read a file of :func:`save_state_dict` onto ``device`` (the CPU when
+    not given).  ``weights_only=True``: nothing but tensors is unpickled."""
+    state = torch.load(path, map_location=device or "cpu", weights_only=True)
+    if not isinstance(state, dict) or not all(
+            isinstance(v, torch.Tensor) for v in state.values()):
+        raise ValueError(f"{path} does not hold a name -> tensor state dict")
+    return state

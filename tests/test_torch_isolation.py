@@ -1,7 +1,7 @@
 """`interdiff_torch` stands alone: importing every module of it loads
-neither jax, flax nor `interdiff_tpu`, and an entry point asked for the
-default device with no CUDA device present raises instead of running on
-the CPU."""
+neither jax, flax nor `interdiff_tpu`, nor does a run of its eval entry
+point, and an entry point asked for the default device with no CUDA device
+present raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -32,7 +32,43 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 32
+    assert n_modules >= 35
+    for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa"):
+        assert os.path.exists(os.path.join(
+            ROOT, "interdiff_torch", *module.split(".")) + ".py")
+
+
+_RUN_CLI = r"""
+import sys
+from interdiff_torch.cli.eval_smpl_short import main
+totals, batches = main(["--device", "cpu", "--synthetic", "1", "--batch_size",
+                        "2", "--diverse_samples", "2", "--respacing", "5",
+                        "--sampler", "plms"])
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax",
+                                 "interdiff_tpu")]
+assert batches == 1 and len(totals) == 6 and not banned, (totals, banned)
+"""
+
+
+def test_eval_entry_point_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", _RUN_CLI], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "'penetrate':" in out.stdout.splitlines()[-1]
+
+
+def test_eval_entry_point_stops_without_a_card():
+    """`python -m interdiff_torch.cli.eval_smpl_short` with no `--device` and
+    no CUDA device ends with an error, not with a run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "interdiff_torch.cli.eval_smpl_short",
+         "--synthetic", "1", "--batch_size", "2", "--respacing", "5"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "penetrate" not in out.stdout
 
 
 def test_default_device_without_cuda_raises(monkeypatch):
