@@ -1,7 +1,7 @@
 // One whole PointNet++ MSG radius scale on Hopper (sm_90a): kernel K6.
 //
-// Replaces interdiff_tpu/ops/pallas_sa.py::_sa_pallas (_make_sa_kernel,
-// with_grouped=False).  For query m of cloud b:
+// Replaces interdiff_tpu/ops/pallas_sa.py::_sa_pallas (_make_sa_kernel, both
+// with_grouped variants).  For query m of cloud b:
 //   * slot s takes the s-th candidate n (in index order) with
 //     d2t[b, n, m] < r2: K1's selection, the walk of ball_walk.cuh;
 //   * a zero-hit row takes data row 0; a short row would repeat its first
@@ -16,7 +16,13 @@
 //     arithmetic of the plain PyTorch version in ops/sa.py step by step, so
 //     the two agree bit for bit;
 //   * the output is the running maximum over the slots, started from 0
-//     (every layer ends in ReLU).
+//     (every layer ends in ReLU);
+//   * with a `grouped` pointer (the with_grouped variant, which a
+//     differentiated forward asks for) the recentered chain input of every
+//     slot is also written, [B, M, S, C]: the distinct slots as they are
+//     evaluated, then the first slot again for the rest of a short row, so
+//     that all S slots are written while each distinct one is still evaluated
+//     once.  The values are K1's (ball_group.cu), bit for bit.
 // Selection, fix-ups, recentering, the layer products, the affine, the ReLU
 // and the maximum all happen here; d2t comes from outside and is the tensor
 // that K1 and both plain versions read.
@@ -33,8 +39,10 @@
 // another lane's chain.  Phase 2: a warp takes one query at a time, lane c
 // owns output channel c (and c + 32, ...), the layer input is broadcast from
 // shared memory and W[k, c] read conflict-free from the block's copy of the
-// folded weights (13.8 KB for 4->32->32->64); neither the grouped tensor
-// [B, M, S, C] nor any hidden activation [B, M, S, h] reaches device memory.
+// folded weights (13.8 KB for 4->32->32->64); no hidden activation
+// [B, M, S, h] reaches device memory, and the grouped tensor [B, M, S, C]
+// only when the caller asks for it (16 bytes a slot, written by the C lanes
+// that hold the chain's input).
 // Nothing of the TPU kernel's [N, TM] rank scratch, its prefix scan or its
 // tile-size rule is needed here.
 
@@ -59,6 +67,7 @@ __global__ void __launch_bounds__(QUERIES)
 sa_scale_kernel(const float* __restrict__ d2t, const float* __restrict__ data,
                 const float* __restrict__ new_xyz,
                 const float* __restrict__ params, float* __restrict__ out,
+                float* __restrict__ grouped,  // [B, M, S, C] or null
                 int N, int M, int C, int S, float r2, SaShape shape,
                 int n_params, int buf_width) {
   extern __shared__ float smem[];
@@ -98,12 +107,16 @@ sa_scale_kernel(const float* __restrict__ d2t, const float* __restrict__ data,
     float best[CHUNKS];
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j) best[j] = 0.0f;
+    float first = 0.0f;  // lane c: channel c of the row's first slot
 
     for (int s = 0; s < slots; ++s) {
       const int n = cnt > 0 ? s_hit[s * QUERIES + q] : 0;
       if (lane < C) {
-        const float v = rows[(size_t)n * C + lane];
-        buf0[lane] = lane < 3 ? __fsub_rn(v, center) : v;
+        float v = rows[(size_t)n * C + lane];
+        if (lane < 3) v = __fsub_rn(v, center);
+        buf0[lane] = v;
+        if (s == 0) first = v;
+        if (grouped) grouped[(query * S + s) * C + lane] = v;
       }
       __syncwarp();
 
@@ -140,6 +153,11 @@ sa_scale_kernel(const float* __restrict__ d2t, const float* __restrict__ data,
       }
     }
 
+    if (grouped && lane < C) {  // a short row repeats its first slot
+      for (int s = slots; s < S; ++s) {
+        grouped[(query * S + s) * C + lane] = first;
+      }
+    }
 #pragma unroll
     for (int j = 0; j < CHUNKS; ++j) {
       const int c = lane + 32 * j;
@@ -154,13 +172,15 @@ extern "C" int sa_max_layers() { return MAX_LAYERS; }
 extern "C" int sa_max_width() { return MAX_WIDTH; }
 
 // d2t [B, N, M], data [B, N, C] (xyz in channels 0-2), new_xyz [B, M, 3],
-// out [B, M, widths[n_layers]]; params holds, layer after layer,
+// out [B, M, widths[n_layers]], grouped [B, M, S, C] or null (not written);
+// params holds, layer after layer,
 // W [cin, cout] row-major, a [cout], b [cout]; all float32, contiguous, on
 // the device.  `widths` is a host array of n_layers + 1 ints, widths[0] = C.
 // Launches on `stream` and returns a cudaError_t as an int (0 = launched).
 extern "C" int sa_scale_f32(const float* d2t, const float* data,
                             const float* new_xyz, const float* params,
-                            float* out, int B, int N, int M, int C, int S,
+                            float* out, float* grouped, int B, int N, int M,
+                            int C, int S,
                             float r2, int n_layers, const int* widths,
                             void* stream) {
   if (n_layers < 1 || n_layers > MAX_LAYERS || widths[0] != C) {
@@ -194,7 +214,7 @@ extern "C" int sa_scale_f32(const float* d2t, const float* data,
   dim3 grid((M + QUERIES - 1) / QUERIES, B);
   sa_scale_kernel<<<grid, QUERIES, bytes,
                     static_cast<cudaStream_t>(stream)>>>(
-      d2t, data, new_xyz, params, out, N, M, C, S, r2, shape, n_params,
-      buf_width);
+      d2t, data, new_xyz, params, out, grouped, N, M, C, S, r2, shape,
+      n_params, buf_width);
   return static_cast<int>(cudaGetLastError());
 }

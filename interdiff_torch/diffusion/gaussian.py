@@ -1,14 +1,13 @@
 """Gaussian diffusion engine over a precomputed schedule
 (`interdiff_tpu/diffusion/gaussian.py`): ancestral DDPM, DDIM and PLMS
-sampling.
+sampling, and the training pair ``training_losses``.
 
 The schedule is computed in float64 numpy and cast once to float32 tensors
 on the engine's device.  Each sampling loop is a Python loop over the kept
 timesteps; observation inpainting overwrites the model's x0 prediction on
 the masked (past) elements, and ``denoised_fn`` is the correction hook.
 Learned variances, x_{t-1} prediction, classifier guidance (``cond_fn``),
-``ddim_reverse_sample``, the training losses and the variational-bound terms
-are not ported yet.
+``ddim_reverse_sample`` and the variational-bound terms are not ported yet.
 """
 
 from __future__ import annotations
@@ -167,6 +166,13 @@ class GaussianDiffusion:
             return new_ts.float() * (1000.0 / self.original_num_steps)
         return new_ts
 
+    def q_mean_variance(self, x_start, t):
+        """Mean, variance and log-variance of q(x_t | x_0)."""
+        nd = x_start.ndim
+        return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start,
+                _extract(1.0 - self.alphas_cumprod, t, nd),
+                _extract(self.log_one_minus_alphas_cumprod, t, nd))
+
     def q_sample(self, x_start, t, noise):
         nd = x_start.ndim
         return (_extract(self.sqrt_alphas_cumprod, t, nd) * x_start
@@ -189,6 +195,24 @@ class GaussianDiffusion:
         return ((_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
                  - pred_xstart)
                 / _extract(self.sqrt_recipm1_alphas_cumprod, t, nd))
+
+    # -- training ---------------------------------------------------------------
+    def training_losses(self, model_fn, x_start, t, *, noise,
+                        inpaint: Optional[Inpaint] = None):
+        """``(model_output, target)`` of one training draw
+        (`interdiff_tpu/diffusion/gaussian.py:545-561`): the model's output
+        on ``q_sample(x_start, t, noise)`` (inpainted where asked) and what
+        it is trained to match, x0 or the noise; the weighted loss lives in
+        `train/losses.py`."""
+        x_t = self.q_sample(x_start, t, noise)
+        if inpaint is not None:
+            if self.model_mean_type != ModelMeanType.START_X:
+                raise ValueError("inpainting needs an x0-predicting model")
+            x_t = torch.where(inpaint.mask, inpaint.motion, x_t)
+        model_output = model_fn(x_t, self.model_timesteps(t))
+        target = (x_start if self.model_mean_type == ModelMeanType.START_X
+                  else noise)
+        return model_output, target
 
     # -- reverse process -------------------------------------------------------
     def p_mean_variance(self, model_fn: Callable, x, t, *,

@@ -215,7 +215,8 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
     evaluation encodes once and shares the memory across the diverse
     samples.  ``noise`` [B,T,144] is the initial sample and ``step_noise``
     [steps, B,T,144] the per-step draws; what is not given is drawn from
-    ``generator``.
+    ``generator``.  The sampler records no graph, whatever the caller's
+    gradient mode (a trainer validates with it).
     """
     if use_correction and (smpl is None or projector is None):
         raise ValueError("use_correction=True needs the body model `smpl` "
@@ -228,6 +229,7 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    @torch.no_grad()
     def _run(gt, obj_points6, hand_pose, betas, memory, *, noise=None,
              step_noise=None, generator=None):
         mask = torch.zeros_like(gt, dtype=torch.bool)
@@ -257,6 +259,7 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
     if reuse_memory:
         return _run
 
+    @torch.no_grad()
     def sample(gt, obj_points6, hand_pose, betas, *, noise=None,
                step_noise=None, generator=None):
         memory = model.encode(gt, obj_points6)

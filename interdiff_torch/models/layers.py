@@ -8,8 +8,10 @@ bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
 packed ``in_proj_kernel`` [D, 3D] layout, QaN layers keep ``queries``
 [N, D] and ``wk`` [N, 1].  Every layer is post-norm, LayerNorm eps is 1e-5,
 GELU is the exact erf form.  Dropout is inference-only (rate 0 in every
-reference run), so it is not modelled.  BatchNorm runs in inference mode on
-its running statistics; train-mode BatchNorm is not ported yet.
+reference run), so it is not modelled.  ``BatchNormEval`` (the correction
+networks) runs on its running statistics; ``BatchNorm`` (the PointNet++
+encoder) also has flax's train mode and keeps its statistics as parameters,
+because the JAX package's default train step optimises them.
 """
 
 from __future__ import annotations
@@ -258,6 +260,47 @@ class BatchNormEval(nn.Module):
     def forward(self, x):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         return (x - self.running_mean) * mul + self.bias
+
+
+class BatchNorm(BatchNormEval):
+    """``BatchNormEval`` whose running statistics are parameters, with a
+    train mode.
+
+    In the JAX package's default train step the encoder's ``batch_stats``
+    sit inside the optimised tree: the loss is differentiated with respect
+    to them and AdamW steps them.  So here ``running_mean`` and
+    ``running_var`` (same state-dict names) are parameters; a trainer that
+    wants them out of the optimiser (``bn_train_mode``) switches their
+    ``requires_grad`` off and calls ``forward(x, train=True)``.
+
+    ``train=True`` is flax's `nn.BatchNorm(use_running_average=False,
+    momentum=0.9)`: statistics over every axis but the last, the variance
+    as max(0, E[x^2] - E[x]^2) (biased), gradients through both, and the
+    running statistics moved in place to 0.9 * running + 0.1 * batch (the
+    biased variance, where `torch.nn.BatchNorm` stores the unbiased one).
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__(channels, eps)
+        self.momentum = momentum
+        for name in ("running_mean", "running_var"):
+            value = self._buffers.pop(name)
+            self.register_parameter(name, nn.Parameter(value))
+
+    def forward(self, x, train: bool = False):
+        if not train:
+            return super().forward(x)
+        axes = tuple(range(x.ndim - 1))
+        mean = x.mean(dim=axes)
+        var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+        with torch.no_grad():
+            for running, batch in ((self.running_mean, mean),
+                                   (self.running_var, var)):
+                running.mul_(self.momentum).add_(batch,
+                                                 alpha=1.0 - self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 def _uniform(shape: Tuple[int, ...], bound: float) -> nn.Parameter:

@@ -45,13 +45,17 @@ def smpl_gt_from_raw(body_pose_aa: torch.Tensor, body_trans: torch.Tensor,
 
 
 class MDMSmpl(nn.Module):
-    """MDM denoiser for the SMPL (BEHAVE) track, inference mode.
+    """MDM denoiser for the SMPL (BEHAVE) track.
 
     Defaults mirror `train_diffusion_smpl.py:538-604`: smpl_dim 132, d_model
     256, 4 heads, ff 1024, gelu, 8+8 layers, past 10 / future 25, PointNet++
     object encoder with grouped FPS.  Built on ``device`` (CUDA unless
-    given).  Dropout (0 in every reference run) and classifier-free masking
-    at train time are not modelled.
+    given).  ``encode`` and ``denoise`` record a graph when a parameter
+    requires a gradient; callers that only sample hold `torch.no_grad`
+    themselves (the sampling loops and `make_sampler` do).  The train step
+    runs the denoiser as built here, in eval mode, as the JAX package's does
+    (``train=False``): dropout (0 in every reference run) and classifier-free
+    masking at train time are not modelled.
     """
 
     def __init__(self, smpl_dim: int = 132, embed_dim: int = 256,
@@ -64,8 +68,8 @@ class MDMSmpl(nn.Module):
         super().__init__()
         if dropout != 0.0 or cond_mask_prob != 0.0:
             raise NotImplementedError(
-                "dropout and classifier-free masking at train time come "
-                "with the training slice")
+                "dropout and classifier-free masking at train time are "
+                "not ported")
         if not use_pointnet2:
             raise NotImplementedError("only the PointNet++ object encoder "
                                       "is ported")
@@ -100,18 +104,20 @@ class MDMSmpl(nn.Module):
     def state_dim(self) -> int:
         return self.body_dim + 9  # 144
 
-    @torch.no_grad()
-    def encode(self, gt: torch.Tensor, obj_points: torch.Tensor
-               ) -> torch.Tensor:
+    def encode(self, gt: torch.Tensor, obj_points: torch.Tensor, *,
+               train_encoder: bool = False) -> torch.Tensor:
         """Conditioning memory: gt [B,T,144], obj_points [B,P,>=3] (xyz used;
-        the PointNet feature channel is ||xyz||) -> [B, past_len, E]."""
+        the PointNet feature channel is ||xyz||) -> [B, past_len, E].
+        ``train_encoder`` runs the PointNet++ BatchNorms on batch statistics
+        and moves their running statistics (`layers.BatchNorm`)."""
         B = gt.shape[0]
         body = gt[..., : self.body_dim]
         obj = gt[..., self.body_dim:]
         xyz = obj_points[..., :3]
         pc = torch.cat([xyz, torch.linalg.norm(xyz, dim=-1, keepdim=True)],
                        dim=-1)
-        pc_emb = self.pcEmbedding(pc[:, None]).reshape(B, 1, self.embed_dim)
+        pc_emb = self.pcEmbedding(pc[:, None], train_encoder).reshape(
+            B, 1, self.embed_dim)
         emb = (self.bodyEmbedding(body[:, : self.past_len])
                + self.objEmbedding(obj[:, : self.past_len]) + pc_emb)
         return self.encoder(self.positional(emb))
@@ -121,7 +127,6 @@ class MDMSmpl(nn.Module):
         """Classifier-free guidance mask (`diffusion_smpl.py:185-193`)."""
         return torch.zeros_like(cond) if force_mask else cond
 
-    @torch.no_grad()
     def denoise(self, x: torch.Tensor, timesteps: torch.Tensor,
                 cond: Optional[torch.Tensor] = None, *,
                 force_mask: bool = False) -> torch.Tensor:

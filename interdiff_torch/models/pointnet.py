@@ -7,8 +7,11 @@ runs on the card for a CUDA tensor; stage 2 (99 channels, one center) uses
 plain `query_and_group`.  With the environment variable
 ``INTERDIFF_FUSED_SA`` set (the JAX package reads the same one), a narrow
 stage runs each radius scale whole through kernel K6 (`ops/sa.py`) instead
-of K1 + `SharedMLP` + ``amax``.  BatchNorm runs in inference mode on its
-running statistics; train-mode BatchNorm is not ported yet.
+of K1 + `SharedMLP` + ``amax``; both routes are differentiable.  BatchNorm
+runs on its running statistics, which are parameters (`layers.BatchNorm`),
+unless ``train=True`` asks for batch statistics; K6 folds the running
+statistics in, so that route is off under ``train=True``, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from interdiff_torch.models.layers import BatchNormEval
+from interdiff_torch.models.layers import BatchNorm
 from interdiff_torch.ops.group import MAX_C, fused_query_group, pairwise_sqdist_t
 from interdiff_torch.ops.pointcloud import (
     furthest_point_sample,
@@ -40,12 +43,12 @@ class SharedMLP(nn.Module):
         self.depth = len(channels)
         for i, c in enumerate(channels):
             self.add_module(f"conv{i}", nn.Linear(c_in, c, bias=False))
-            self.add_module(f"bn{i}", BatchNormEval(c))
+            self.add_module(f"bn{i}", BatchNorm(c))
             c_in = c
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         for i in range(self.depth):
-            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x))
+            x = getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x), train)
             x = torch.relu(x)
         return x
 
@@ -65,10 +68,11 @@ class SAModuleMSG(nn.Module):
         for s, mlp in enumerate(mlps):
             self.add_module(f"mlp{s}", SharedMLP(3 + c_in, mlp))
 
-    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor]
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, xyz: torch.Tensor, features: Optional[torch.Tensor],
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """xyz [B, N, 3], features [B, N, C] | None -> (new_xyz
-        [B, npoint, 3], new_features [B, npoint, sum of last widths])."""
+        [B, npoint, 3], new_features [B, npoint, sum of last widths]);
+        ``train`` runs the BatchNorms on batch statistics."""
         g = self.fps_groups
         N = xyz.shape[1]
         if g > 1 and self.npoint == N:
@@ -84,7 +88,8 @@ class SAModuleMSG(nn.Module):
         # wrapper and raises there rather than grouping off the kernel
         fused = c_data <= MAX_C
         # opt-in: the whole scale in one kernel (K6), read at call time
-        fused_sa = fused and bool(os.environ.get("INTERDIFF_FUSED_SA"))
+        fused_sa = (fused and not train
+                    and bool(os.environ.get("INTERDIFF_FUSED_SA")))
         # one distance matrix shared by every radius scale; K1 streams the
         # transposed [B, N, M] layout
         d2 = (pairwise_sqdist_t(xyz, new_xyz) if fused
@@ -103,7 +108,7 @@ class SAModuleMSG(nn.Module):
             else:
                 grouped = query_and_group(xyz, new_xyz, features, radius,
                                           nsample, d2=d2)
-            h = getattr(self, f"mlp{s}")(grouped)  # [B, M, S, c_out]
+            h = getattr(self, f"mlp{s}")(grouped, train)  # [B, M, S, c_out]
             outs.append(h.amax(dim=2))
         return new_xyz, torch.cat(outs, dim=-1)
 
@@ -130,12 +135,13 @@ class PointNet2Encoder(nn.Module):
                                mlps=((64, 64, 128), (64, 96, 128)))
         self.Linear = nn.Linear(128 + 128, c_out - 3)
 
-    def forward(self, pointcloud: torch.Tensor) -> torch.Tensor:
+    def forward(self, pointcloud: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         B, I, P, C = pointcloud.shape
         pc = pointcloud.reshape(B * I, P, C)
         xyz = pc[..., :3]
         features = pc[..., 3:] if C > 3 else None
-        xyz, features = self.sa0(xyz, features)
-        xyz, features = self.sa1(xyz, features)
+        xyz, features = self.sa0(xyz, features, train)
+        xyz, features = self.sa1(xyz, features, train)
         out = torch.cat([xyz, self.Linear(features)], dim=-1)
         return out.reshape(B, I, self.num_keypoints, self.c_out)

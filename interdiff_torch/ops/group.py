@@ -7,6 +7,15 @@ kernel `csrc/ball_group.cu`, which replaces the Pallas kernel
 runs ``group_plain``, the plain PyTorch version of the same function.  There
 is no fallback between the two: a CUDA tensor launches the kernel or raises.
 
+Gradient (`_fqg_bwd`): the JAX package has no backward kernel; its VJP is
+that of the reference grouping.  Here ``fused_query_group`` is a
+`torch.autograd.Function` whose backward replays `query_and_group` on the
+forward's own ``d2t`` (a recomputed distance could flip a borderline
+in-radius selection and scatter the cotangent to other neighbours), which
+gathers through kernel K5 and scatter-adds the cotangent; ``d2t`` gets none.
+Stage 1 of the encoder groups raw data, so a train step never builds this
+backward: it exists for gradients with respect to the cloud.
+
 Bound: bytes.  The kernel reads the transposed distances d2t [B, N, M] once
 (268 MB per radius scale at the main-path shape B=32, N=2048, M=1024, plus
 8 and 16 MB of output: about 83 and 85 us at 3.35 TB/s; less where a query
@@ -26,6 +35,7 @@ from typing import Optional
 import torch
 
 from interdiff_torch.ops import _build
+from interdiff_torch.ops.gather import gather_rows_plain
 from interdiff_torch.ops.pointcloud import (
     pairwise_sqdist,
     query_and_group,
@@ -69,14 +79,15 @@ def _library() -> ctypes.CDLL:
 def group_plain(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
                 radius: float, nsample: int) -> torch.Tensor:
     """Plain PyTorch version of the kernel: `query_and_group` on the same
-    distances, with the kernel's arguments.
+    distances, with the kernel's arguments and the plain gather (no kernel
+    runs in it).
 
     d2t [B, N, M], data [B, N, C] (xyz first), new_xyz [B, M, 3] ->
     [B, M, nsample, C].
     """
     features = data[..., 3:] if data.shape[-1] > 3 else None
     return query_and_group(data[..., :3], new_xyz, features, radius, nsample,
-                           d2=d2t.transpose(1, 2))
+                           d2=d2t.transpose(1, 2), gather=gather_rows_plain)
 
 
 def group_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
@@ -112,6 +123,40 @@ def group_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
     return out
 
 
+class _FusedQueryGroup(torch.autograd.Function):
+    """K1 (CUDA) or its plain version (CPU) forward; backward by replay of
+    `query_and_group` on the saved ``d2t``."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, features, d2t, radius, nsample):
+        ctx.save_for_backward(xyz, new_xyz, features, d2t)
+        ctx.radius, ctx.nsample = radius, nsample
+        data = xyz if features is None else torch.cat([xyz, features], dim=-1)
+        if d2t.is_cuda:
+            return group_cuda(d2t.contiguous(), data.contiguous(),
+                              new_xyz.contiguous(), radius, nsample)
+        if d2t.device.type != "cpu":
+            raise ValueError(f"no K1 path for device {d2t.device}")
+        return group_plain(d2t, data, new_xyz, radius, nsample)
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, new_xyz, features, d2t = ctx.saved_tensors
+        wanted = [need and t is not None for need, t in zip(
+            ctx.needs_input_grad[:3], (xyz, new_xyz, features))]
+        if not any(wanted):  # only d2t asked: the selection is constant
+            return (None,) * 6
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip((xyz, new_xyz, features), wanted)]
+            replay = query_and_group(*inputs, ctx.radius, ctx.nsample,
+                                     d2=d2t.detach().transpose(1, 2))
+            grads = iter(torch.autograd.grad(
+                replay, [t for t, w in zip(inputs, wanted) if w], g))
+        return tuple(next(grads) if w else None for w in wanted) \
+            + (None, None, None)
+
+
 def fused_query_group(xyz: torch.Tensor, new_xyz: torch.Tensor,
                       features: Optional[torch.Tensor], radius: float,
                       nsample: int,
@@ -119,13 +164,9 @@ def fused_query_group(xyz: torch.Tensor, new_xyz: torch.Tensor,
     """`QueryAndGroup` through K1: xyz [B, N, 3], new_xyz [B, M, 3],
     features [B, N, C] | None, ``d2t`` optional shared
     :func:`pairwise_sqdist_t` -> [B, M, nsample, 3 + C], bit-identical to
-    `ops/pointcloud.query_and_group` on the same distances."""
-    data = xyz if features is None else torch.cat([xyz, features], dim=-1)
+    `ops/pointcloud.query_and_group` on the same distances, differentiable
+    in xyz, new_xyz and features."""
     if d2t is None:
         d2t = pairwise_sqdist_t(xyz, new_xyz)
-    if d2t.is_cuda:
-        return group_cuda(d2t, data.contiguous(), new_xyz.contiguous(),
-                          radius, nsample)
-    if d2t.device.type != "cpu":
-        raise ValueError(f"no K1 path for device {d2t.device}")
-    return group_plain(d2t, data, new_xyz, radius, nsample)
+    return _FusedQueryGroup.apply(xyz, new_xyz, features, d2t, radius,
+                                  nsample)

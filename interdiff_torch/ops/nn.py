@@ -12,7 +12,16 @@ Beside each stands its plain PyTorch version (``*_plain``), which repeats
 the kernel's arithmetic step by step, so that the two agree bit for bit on
 one device; `ops/signed_distance.py` routes a CPU tensor to the plain
 version and a CUDA tensor to the kernel, with no fallback between them.
-Neither K3 nor K4 carries a gradient yet.
+
+Gradients (`_nn_diff_bwd`, `_snn_diff_bwd`): ``nearest_neighbor_diff`` (K4)
+and ``signed_nearest_diff`` (K3) are `torch.autograd.Function`s whose forward
+is the kernel on the card and the plain version on the CPU, and whose
+backward is plain PyTorch on both, as the JAX package's is plain XLA: with
+``j*`` piecewise constant, ``sq = |a - b[j*]|^2`` and
+``sdot = n[j*] . (a - b[j*])``, so the cotangents are gathers at ``j*`` for
+``a`` and scatter-adds at ``j*`` for ``b`` and ``n`` (atomic adds on the
+card: surface rows hit by several queries are summed in an order that changes
+from run to run).  K2 carries no gradient, as in the JAX package.
 
 All take a [B, N, 3] queries, b [B, M, 3] surface points and (signed
 sweeps) n [B, M, 3] pseudonormals, and return per-query [B, N] tensors:
@@ -246,3 +255,79 @@ def signed_nearest_pruned_cuda(a: torch.Tensor, b: torch.Tensor,
             sq.data_ptr(), sdot.data_ptr(), idx.data_ptr(), B, N, M,
             delta_squared(delta))
     return sq, sdot, idx
+
+
+# -- gradients ----------------------------------------------------------------
+
+def _rows_at(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """points [B, M, 3], idx [B, N] -> [B, N, 3]."""
+    return points.gather(1, idx.to(torch.int64)[..., None].expand(-1, -1, 3))
+
+
+def _scatter_rows(like: torch.Tensor, idx: torch.Tensor,
+                  rows: torch.Tensor) -> torch.Tensor:
+    """Zeros shaped as ``like`` [B, M, 3] with ``rows`` [B, N, 3] added at
+    ``idx`` [B, N]."""
+    return torch.zeros_like(like).scatter_add_(
+        1, idx.to(torch.int64)[..., None].expand(-1, -1, 3), rows)
+
+
+def by_device(a: torch.Tensor, cuda_fn, plain_fn):
+    """The kernel's wrapper for a CUDA tensor, the plain version for a CPU
+    tensor; any other device raises."""
+    if a.is_cuda:
+        return cuda_fn
+    if a.device.type != "cpu":
+        raise ValueError(f"no nearest-neighbour path for device {a.device}")
+    return plain_fn
+
+
+class _NearestNeighbor(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        sq, idx = by_device(a, nearest_neighbor_cuda,
+                             nearest_neighbor_plain)(a, b)
+        ctx.save_for_backward(a, b, idx)
+        ctx.mark_non_differentiable(idx)
+        return sq, idx
+
+    @staticmethod
+    def backward(ctx, gd, _):
+        a, b, idx = ctx.saved_tensors
+        ga = 2.0 * gd[..., None] * (a - _rows_at(b, idx))
+        return ga, _scatter_rows(b, idx, -ga)
+
+
+class _SignedNearest(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, n):
+        sq, sdot, idx = by_device(a, signed_nearest_cuda,
+                                   signed_nearest_plain)(a, b, n)
+        ctx.save_for_backward(a, b, n, idx)
+        ctx.mark_non_differentiable(idx)
+        return sq, sdot, idx
+
+    @staticmethod
+    def backward(ctx, gd, gs, _):
+        a, b, n, idx = ctx.saved_tensors
+        n_near = _rows_at(n, idx)
+        diff = a - _rows_at(b, idx)
+        ga = 2.0 * gd[..., None] * diff + gs[..., None] * n_near
+        gb_rows = -2.0 * gd[..., None] * diff - gs[..., None] * n_near
+        return (ga, _scatter_rows(b, idx, gb_rows),
+                _scatter_rows(n, idx, gs[..., None] * diff))
+
+
+def nearest_neighbor_diff(a: torch.Tensor, b: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 with its gradient: (sq, idx) of a [B, N, 3] against b [B, M, 3],
+    the kernel on CUDA tensors and the plain version on CPU tensors,
+    differentiable in a and b through ``sq``."""
+    return _NearestNeighbor.apply(a, b)
+
+
+def signed_nearest_diff(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 with its gradient: (sq, sdot, idx), differentiable in a, b and n
+    through ``sq`` and ``sdot``."""
+    return _SignedNearest.apply(a, b, n)

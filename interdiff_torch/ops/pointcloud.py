@@ -11,17 +11,20 @@ Semantics of the `pointnet2_ops` kernels:
   features.
 
 Stage 1 of the PointNet++ encoder groups through the K1 kernel instead
-(`ops/group.py`), whose plain version is ``query_and_group``; stage 2, whose
-99-channel features do not fit that kernel, calls ``query_and_group``
-directly.
+(`ops/group.py`), whose plain version is ``query_and_group`` with the plain
+gather; stage 2, whose 99-channel features do not fit that kernel, calls
+``query_and_group`` directly.  ``query_and_group`` gathers narrow float32
+rows through kernel K5 (`ops/gather.py`), as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from interdiff_torch.ops.gather import gather_rows, in_gate
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -105,12 +108,21 @@ def ball_query(xyz: torch.Tensor, new_xyz: torch.Tensor, radius: float,
 def query_and_group(xyz: torch.Tensor, new_xyz: torch.Tensor,
                     features: Optional[torch.Tensor], radius: float,
                     nsample: int, *,
-                    d2: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    d2: Optional[torch.Tensor] = None,
+                    gather: Optional[Callable] = None) -> torch.Tensor:
     """`QueryAndGroup`, channels-last: xyz [B, N, 3], new_xyz [B, M, 3],
     features [B, N, C] | None -> [B, M, nsample, 3 + C] with the xyz
-    recentered on each center."""
+    recentered on each center.
+
+    The rows are gathered by ``gather(data [B, N, C], idx [B, K])``; left
+    out, float32 data of at most 8 channels goes through kernel K5
+    (`ops/gather.py::gather_rows`) and anything else is indexed directly,
+    the routing of `interdiff_tpu/ops/pallas_gather.py::gather_rows`."""
     idx = ball_query(xyz, new_xyz, radius, nsample, d2)
     data = xyz if features is None else torch.cat([xyz, features], dim=-1)
-    g = gather_points(data, idx)  # [B, M, S, 3 + C]
+    if gather is None:
+        gather = gather_rows if in_gate(data) else gather_points
+    B, M, S = idx.shape
+    g = gather(data, idx.reshape(B, M * S)).reshape(B, M, S, -1)
     return torch.cat([g[..., :3] - new_xyz[:, :, None, :], g[..., 3:]],
                      dim=-1)

@@ -1,7 +1,7 @@
 """One whole PointNet++ MSG radius scale in one pass: kernel K6.
 
 Counterpart of `interdiff_tpu/ops/pallas_sa.py` (`fused_sa_scale`,
-`folded_affine`), forward only.  A scale is the ball query and grouping of
+`folded_affine`).  A scale is the ball query and grouping of
 K1, the 1x1-conv / BatchNorm / ReLU chain with the inference-mode BatchNorm
 folded into an affine ``y = a * (x @ W) + b``, and the maximum over the
 ``nsample`` neighbours: xyz [B, N, 3] and features [B, N, F] in,
@@ -19,8 +19,20 @@ Bound at the main-path shape (B=32, N=2048, M=1024): bytes for the S=16
 scale (d2t [B, N, M] read up to each query's last slot), operations for the
 S=32 scale (6.7 GFLOP of chain); the walk's dependent loads and the chain's
 dependent product-and-sum steps set the time, about 30 times the bound on an
-H100.  The kernel's second output of the JAX package (the grouped tensor kept
-for the backward pass) and the backward pass itself are not ported yet.
+H100.
+
+Gradient (`_fsa_fwd`, `_fsa_bwd`): ``fused_sa_scale`` is a
+`torch.autograd.Function`.  When a gradient is wanted the forward is one
+launch of the kernel's ``with_grouped`` variant, which also writes the
+recentered grouped tensor [B, M, S, C] (bitwise K1's output) and keeps it for
+the backward; otherwise it is the launch without it.  The backward is the
+VJP of the folded chain and the maximum over that tensor (``_mlp_max``) in
+plain PyTorch, in full float32: the JAX package has no backward kernel here
+either, and these products are what XLA computes outside any kernel.  The
+maximum is ``amax``, which like ``jnp.max`` splits the cotangent evenly over
+tied slots (short rows repeat a slot, and ReLU ties many at 0).  The cotangent
+of the grouped tensor goes on through K1's `Function` (`ops/group.py`) only
+when xyz, new_xyz or the features ask for a gradient; ``d2t`` gets none.
 """
 
 from __future__ import annotations
@@ -31,7 +43,12 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from interdiff_torch.ops import _build
-from interdiff_torch.ops.group import MAX_C, group_plain, pairwise_sqdist_t
+from interdiff_torch.ops.group import (
+    MAX_C,
+    fused_query_group,
+    group_plain,
+    pairwise_sqdist_t,
+)
 from interdiff_torch.ops.pointcloud import radius_sq
 
 MAX_LAYERS = 4  # longest chain the kernel takes
@@ -59,7 +76,7 @@ def _library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build())
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.sa_scale_f32.argtypes = (
-            [ptr] * 5 + [i32] * 5 + [ctypes.c_float, i32,
+            [ptr] * 6 + [i32] * 5 + [ctypes.c_float, i32,
                                      ctypes.POINTER(i32), ptr])
         lib.sa_scale_f32.restype = i32
         for fn in (lib.sa_max_layers, lib.sa_max_width):
@@ -77,20 +94,20 @@ def folded_affine(shared_mlp: torch.nn.Module) -> Tuple[Affine, ...]:
     """(W [cin, cout], a [cout], b [cout]) per layer of a
     `models.pointnet.SharedMLP`: conv + inference-mode BatchNorm as
     ``y = a * (x @ W) + b`` with ``a = scale * rsqrt(var + eps)`` and
-    ``b = bias - a * mean``.  Detached: this route is forward only."""
+    ``b = bias - a * mean``.  Part of the graph: gradients reach the conv
+    weights and all four BatchNorm tensors through it."""
     out = []
     for i in range(shared_mlp.depth):
         conv = getattr(shared_mlp, f"conv{i}")
         bn = getattr(shared_mlp, f"bn{i}")
-        a = bn.weight.detach() * torch.rsqrt(bn.running_var + BN_EPS)
-        out.append((conv.weight.detach().t(), a,
-                    bn.bias.detach() - a * bn.running_mean))
+        a = bn.weight * torch.rsqrt(bn.running_var + BN_EPS)
+        out.append((conv.weight.t(), a, bn.bias - a * bn.running_mean))
     return tuple(out)
 
 
 def sa_plain(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
-             params: Sequence[Affine], radius: float, nsample: int
-             ) -> torch.Tensor:
+             params: Sequence[Affine], radius: float, nsample: int,
+             with_grouped: bool = False):
     """Plain PyTorch version of the kernel, the same arithmetic step by
     step: grouping by `query_and_group` on the same distances, then per
     layer the sum over the input channels in increasing ``k`` with one
@@ -98,16 +115,19 @@ def sa_plain(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
     the end the maximum over the neighbours.
 
     d2t [B, N, M], data [B, N, C] (xyz first), new_xyz [B, M, 3] ->
-    [B, M, c_out].
+    [B, M, c_out], with ``with_grouped`` also the grouped tensor
+    [B, M, nsample, C].
     """
-    h = group_plain(d2t, data, new_xyz, radius, nsample)  # [B, M, S, C]
+    grouped = group_plain(d2t, data, new_xyz, radius, nsample)  # [B, M, S, C]
+    h = grouped
     for w, a, b in params:
         acc = torch.zeros(h.shape[:-1] + (w.shape[1],), dtype=h.dtype,
                           device=h.device)
         for k in range(w.shape[0]):
             acc = acc + h[..., k:k + 1] * w[k]
         h = torch.relu(acc * a + b)
-    return h.amax(dim=2)
+    out = h.amax(dim=2)
+    return (out, grouped) if with_grouped else out
 
 
 def check_gate(data: torch.Tensor) -> None:
@@ -122,10 +142,11 @@ def check_gate(data: torch.Tensor) -> None:
 
 
 def sa_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
-            params: Sequence[Affine], radius: float, nsample: int
-            ) -> torch.Tensor:
+            params: Sequence[Affine], radius: float, nsample: int,
+            with_grouped: bool = False):
     """Launch K6 on the current stream: the same function as ``sa_plain``,
-    on contiguous float32 CUDA tensors."""
+    on contiguous float32 CUDA tensors; ``with_grouped`` picks the variant
+    that also writes the grouped tensor."""
     global launches
     check_gate(data)
     B, N, M = d2t.shape
@@ -162,34 +183,111 @@ def sa_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
     lib = _library()
     out = torch.empty((B, M, widths[-1]), dtype=torch.float32,
                       device=d2t.device)
+    grouped = torch.empty((B, M, nsample, C), dtype=torch.float32,
+                          device=d2t.device) if with_grouped else None
     with torch.cuda.device(d2t.device):
         err = lib.sa_scale_f32(
             d2t.data_ptr(), data.data_ptr(), new_xyz.data_ptr(),
-            flat.data_ptr(), out.data_ptr(), B, N, M, C, nsample,
+            flat.data_ptr(), out.data_ptr(),
+            grouped.data_ptr() if with_grouped else None,
+            B, N, M, C, nsample,
             radius_sq(radius), len(params),
             (ctypes.c_int * len(widths))(*widths),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"sa_scale_f32 launch failed: CUDA error {err}")
     launches += 1
-    return out
+    return (out, grouped) if with_grouped else out
 
 
-@torch.no_grad()
+def _mlp_max(grouped: torch.Tensor, params: Sequence[Affine]) -> torch.Tensor:
+    """The folded chain and the maximum over the neighbours of a grouped
+    tensor [B, M, S, C] -> [B, M, c_out], with library products: the function
+    the backward differentiates (`_mlp_max` of the JAX package)."""
+    h = grouped
+    for w, a, b in params:
+        h = torch.relu(torch.matmul(h, w) * a + b)
+    return h.amax(dim=2)
+
+
+class _FusedSaScale(torch.autograd.Function):
+    """K6 (CUDA) or its plain version (CPU) forward, with the grouped tensor
+    kept when a gradient is wanted; backward by the VJP of ``_mlp_max``."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, features, d2t, radius, nsample, keep,
+                *flat):
+        params = tuple(zip(flat[0::3], flat[1::3], flat[2::3]))
+        data = xyz if features is None else torch.cat([xyz, features], dim=-1)
+        if d2t.is_cuda:
+            res = sa_cuda(d2t.contiguous(), data.contiguous(),
+                          new_xyz.contiguous(), params, radius, nsample, keep)
+        elif d2t.device.type == "cpu":
+            res = sa_plain(d2t, data, new_xyz, params, radius, nsample, keep)
+        else:
+            raise ValueError(f"no K6 path for device {d2t.device}")
+        if not keep:
+            return res
+        out, grouped = res
+        ctx.save_for_backward(xyz, new_xyz, features, d2t, grouped, *flat)
+        ctx.radius, ctx.nsample = radius, nsample
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xyz, new_xyz, features, d2t, grouped, *flat = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        to_inputs = any(n and t is not None for n, t in zip(
+            need[:3], (xyz, new_xyz, features)))
+        if not to_inputs and not any(need[7:]):  # only d2t asked
+            return (None,) * len(need)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        # full float32, as the forward's sums: a TF32 replay could pick
+        # another neighbour at a near-tie of the maximum than the kernel did
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            with torch.enable_grad():
+                grouped_ = grouped.detach().requires_grad_(to_inputs)
+                flat_ = [t.detach().requires_grad_(n)
+                         for t, n in zip(flat, need[7:])]
+                out = _mlp_max(grouped_, tuple(zip(
+                    flat_[0::3], flat_[1::3], flat_[2::3])))
+                wrt = [t for t in [grouped_] + flat_ if t.requires_grad]
+                grads = dict(zip(map(id, wrt),
+                                 torch.autograd.grad(out, wrt, g)))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        g_inputs = (None, None, None)
+        if to_inputs:
+            with torch.enable_grad():
+                inputs = [None if t is None else t.detach().requires_grad_(
+                    bool(n)) for t, n in zip((xyz, new_xyz, features),
+                                             need[:3])]
+                replay = fused_query_group(*inputs, ctx.radius, ctx.nsample,
+                                           d2t.detach())
+                wrt = [t for t in inputs if t is not None and t.requires_grad]
+                got = dict(zip(map(id, wrt), torch.autograd.grad(
+                    replay, wrt, grads[id(grouped_)])))
+            g_inputs = tuple(None if t is None else got.get(id(t))
+                             for t in inputs)
+        return g_inputs + (None, None, None, None) + tuple(
+            grads.get(id(t)) for t in flat_)
+
+
 def fused_sa_scale(xyz: torch.Tensor, new_xyz: torch.Tensor,
                    features: Optional[torch.Tensor],
                    params: Sequence[Affine], radius: float, nsample: int,
                    d2t: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One MSG radius scale through K6: xyz [B, N, 3], new_xyz [B, M, 3],
     features [B, N, F] | None, ``params`` from :func:`folded_affine`,
-    ``d2t`` the optional shared :func:`pairwise_sqdist_t` -> [B, M, c_out].
-    Forward only: nothing here records a gradient."""
-    data = xyz if features is None else torch.cat([xyz, features], dim=-1)
+    ``d2t`` the optional shared :func:`pairwise_sqdist_t` -> [B, M, c_out],
+    differentiable in ``params``, xyz, new_xyz and the features."""
     if d2t is None:
         d2t = pairwise_sqdist_t(xyz, new_xyz)
-    if d2t.is_cuda:
-        return sa_cuda(d2t.contiguous(), data.contiguous(),
-                       new_xyz.contiguous(), params, radius, nsample)
-    if d2t.device.type != "cpu":
-        raise ValueError(f"no K6 path for device {d2t.device}")
-    return sa_plain(d2t, data, new_xyz, params, radius, nsample)
+    flat = [t for layer in params for t in layer]
+    # the grouped tensor is kept only when a backward can follow
+    keep = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in [xyz, new_xyz, features, d2t] + flat)
+    return _FusedSaScale.apply(xyz, new_xyz, features, d2t, radius, nsample,
+                               keep, *flat)

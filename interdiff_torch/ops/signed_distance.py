@@ -6,6 +6,9 @@ correction training.
 
 The public functions route by device: a CUDA tensor launches the kernels of
 `ops/nn.py` (K2, K3, K4) or raises, a CPU tensor takes their plain versions.
+``nearest_neighbor``, ``signed_nearest`` and, through them,
+``point2point_signed`` are differentiable on both devices (the `Function`s
+of `ops/nn.py`); the pruned sweep is not, as in the JAX package.
 Leading batch dimensions are flattened to the one batch axis the kernels
 take, and a surface cloud shared across the batch is broadcast to it.
 
@@ -41,22 +44,13 @@ def _flatten(a: torch.Tensor, *surfaces: torch.Tensor):
     return flat, unflatten
 
 
-def _route(a: torch.Tensor, cuda_fn, plain_fn):
-    if a.is_cuda:
-        return cuda_fn
-    if a.device.type != "cpu":
-        raise ValueError(f"no nearest-neighbour path for device {a.device}")
-    return plain_fn
-
-
 def nearest_neighbor(a: torch.Tensor, b: torch.Tensor, *,
                      chunk: Optional[int] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(squared distance [..., N], index [..., N] int32) of the nearest
     b-point [..., M, 3] for every a-point [..., N, 3]: kernel K4."""
     (a3, b3), unflatten = _flatten(a, b)
-    fn = _route(a3, _nn.nearest_neighbor_cuda, _nn.nearest_neighbor_plain)
-    d, i = fn(a3, b3)
+    d, i = _nn.nearest_neighbor_diff(a3, b3)
     return unflatten(d), unflatten(i)
 
 
@@ -79,10 +73,9 @@ def signed_nearest(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor, *,
     vertex (pseudo)normals -> ``(sq_dist [..., N], sdot [..., N])`` with
     ``sdot = n[j*] . (a - b[j*])`` at the nearest b-point j*.  The signed
     distance of `point2point_signed` is ``sqrt(sq_dist) * sign(sdot)``.
-    Not differentiable yet."""
+    Differentiable in a, b and n."""
     (a3, b3, n3), unflatten = _flatten(a, b, n)
-    fn = _route(a3, _nn.signed_nearest_cuda, _nn.signed_nearest_plain)
-    d, s, _ = fn(a3, b3, n3)
+    d, s, _ = _nn.signed_nearest_diff(a3, b3, n3)
     return unflatten(d), unflatten(s)
 
 
@@ -102,8 +95,8 @@ def signed_nearest_pruned(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor,
     SMPL-scale meshes): a point farther than ``delta`` from every vertex is
     then outside.  Not differentiable; training keeps the full sweep."""
     (a3, b3, n3), unflatten = _flatten(a, b, n)
-    fn = _route(a3, _nn.signed_nearest_pruned_cuda,
-                _nn.signed_nearest_pruned_plain)
+    fn = _nn.by_device(a3, _nn.signed_nearest_pruned_cuda,
+                       _nn.signed_nearest_pruned_plain)
     d, s, _ = fn(a3, b3, n3, delta)
     return unflatten(d), unflatten(s)
 

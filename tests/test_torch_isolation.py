@@ -1,7 +1,8 @@
 """`interdiff_torch` stands alone: importing every module of it loads
-neither jax, flax nor `interdiff_tpu`, nor does a run of its eval entry
-point, and an entry point asked for the default device with no CUDA device
-present raises instead of running on the CPU."""
+neither jax, flax, optax, orbax nor `interdiff_tpu`, nor does a run of its
+eval or training entry point, nor does `chip_smoke.py` import any of them,
+and an entry point asked for the default device with no CUDA device present
+raises instead of running on the CPU."""
 
 import os
 import subprocess
@@ -21,7 +22,8 @@ names = [m.name for m in pkgutil.walk_packages(interdiff_torch.__path__,
 for name in names:
     importlib.import_module(name)
 banned = [m for m in sys.modules
-          if m.split(".")[0] in ("jax", "jaxlib", "flax", "interdiff_tpu")]
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                 "interdiff_tpu")]
 print(len(names), banned)
 assert not banned, banned
 """
@@ -32,8 +34,11 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 35
-    for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa"):
+    assert n_modules >= 43
+    for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa",
+                   "cli.train_diffusion_smpl", "train.trainer",
+                   "train.losses", "diffusion.resample", "diffusion.nn",
+                   "ops.gather", "utils.train_io"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -56,6 +61,60 @@ def test_eval_entry_point_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "'penetrate':" in out.stdout.splitlines()[-1]
+
+
+_RUN_TRAIN = r"""
+import sys, tempfile
+from interdiff_torch.cli.train_diffusion_smpl import main
+with tempfile.TemporaryDirectory() as results:
+    state, summary = main([
+        "--device", "cpu", "--synthetic", "2", "--batch_size", "2",
+        "--embedding_dim", "32", "--ff_size", "64", "--num_layers", "2",
+        "--synthetic_points", "64", "--val_respacing", "4", "--ema_decay",
+        "0.9", "--schedule_sampler", "loss-second-moment", "--results_dir",
+        results])
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                 "interdiff_tpu")]
+assert summary["steps"] == 2 and not banned, (summary, banned)
+"""
+
+
+def test_train_entry_point_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", _RUN_TRAIN], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "done: 2 steps" in out.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """By its source: the script needs a card to run."""
+    import ast
+
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "interdiff_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax",
+                        "interdiff_tpu"}
+
+
+def test_train_entry_point_stops_without_a_card():
+    """`python -m interdiff_torch.cli.train_diffusion_smpl` with no
+    `--device` and no CUDA device ends with an error before any step."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, "-m", "interdiff_torch.cli.train_diffusion_smpl",
+         "--synthetic", "1", "--batch_size", "2"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "loss" not in out.stdout
 
 
 def test_eval_entry_point_stops_without_a_card():

@@ -82,12 +82,16 @@ def test_encode_and_denoise_match_full_width(models):
     encode = jax.jit(lambda v, g, p: jmodel.apply(v, g, p,
                                                   method=JMDM.encode))
     mem_ref = np.array(encode(variables, gt, pts))
-    mem = tmodel.encode(torch.from_numpy(gt), torch.from_numpy(pts))
+    with torch.no_grad():
+        mem = tmodel.encode(torch.from_numpy(gt), torch.from_numpy(pts))
     assert mem.shape == (B, 10, 256)
     np.testing.assert_allclose(mem.numpy(), mem_ref, atol=1e-4, rtol=1e-4)
 
     ts = np.array([999, 3], np.int32)
     x0_ref = np.asarray(jax.jit(jmodel.apply)(variables, gt, ts, mem_ref))
+    # outside `no_grad` the call records a graph: the trainer's path
     x0 = tmodel.denoise(torch.from_numpy(gt), torch.from_numpy(ts),
                         torch.from_numpy(mem_ref))
-    np.testing.assert_allclose(x0.numpy(), x0_ref, atol=1e-4, rtol=1e-4)
+    assert x0.requires_grad
+    np.testing.assert_allclose(x0.detach().numpy(), x0_ref, atol=1e-4,
+                               rtol=1e-4)

@@ -166,8 +166,10 @@ def test_folded_affine_matches_jax():
     jmlp, variables, tmlp = _shared_mlp_pair(rng, 4, (8, 8, 16))
     want = jmlp.apply(variables, method=lambda m: (
         m(jnp.zeros((1, 1, 1, 4))), jsa.folded_affine(m))[1])
-    with torch.no_grad():
-        got = tsa.folded_affine(tmlp)
+    # part of the graph: the fused route trains through the fold
+    got = tsa.folded_affine(tmlp)
+    assert all(t.requires_grad for layer in got for t in layer)
+    got = tuple(tuple(t.detach() for t in layer) for layer in got)
     assert len(got) == len(want) == 3
     for (w, a, b), (jw, ja, jb) in zip(got, want):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))

@@ -85,7 +85,8 @@ def test_sampler_no_correction_matches_jax():
                           step_noise=jnp.asarray(step_noise)))
 
     gt_t, pts_t = torch.from_numpy(gt), torch.from_numpy(pts)
-    memory = model.encode(gt_t, pts_t)
+    with torch.no_grad():
+        memory = model.encode(gt_t, pts_t)
     np.testing.assert_allclose(memory.numpy(), np.asarray(mem_ref),
                                atol=1e-4, rtol=1e-4)
     run = tss.make_sampler(cfg, model, diffusion, reuse_memory=True)
