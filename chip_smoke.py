@@ -6,7 +6,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
 
 1. build: compiles `interdiff_torch/csrc/ball_group.cu` (kernel K1),
    `interdiff_torch/csrc/nn.cu` (K2, K3, K4), `interdiff_torch/csrc/sa.cu`
-   (K6) and `interdiff_torch/csrc/gather.cu` (K5) with nvcc, all four at once.
+   (K6) and `interdiff_torch/csrc/gather.cu` (K5) with nvcc, all four at
+   once; ptxas's registers, spills and shared memory of every kernel.
 2. kernels: each kernel against its plain PyTorch version on the card,
    bitwise, at the main-path shapes; kernel and plain times by CUDA events
    (median of 30 runs after warm-up) beside the bound of this run's data.
@@ -18,14 +19,24 @@ Phases, each printing JSON lines (any failure exits non-zero):
    K3 on all frames (bit-equal inside delta, forced beyond).  The object
    clouds are placed so that the run covers penetrating queries, queries
    inside delta outside the body, queries beyond delta, frames with some
-   segments skipped and frames with every segment skipped.  K4: 2240 frames
-   of 67 markers against 2048 points, whole.  All three also on a small
-   case with duplicated surface rows (exact ties), a one-point cloud and an
-   all-far frame.  K5: K1's data with the indices the ball query picks
-   there (K = 1024 * 16 and 1024 * 32, int64 and int32), and K = 1,
-   repeated indices, C = 3 and C = 8, the last row, -0.0 and out-of-range
-   indices (a zero row); beside its time `torch.gather`'s, both also over
-   50 launches back to back, and the time of its smallest launch.  K6: K1's
+   segments skipped and frames with every segment skipped.  K2's prologue
+   (flags, count, compacted ids) against `segment_flags` and
+   `segment_list_plain` on that data; its sweep's registers and spills;
+   one call captured in a CUDA graph (one launch), its replay equal to the
+   eager call; the device time of each of its three kernels and of
+   `segment_flags` (torch.profiler).  K4: 2240 frames of 67 markers
+   against 2048 points, whole.  All three also on a small case with
+   duplicated surface rows (exact ties), a one-point cloud and an all-far
+   frame; K2 also on ties across a group and a tile boundary and on a frame
+   whose flagged segments have gaps.  K5: K1's data with the indices the
+   ball query picks there (K = 1024 * 16 and 1024 * 32, int64 and int32),
+   every C in 1..8 on an aligned base and on one offset by a float, and
+   K = 1, repeated indices, the last row, -0.0 and out-of-range indices (a
+   zero row); one launch captured in a CUDA graph; its time and
+   `torch.gather`'s for one launch between two events (`ms` and
+   `library_ms`, as for every kernel), 50 back to back and 50 replayed from
+   a graph (`device_ms` and `library_device_ms`: the device's time a
+   launch), and the time of its smallest launch.  K6: K1's
    shape and inputs, both scales with the encoder's chains 4->16->16->32
    (S=16) and 4->32->32->64 (S=32) on seeded weights folded by
    `folded_affine`, and K1's edge rows; beside its time the plain version's
@@ -55,7 +66,8 @@ Phases, each printing JSON lines (any failure exits non-zero):
    one `encode` (K1 launches twice), 2-fold diverse tiling to 64 rows, one
    `make_sampler(use_correction=True)` call with 1000 DDPM steps on the
    V=6890 stand-in body: 11 firings of the correction (K2 and K4 launch 11
-   times each), with the hook's time and the shares of flagged segments,
+   times each), with the hook's time and the shares of flagged segments
+   (from K2's prologue),
    penetrating queries and corrected rows of each firing; output finite,
    [64, 35, 144], body block of the past frames equal to gt.  The
    denoiser's output layers are biased to the rest pose (see
@@ -106,6 +118,7 @@ import concurrent.futures
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -221,13 +234,23 @@ def seeded_state(model: torch.nn.Module, seed: int) -> dict:
     return state
 
 
+def _build_report(source: str) -> list:
+    """ptxas's registers, spills and shared memory of each kernel of
+    `interdiff_torch/csrc/<source>.cu` (the library's build log)."""
+    from interdiff_torch.ops import _build
+
+    return _build.ptxas_report(source)
+
+
 def phase_build(group, nn, sa, gather, gpu: str) -> None:
-    """The four libraries, one nvcc each, started together."""
+    """The four libraries, one nvcc each, started together; ptxas's report
+    of each kernel's registers and spills."""
     def timed(kernels, module):
         t0 = time.perf_counter()
         path = module.build()
         return {"phase": "build", "gpu": gpu, "kernels": kernels,
-                "library": path, "seconds": time.perf_counter() - t0}
+                "library": path, "seconds": time.perf_counter() - t0,
+                "ptxas": _build_report(module.SOURCE)}
 
     with concurrent.futures.ThreadPoolExecutor(4) as pool:
         jobs = [pool.submit(timed, "K1", group),
@@ -342,15 +365,54 @@ def phase_kernels(group, pointcloud, gpu: str) -> dict:
     return total
 
 
+def _captured(fn, calls: int = 1):
+    """(graph, outputs): ``calls`` calls of ``fn`` captured in one CUDA graph
+    after a warm-up on a side stream, and the list of their outputs (written
+    again by every replay)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for _ in range(calls)]
+    return graph, outs
+
+
+def _replay_ms(fn, calls: int = 50) -> float:
+    """The device's ms a call of ``fn``: ``calls`` calls captured in one
+    CUDA graph, replayed."""
+    graph, _ = _captured(fn, calls)
+    return cuda_ms(graph.replay, runs=10) / calls
+
+
+def _launch_times(fn, calls: int = 50) -> dict:
+    """ms a launch of ``fn``: one between two events (host and device), 50
+    back to back between one pair (the larger of the host's and the
+    device's time a launch), and 50 captured in a CUDA graph and replayed
+    (the device's time a launch)."""
+    return {"one_launch": cuda_ms(fn),
+            "back_to_back": cuda_ms(lambda: [fn() for _ in range(calls)],
+                                    runs=5, warmup=1) / calls,
+            "graph_replay": _replay_ms(fn, calls)}
+
+
 def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
     """K5 at K1's shape (the indices the ball query picks there, both
-    scales) and on edge rows, bitwise against `gather_rows_plain`; its time
-    beside the bound, the plain version, the one PyTorch call
-    `torch.gather` and the time of its own smallest launch (the floor)."""
+    scales) and on edge rows, bitwise against `gather_rows_plain`: every C
+    in 1..8 on a 16-byte-aligned base and on one offset by a float; one
+    launch captured in a CUDA graph against the eager call.  Its times, one
+    launch, 50 back to back and 50 replayed from a graph, beside the bound,
+    the plain version and the same three of the one PyTorch call
+    `torch.gather`."""
     data, new_xyz, d2t = _stage1_inputs(group, pointcloud)
     B, N, C = data.shape
     scales, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                          "library_ms": 0.0, "max_abs_err": 0.0}
+    for k in ("device_ms", "ms_back_to_back", "library_device_ms",
+              "library_ms_back_to_back"):
+        total[k] = 0.0
     for radius, S in SCALES:
         idx = pointcloud.ball_query(
             data[..., :3], new_xyz, radius, S,
@@ -366,25 +428,47 @@ def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
             raise AssertionError(f"K5 differs on int32 indices at S={S}")
         pick = idx[..., None].expand(-1, -1, C)
         n_bytes = idx.numel() * 8 + got.numel() * 4 + data.numel() * 4
+        kernel = _launch_times(lambda: gather.gather_rows_cuda(data, idx))
+        library = _launch_times(lambda: torch.gather(data, 1, pick))
         scales.append({
             "nsample": S, "K": idx.shape[1],
-            "ms": cuda_ms(lambda: gather.gather_rows_cuda(data, idx)),
-            "ms_int32_idx": cuda_ms(
+            "ms": kernel["one_launch"],
+            "ms_back_to_back": kernel["back_to_back"],
+            # the device's time a launch: 50 launches replayed from a graph
+            "device_ms": kernel["graph_replay"],
+            "device_ms_int32_idx": _replay_ms(
                 lambda: gather.gather_rows_cuda(data, idx32)),
-            # 50 launches between one pair of events: the larger of the
-            # device's time and the host's time per launch
-            "ms_back_to_back": cuda_ms(lambda: [
-                gather.gather_rows_cuda(data, idx) for _ in range(50)],
-                runs=5, warmup=1) / 50,
-            "library_ms_back_to_back": cuda_ms(lambda: [
-                torch.gather(data, 1, pick) for _ in range(50)],
-                runs=5, warmup=1) / 50,
             "plain_ms": cuda_ms(lambda: gather.gather_rows_plain(data, idx)),
-            "library_ms": cuda_ms(lambda: torch.gather(data, 1, pick)),
+            "library_ms": library["one_launch"],
+            "library_ms_back_to_back": library["back_to_back"],
+            "library_device_ms": library["graph_replay"],
             "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bytes": n_bytes,
             "max_abs_err": float((got - want).abs().max())})
-        for k in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for k in ("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                  "ms_back_to_back", "library_device_ms",
+                  "library_ms_back_to_back"):
             total[k] += scales[-1][k]
+
+    # every C on an aligned base and on one a float off (the float4 copy at
+    # C = 4 only where data and output are 16-byte aligned), int64 and int32
+    rng = np.random.default_rng(SEED + 14)
+    widths = {}
+    for c in range(1, gather.MAX_C + 1):
+        buf = torch.from_numpy(rng.standard_normal(B * N * c + 1).astype(
+            np.float32)).to(DEV)
+        buf[1::7] = -0.0
+        ix = torch.from_numpy(rng.integers(0, N, (B, 1024 * 16))).to(DEV)
+        for base, d in (("aligned", buf[:-1].view(B, N, c)),
+                        ("offset_one_float", buf[1:].view(B, N, c))):
+            want = gather.gather_rows_plain(d, ix)
+            for ixt in (ix, ix.to(torch.int32)):
+                got = gather.gather_rows_cuda(d, ixt)
+                if not torch.equal(got, want) or not torch.equal(
+                        torch.signbit(got), torch.signbit(want)):
+                    raise AssertionError(f"K5 differs at C={c} on the "
+                                         f"{base} base, {ixt.dtype}")
+            widths[f"c{c}_{base}"] = d.data_ptr() % 16
+    torch.cuda.synchronize()
 
     # edge rows: K = 1, repeated indices, C = 3 and C = 8, the last row,
     # -0.0 kept, and indices out of range (a zero row, nothing read)
@@ -408,6 +492,19 @@ def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
                                                             d[:, 36]):
             raise AssertionError("K5: an out-of-range index must give a "
                                  "zero row")
+
+    # one call captured in a graph: one launch, the replay equals the eager
+    idx = pointcloud.ball_query(data[..., :3], new_xyz, *SCALES[1],
+                                d2=d2t.transpose(1, 2)).reshape(B, -1)
+    before = gather.launches
+    graph, (replayed,) = _captured(lambda: gather.gather_rows_cuda(data, idx))
+    captured = gather.launches - before - 1  # less the warm-up call
+    replayed.zero_()
+    graph.replay()
+    if captured != 1 or not torch.equal(
+            replayed, gather.gather_rows_cuda(data, idx)):
+        raise AssertionError(f"K5 in a CUDA graph: {captured} launches "
+                             f"captured, or its replay differs")
     torch.cuda.synchronize()
     one = torch.zeros((1, 1), dtype=torch.int64, device=DEV)
     emit({"phase": "kernels", "gpu": gpu, "kernels": "K5",
@@ -415,8 +512,11 @@ def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
           "launch_floor_ms": cuda_ms(
               lambda: gather.gather_rows_cuda(data[:1], one)),
           "library": "torch.gather(data, 1, idx[..., None].expand(-1, -1, C))",
+          "every_c_bitwise_equal": widths,
           "edge_rows_bitwise_equal": edge,
-          "out_of_range_index_gives_zero_row": True})
+          "out_of_range_index_gives_zero_row": True,
+          "graph_capture": {"launches_captured": captured,
+                            "replay_equals_eager": True}})
     total["bound_by"] = "bytes"
     return total
 
@@ -588,20 +688,76 @@ def _nn_edge_rows(nn) -> dict:
                for x in (a, b, rng.standard_normal((B, M, 3))))
     k3 = nn.signed_nearest_cuda(a, b, n)
     _equal_parts("K3 edge rows", k3, nn.signed_nearest_plain(a, b, n))
-    k2 = nn.signed_nearest_pruned_cuda(a, b, n, 0.25)
-    _equal_parts("K2 edge rows", k2,
-                 nn.signed_nearest_pruned_plain(a, b, n, 0.25))
+    want = nn.signed_nearest_pruned_plain(a, b, n, 0.25)
+    _equal_parts("K2 edge rows", nn.signed_nearest_pruned_cuda(a, b, n, 0.25),
+                 want)
     _equal_parts("K4 edge rows", nn.nearest_neighbor_cuda(a, b),
                  nn.nearest_neighbor_plain(a, b))
     torch.cuda.synchronize()
     d2 = nn.delta_squared(0.25)
     rows = {"tied_winners_first": int((k3[2] < M // 2).sum()),
-            "one_point_cloud_inside_delta": int((k2[0][1] < d2).sum()),
-            "all_far_forced": int((k2[0][2] == d2).sum())}
+            "one_point_cloud_inside_delta": int((want[0][1] < d2).sum()),
+            "all_far_forced": int((want[0][2] == d2).sum())}
     if rows["tied_winners_first"] != B * N or rows["all_far_forced"] != N \
             or rows["one_point_cloud_inside_delta"] != N:
         raise AssertionError(f"edge check missed a row kind: {rows}")
     return rows
+
+
+def _k2_ties_and_gaps(nn) -> dict:
+    """K2 against its plain version on two frames built for its sweep.
+    Frame 0: surface rows repeated across a group boundary (7 -> 8), inside
+    a group (2 -> 5) and across a tile boundary (255 -> 256), with queries
+    on those rows, so each tie's first index must win.
+    Frame 1: five segments, the second and fourth moved 5 m away, so the
+    flagged list has gaps (0, 2, 4)."""
+    seg = nn.SEGMENT
+    rng = np.random.default_rng(SEED + 15)
+    M, N = 5 * seg, 200
+    b = rng.standard_normal((2, M, 3)) * 0.3
+    for src, dst in ((7, 8), (2, 5), (255, 256), (255, 257)):
+        b[0, dst] = b[0, src]
+    a = np.empty((2, N, 3))
+    a[0] = b[0, [7, 2, 255] * (N // 3) + [7] * (N % 3)] + \
+        rng.standard_normal((N, 3)) * 1e-3
+    b[1, seg:2 * seg] += 5.0
+    b[1, 3 * seg:4 * seg] += 5.0
+    a[1] = b[1, rng.choice(np.r_[0:seg, 2 * seg:3 * seg, 4 * seg:M], N)] \
+        + rng.standard_normal((N, 3)) * 0.01
+    a, b, n = (torch.from_numpy(x.astype(np.float32)).to(DEV)
+               for x in (a, b, rng.standard_normal((2, M, 3))))
+    want = nn.signed_nearest_pruned_plain(a, b, n, 0.25)
+    got = nn._signed_nearest_pruned_launch(a, b, n, 0.25)
+    _equal_parts("K2 ties and gaps", got[:3], want)
+    torch.cuda.synchronize()
+    first = {j: int((want[2][0] == j).sum()) for j in (7, 2, 255)}
+    later = set(want[2][0].tolist()) & {8, 5, 256, 257}
+    count, ids = got[4], got[5][1].tolist()
+    if min(first.values()) == 0 or later or ids != [0, 2, 4, -1, -1] \
+            or int(count[1]) != 3:
+        raise AssertionError(f"ties or gaps not covered: winners {first}, "
+                             f"ids {ids}")
+    return {"tie_first_index_wins": first, "gap_frame_ids": ids}
+
+
+def _device_ms_by_kernel(fn, calls: int = 5) -> dict:
+    """Device ms a call of ``fn`` for each CUDA kernel it launches, by
+    torch.profiler over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            m = re.search(r"(\w+_kernel)", e.name)
+            name = m.group(1) if m else e.name[:40]
+            by[name] = by.get(name, 0.0) + e.device_time / 1e3 / calls
+    return by
 
 
 def _nn_bound(pairs: int, n_bytes: int):
@@ -628,7 +784,8 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
     d2 = nn.delta_squared(delta)
 
     k3 = nn.signed_nearest_cuda(a, b, n)
-    k2 = nn.signed_nearest_pruned_cuda(a, b, n, delta)
+    launched = nn._signed_nearest_pruned_launch(a, b, n, delta)
+    k2, prologue = launched[:3], launched[3:]  # prologue: flags, count, ids
     torch.cuda.synchronize()
     err = {"K3": _equal_parts("K3", tuple(x[:SUB] for x in k3),
                               nn.signed_nearest_plain(*sub)),
@@ -642,7 +799,12 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
         if not bool((g[~near] == forced).all()):
             raise AssertionError(f"K2 {part} is not forced beyond delta")
 
+    # K2's prologue against the plain flags and compaction
     flags = nn.segment_flags(a, b, delta)
+    count, ids = nn.segment_list_plain(flags)
+    if not all(map(torch.equal, prologue, (flags, count, ids))):
+        raise AssertionError("K2's prologue differs from segment_flags and "
+                             "segment_list_plain")
     n_seg = flags.shape[1]
     seg_points = torch.full((n_seg,), nn.SEGMENT, device=DEV)
     seg_points[-1] = M - (n_seg - 1) * nn.SEGMENT
@@ -696,6 +858,29 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs[name],
             "bytes": n_bytes[name], "max_abs_err": err[name],
             "library_ms": None if library is None else cuda_ms(library)}
+    # the registers and spills of K2's sweep
+    out["K2"]["ptxas"] = next(e for e in _build_report("nn")
+                              if "pruned_sweep_kernel" in e["kernel"])
+
+    # one K2 call captured in a CUDA graph: one launch, replay equals eager
+    before = nn.launches["signed_nearest_pruned"]
+    graph, (replayed,) = _captured(
+        lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta))
+    captured = nn.launches["signed_nearest_pruned"] - before - 1
+    for t in replayed:
+        t.zero_()
+    graph.replay()
+    _equal_parts("K2 replayed from a CUDA graph", replayed, k2)
+    if captured != 1:
+        raise AssertionError(f"K2 in a CUDA graph: {captured} launches")
+    out["K2"]["graph_replay_ms"] = cuda_ms(graph.replay)
+    del graph, replayed
+    out["K2"]["device_ms_by_kernel"] = _device_ms_by_kernel(
+        lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta))
+    # the same flags as plain PyTorch launches, K2's route before its prologue
+    out["K2"]["segment_flags_device_ms"] = sum(_device_ms_by_kernel(
+        lambda: nn.segment_flags(a, b, delta)).values())
+
     emit({"phase": "kernels", "gpu": gpu, "kernels": "K2 K3 K4",
           "shape_k2_k3": [F, N, M], "shape_k4": [F_all, a4.shape[1], N],
           "delta": delta, "segment": nn.SEGMENT, "bitwise_equal": True,
@@ -703,7 +888,11 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
           "flagged_segment_share": float(flags.float().mean()),
           "flagged_pair_share": pairs["K2"] / pairs["K3"],
           "rows": rows, "rows_held_against_plain": rows_sub,
-          "edge_rows_bitwise_equal": _nn_edge_rows(nn), **out})
+          "edge_rows_bitwise_equal": _nn_edge_rows(nn),
+          "k2_ties_and_gaps_bitwise_equal": _k2_ties_and_gaps(nn),
+          "k2_prologue_equals_segment_flags": True,
+          "k2_graph_capture": {"launches_captured": captured,
+                               "replay_equals_eager": True}, **out})
     return out
 
 
@@ -1237,16 +1426,17 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
     trace, flag_shares = [], []
     run = make_sampler(cfg, model, diffusion, smpl=body, projector=projector,
                        use_correction=True, reuse_memory=True, trace=trace)
-    segment_flags = nn.segment_flags
+    pruned = nn._signed_nearest_pruned_launch
 
-    def recording_flags(a, b, delta):
-        flags = segment_flags(a, b, delta)
-        flag_shares.append(flags.float().mean())
-        return flags
+    def recording_pruned(a, b, n, delta):
+        # keeps the prologue's count of flagged segments (no extra launch)
+        out = pruned(a, b, n, delta)
+        flag_shares.append(out[4].sum() / out[3].numel())
+        return out
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    nn.segment_flags = recording_flags
+    nn._signed_nearest_pruned_launch = recording_pruned
     try:
         _reset_launches(group, nn, sa)
         t0 = time.perf_counter()
@@ -1259,7 +1449,7 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
         t2 = time.perf_counter()
         launches = _read_launches(group, nn, sa)
     finally:
-        nn.segment_flags = segment_flags
+        nn._signed_nearest_pruned_launch = pruned
     if launches != {"K1": 2, "K2": 11, "K3": 0, "K4": 11, "K5": 0, "K6": 0}:
         raise AssertionError(f"launches on the corrected path: {launches}")
     _check_sample(x, tiled[0], cfg, 135)  # the blend may move the object
@@ -1935,8 +2125,11 @@ def main() -> int:
         **{k: timed[key][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
-        **{k: timed[key][k] for k in ("frames", "plain_frames", "unfused_ms",
-                                      "with_grouped_ms")
+        **{k: timed[key][k] for k in (
+            "frames", "plain_frames", "unfused_ms", "with_grouped_ms",
+            "ptxas", "graph_replay_ms", "device_ms_by_kernel",
+            "segment_flags_device_ms", "device_ms", "ms_back_to_back",
+            "library_device_ms", "library_ms_back_to_back")
            if k in timed[key]}}
         for key, name, source, replaces in (
             ("K1", "K1 ball_group", "ball_group.cu", "pallas_group.py:143"),

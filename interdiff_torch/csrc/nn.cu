@@ -22,26 +22,71 @@
 // floating point, so the single fused step fma(-2, dot, b2) rounds once, to
 // the same float as b2 - 2*dot.
 //
-// Pruning (K2): the surface is cut into segments of TILE points, the unit the
-// block stages through shared memory anyway.  flags[f, s] != 0 says that some
-// point of segment s of frame f lies within delta of the bounding box of the
-// frame's queries (computed by the wrapper in plain PyTorch, O(M) per frame);
-// the block skips the other segments whole.  A query whose nearest point is
-// closer than delta always finds it in a flagged segment, so the result is
-// bit-equal to the full sweep there; every query with sq >= delta^2, those
-// with no flagged segment included (the running minimum starts at 3.0e38),
-// gets exactly (delta^2, +1, 0).  Flags are per frame and the segment is one
-// shared-memory tile: nothing here needs the blocks of eight frames, the few
-// wide segments or the padded tensors that the TPU's tiling asked for.  The
-// ragged last tile and the ragged last query block are masked in the kernel.
+// K3 and K4: one block per (frame, 128 queries), one thread per query with
+// (best, j*) in registers; the block stages TILE points of b as float4 (x, y,
+// z, b2) in shared memory, so the inner loop costs one broadcast 16-byte
+// shared load and about ten instructions per pair and no global traffic; n
+// is read only once, at j*.  Bound: operations, not bytes.  At the gate's
+// shape (1600 frames, N=2048 queries, M=6890 points) a full sweep is 2.26e10
+// pairs of 8 float32 operations against 0.17 GB of input.
 //
-// Bound: operations, not bytes.  At the gate's shape (1600 frames, N=2048
-// queries, M=6890 points) a full sweep is 2.26e10 pairs of 8 float32
-// operations against 0.17 GB of input.  Design: one block per (frame, 128
-// queries), one thread per query with (best, j*) in registers; the block
-// stages TILE points of b as float4 (x, y, z, b2) in shared memory, so the
-// inner loop costs one broadcast 16-byte shared load and eight arithmetic
-// instructions per pair and no global traffic; n is read only once, at j*.
+// K2, the pruned sweep, in three kernels launched by one entry:
+//
+// 1. segment_list_kernel, one block per frame: the bounding box of the
+//    frame's queries; for every segment of TILE surface points the least
+//    boxd2 = (ex*ex + ey*ey) + ez*ez (rounded step by step; e the distance
+//    of the point outside the box along each axis); flags[f, s] = boxd2 <
+//    delta^2 * 1.01 rounded to float32 (the slack of ops/nn.py::
+//    segment_flags, which computes the same flags in plain PyTorch); and the
+//    flagged ids compacted in increasing order, count[f] of them, -1 after.
+//    A query whose nearest point is closer than delta finds it in a flagged
+//    segment, so the result is bit-equal to the full sweep there; every query
+//    with sq >= delta^2, those with no flagged segment included (the running
+//    minimum starts at 3.0e38), gets exactly (delta^2, +1, 0).  The count
+//    stays on the device: nothing here waits for the host.
+// 2. frame_order_kernel, one block: the frames by decreasing count (a
+//    counting sort), so that the sweep dispatches its longest blocks first
+//    and its last wave holds short ones.  A frame's blocks take from 0 to
+//    27 tiles at the main-path shape: dispatched in frame order, a long
+//    block late in the grid kept the card waiting at the end.
+// 3. pruned_sweep_kernel<T, Q, G>, one block per (frame, T*Q queries): it
+//    walks the frame's flagged segments only, one tile each.  One setting
+//    is built: T = 256 threads, Q = 8 queries a thread, groups of G = 8,
+//    one block a frame at N = 2048, the fastest of three on an H100
+//    (PERF.md; scripts/torch_kernel_probes.py rebuilds the library with
+//    -DK2_THREADS, -DK2_QUERIES and -DK2_GROUP to time others).
+//    - Register blocking: thread t owns queries t, t+T, ..., t+(Q-1)T (loads
+//      and stores stay coalesced), so one broadcast shared load of a point
+//      feeds Q pairs.
+//    - Double buffering: while the block computes tile i, each thread holds
+//      its share of tile i+1 in registers (loads issued before the compute),
+//      stores it to the other buffer after, and one __syncthreads a tile
+//      separates the two.
+//    - Grouped first-occurrence selection: per query the G scores of G
+//      consecutive points, their minimum m by fminf (a tree over the G
+//      scores; the G points sit in registers for the Q queries), and one
+//      comparison
+//      m < best that keeps (best, g*) = (m, the group's first point) when it
+//      holds, by selects and no branch.  After the last tile the G scores of
+//      group g* are computed again, by the same arithmetic from the same
+//      points in global memory, and j* is the first j of it whose score
+//      equals best.  This equals the sequential walk with strict <: that
+//      walk ends at the first occurrence of the least score; the groups
+//      before g* hold no score as small (else one of them would have won
+//      the strict comparison), and inside g* the first j with s_j == best
+//      is that occurrence.  best is the group minimum's value, the value of
+//      a score; fminf returns one of its inputs, and a score of -0.0 cannot
+//      occur (b2 >= +0), so best has that score's bits.  fminf skips a NaN
+//      score and == never matches one, so a NaN is never selected, as in the
+//      walk.  (A first version rescanned the group inside the loop, on a
+//      branch, whenever m < best: 3.7-4.0 ms at the main-path data on an
+//      H100, the branch diverging across the warp's queries.)
+//    A ragged last tile is padded with points of score +inf, which neither
+//    the minimum nor the comparison with best (at most 3.0e38) can take.
+//    Per pair: six rounded float32 operations for the score, (G-1)/G of a
+//    minimum, 3/G of a comparison and two selects, and 1/Q of a shared load:
+//    about 7.4 instructions at G = 8, Q = 8, against the 9-10 of K3's loop.
+//    Bound: operations (8 a pair over the flagged pairs of this call's data).
 
 #include <cuda_runtime.h>
 
@@ -57,15 +102,13 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
                    __fmul_rn(az, bz));
 }
 
-template <bool SIGNED, bool PRUNED>
+template <bool SIGNED>
 __global__ void nn_sweep_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
                                 const float* __restrict__ n,
-                                const int* __restrict__ flags,
                                 float* __restrict__ sq_out,
                                 float* __restrict__ sdot_out,
-                                int* __restrict__ idx_out,
-                                int N, int M, float delta_sq) {
+                                int* __restrict__ idx_out, int N, int M) {
   __shared__ float4 tile[TILE];
 
   const int frame = blockIdx.x;
@@ -85,8 +128,6 @@ __global__ void nn_sweep_kernel(const float* __restrict__ a,
   float best = SCORE_INF;
   int best_j = 0;
   for (int seg = 0; seg < n_seg; ++seg) {
-    // the flag is the same for every thread of the block
-    if (PRUNED && flags[(size_t)frame * n_seg + seg] == 0) continue;
     const int base = seg * TILE;
     const int count = min(TILE, M - base);
     __syncthreads();  // the previous tile has been read by every thread
@@ -121,11 +162,6 @@ __global__ void nn_sweep_kernel(const float* __restrict__ a,
     sdot = __fsub_rn(dot3(ax, ay, az, nx, ny, nz),
                      dot3(nx, ny, nz, bx, by, bz));
   }
-  if (PRUNED && sq >= delta_sq) {
-    sq = delta_sq;
-    sdot = 1.0f;
-    best_j = 0;
-  }
   sq_out[out] = sq;
   idx_out[out] = best_j;
   if (SIGNED) sdot_out[out] = sdot;
@@ -133,39 +169,357 @@ __global__ void nn_sweep_kernel(const float* __restrict__ a,
 
 dim3 sweep_grid(int B, int N) { return dim3(B, (N + THREADS - 1) / THREADS); }
 
+// ---- K2 ---------------------------------------------------------------------
+
+constexpr int LIST_THREADS = 256;  // threads of the prologue's block
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+__device__ __forceinline__ float warp_min(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__global__ void __launch_bounds__(LIST_THREADS)
+    segment_list_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b, int* __restrict__ flags,
+                        int* __restrict__ count, int* __restrict__ ids, int N,
+                        int M, int n_seg, float flag_thr) {
+  constexpr int WARPS = LIST_THREADS / 32;
+  __shared__ float part[6][WARPS];
+  __shared__ float box[6];  // lo x, y, z, hi x, y, z
+  const int frame = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // the bounding box of the frame's queries
+  const float* af = a + (size_t)frame * N * 3;
+  float lo[3], hi[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    lo[c] = inf_f();
+    hi[c] = -inf_f();
+  }
+  for (int q = threadIdx.x; q < N; q += LIST_THREADS) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      const float v = af[(size_t)q * 3 + c];
+      lo[c] = fminf(lo[c], v);
+      hi[c] = fmaxf(hi[c], v);
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    lo[c] = warp_min(lo[c]);
+    hi[c] = warp_max(hi[c]);
+    if (lane == 0) {
+      part[c][warp] = lo[c];
+      part[3 + c][warp] = hi[c];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 6) {
+    float v = part[threadIdx.x][0];
+    for (int w = 1; w < WARPS; ++w) {
+      v = threadIdx.x < 3 ? fminf(v, part[threadIdx.x][w])
+                          : fmaxf(v, part[threadIdx.x][w]);
+    }
+    box[threadIdx.x] = v;
+  }
+  __syncthreads();
+
+  // one warp a segment: the least box distance of its points
+  const float* bf = b + (size_t)frame * M * 3;
+  int* ff = flags + (size_t)frame * n_seg;
+  for (int s = warp; s < n_seg; s += WARPS) {
+    float m = inf_f();
+    const int end = min(M, (s + 1) * TILE);
+    for (int k = s * TILE + lane; k < end; k += 32) {
+      const float* p = bf + (size_t)k * 3;
+      const float ex = fmaxf(fmaxf(box[0] - p[0], p[0] - box[3]), 0.0f);
+      const float ey = fmaxf(fmaxf(box[1] - p[1], p[1] - box[4]), 0.0f);
+      const float ez = fmaxf(fmaxf(box[2] - p[2], p[2] - box[5]), 0.0f);
+      m = fminf(m, dot3(ex, ey, ez, ex, ey, ez));
+    }
+    m = warp_min(m);
+    if (lane == 0) ff[s] = m < flag_thr;
+  }
+  __syncthreads();  // the frame's flags are visible to the whole block
+
+  // compaction by one warp, 32 flags a ballot
+  if (warp == 0) {
+    int* fid = ids + (size_t)frame * n_seg;
+    int total = 0;
+    for (int s0 = 0; s0 < n_seg; s0 += 32) {
+      const int s = s0 + lane;
+      const bool flagged = s < n_seg && ff[s] != 0;
+      const unsigned mask = __ballot_sync(~0u, flagged);
+      if (flagged) fid[total + __popc(mask & ((1u << lane) - 1u))] = s;
+      total += __popc(mask);
+    }
+    for (int i = total + lane; i < n_seg; i += 32) fid[i] = -1;
+    if (lane == 0) count[frame] = total;
+  }
+}
+
+constexpr int ORDER_THREADS = 1024;
+constexpr int ORDER_BINS = 256;  // counts from 255 up share the first bin
+
+__device__ __forceinline__ int order_bin(int count) {
+  return ORDER_BINS - 1 - min(count, ORDER_BINS - 1);
+}
+
+// One block: order[i] = the frames by decreasing count of flagged segments
+// (a counting sort; frames of one count in any order).  The sweep's blocks
+// are dispatched longest first, so its last wave holds short blocks.
+__global__ void __launch_bounds__(ORDER_THREADS)
+    frame_order_kernel(const int* __restrict__ count, int* __restrict__ order,
+                       int B) {
+  __shared__ int start[ORDER_BINS];
+  for (int i = threadIdx.x; i < ORDER_BINS; i += ORDER_THREADS) start[i] = 0;
+  __syncthreads();
+  for (int f = threadIdx.x; f < B; f += ORDER_THREADS) {
+    atomicAdd(&start[order_bin(count[f])], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int run = 0;
+    for (int i = 0; i < ORDER_BINS; ++i) {
+      const int c = start[i];
+      start[i] = run;
+      run += c;
+    }
+  }
+  __syncthreads();
+  for (int f = threadIdx.x; f < B; f += ORDER_THREADS) {
+    order[atomicAdd(&start[order_bin(count[f])], 1)] = f;
+  }
+}
+
+// |b|^2 - 2 a.b for c = (bx, by, bz, |b|^2), rounded as in K3 and K4
+__device__ __forceinline__ float score(float ax, float ay, float az,
+                                       float4 c) {
+  return __fmaf_rn(-2.0f, dot3(ax, ay, az, c.x, c.y, c.z), c.w);
+}
+
+template <int G>
+__device__ __forceinline__ float group_min(const float (&s)[G]) {
+  float m[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) m[j] = s[j];
+#pragma unroll
+  for (int w = G / 2; w > 0; w /= 2) {
+#pragma unroll
+    for (int j = 0; j < w; ++j) m[j] = fminf(m[j], m[j + w]);
+  }
+  return m[0];
+}
+
+template <int T, int Q, int G>
+__global__ void __launch_bounds__(T)
+    pruned_sweep_kernel(const float* __restrict__ a,
+                        const float* __restrict__ b,
+                        const float* __restrict__ n,
+                        const int* __restrict__ count,
+                        const int* __restrict__ ids,
+                        const int* __restrict__ order,
+                        float* __restrict__ sq_out,
+                        float* __restrict__ sdot_out,
+                        int* __restrict__ idx_out, int N, int M, int n_seg,
+                        int n_chunks, float delta_sq) {
+  static_assert(TILE % T == 0 && TILE % G == 0 && (G & (G - 1)) == 0,
+                "a tile splits into whole shares and whole groups");
+  constexpr int PER = TILE / T;  // points each thread stages a tile
+  __shared__ float4 tile[2][TILE];
+
+  // the chunks of one frame are neighbours, the frames longest first
+  const int frame = order[blockIdx.x / n_chunks];
+  const int q0 = (blockIdx.x % n_chunks) * (T * Q) + threadIdx.x;
+  const float* bf = b + (size_t)frame * M * 3;
+  const int* fid = ids + (size_t)frame * n_seg;
+  const int n_flag = count[frame];
+
+  // per query: the least score so far and the first point of the group
+  // that holds it (-1: none below SCORE_INF yet)
+  float ax[Q], ay[Q], az[Q], best[Q];
+  int best_g[Q];
+#pragma unroll
+  for (int i = 0; i < Q; ++i) {
+    const int q = q0 + i * T;
+    ax[i] = ay[i] = az[i] = 0.0f;
+    if (q < N) {
+      const float* ap = a + ((size_t)frame * N + q) * 3;
+      ax[i] = ap[0];
+      ay[i] = ap[1];
+      az[i] = ap[2];
+    }
+    best[i] = SCORE_INF;
+    best_g[i] = -1;
+  }
+
+  // this thread's share of a segment: points threadIdx.x + p*T
+  float px[PER], py[PER], pz[PER];
+  auto fetch = [&](int seg) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int k = seg * TILE + threadIdx.x + p * T;
+      px[p] = py[p] = pz[p] = 0.0f;
+      if (k < M) {
+        const float* src = bf + (size_t)k * 3;
+        px[p] = src[0];
+        py[p] = src[1];
+        pz[p] = src[2];
+      }
+    }
+  };
+  auto stage = [&](float4* dst, int seg) {
+#pragma unroll
+    for (int p = 0; p < PER; ++p) {
+      const int k = threadIdx.x + p * T;
+      dst[k] = seg * TILE + k < M
+                   ? make_float4(px[p], py[p], pz[p],
+                                 dot3(px[p], py[p], pz[p], px[p], py[p], pz[p]))
+                   : make_float4(0.0f, 0.0f, 0.0f, inf_f());
+    }
+  };
+
+  if (n_flag > 0) {
+    fetch(fid[0]);
+    stage(tile[0], fid[0]);
+  }
+  __syncthreads();
+  for (int i = 0; i < n_flag; ++i) {
+    const int base = fid[i] * TILE;
+    const int cnt = min(TILE, M - base);
+    const bool more = i + 1 < n_flag;
+    const int next = more ? fid[i + 1] : 0;
+    if (more) fetch(next);  // in flight while tile i is computed
+    const float4* t = tile[i & 1];
+    for (int k0 = 0; k0 < cnt; k0 += G) {
+      float4 c[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) c[j] = t[k0 + j];
+#pragma unroll
+      for (int qi = 0; qi < Q; ++qi) {
+        float s[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          s[j] = score(ax[qi], ay[qi], az[qi], c[j]);
+        }
+        const float m = group_min<G>(s);
+        const bool better = m < best[qi];
+        best[qi] = better ? m : best[qi];
+        best_g[qi] = better ? base + k0 : best_g[qi];
+      }
+    }
+    if (more) stage(tile[(i + 1) & 1], next);
+    __syncthreads();  // tile i read by all, tile i+1 stored by all
+  }
+
+#pragma unroll
+  for (int qi = 0; qi < Q; ++qi) {
+    const int q = q0 + qi * T;
+    if (q >= N) continue;
+    // the first j of the winning group whose score is best: its G scores
+    // again from global memory, by the same arithmetic (past M none)
+    int j = 0;
+    if (best_g[qi] >= 0) {
+      j = best_g[qi] + G - 1;
+#pragma unroll
+      for (int g = G - 1; g >= 0; --g) {
+        const int k = best_g[qi] + g;
+        if (k < M) {
+          const float* p = bf + (size_t)k * 3;
+          const float x = p[0], y = p[1], z = p[2];
+          const float4 c = make_float4(x, y, z, dot3(x, y, z, x, y, z));
+          if (score(ax[qi], ay[qi], az[qi], c) == best[qi]) j = k;
+        }
+      }
+    }
+    const size_t out = (size_t)frame * N + q;
+    float sq = fmaxf(
+        __fadd_rn(best[qi], dot3(ax[qi], ay[qi], az[qi], ax[qi], ay[qi], az[qi])),
+        0.0f);
+    float sdot = 1.0f;
+    if (sq >= delta_sq) {
+      sq = delta_sq;
+      j = 0;
+    } else {
+      const size_t jb = ((size_t)frame * M + j) * 3;
+      const float bx = b[jb], by = b[jb + 1], bz = b[jb + 2];
+      const float nx = n[jb], ny = n[jb + 1], nz = n[jb + 2];
+      sdot = __fsub_rn(dot3(ax[qi], ay[qi], az[qi], nx, ny, nz),
+                       dot3(nx, ny, nz, bx, by, bz));
+    }
+    sq_out[out] = sq;
+    sdot_out[out] = sdot;
+    idx_out[out] = j;
+  }
+}
+
+// K2's sweep: threads a block, queries a thread, scores a group (see above)
+#ifndef K2_THREADS
+#define K2_THREADS 256
+#endif
+#ifndef K2_QUERIES
+#define K2_QUERIES 8
+#endif
+#ifndef K2_GROUP
+#define K2_GROUP 8
+#endif
+constexpr int SWEEP_T = K2_THREADS, SWEEP_Q = K2_QUERIES, SWEEP_G = K2_GROUP;
+
 }  // namespace
 
 // All tensors are contiguous on the device: a [B, N, 3], b and n [B, M, 3],
-// sq and sdot [B, N] float32; idx [B, N] and flags [B, ceil(M / TILE)] int32.
-// Each function launches on `stream` and returns cudaGetLastError() as an int
-// (0 = launched).
+// sq and sdot [B, N] float32; idx [B, N] int32.  Each function launches on
+// `stream` and returns cudaGetLastError() as an int (0 = launched).
 
 extern "C" int nn_tile() { return TILE; }
 
 extern "C" int nn_nearest_f32(const float* a, const float* b, float* sq,
                               int* idx, int B, int N, int M, void* stream) {
-  nn_sweep_kernel<false, false>
+  nn_sweep_kernel<false>
       <<<sweep_grid(B, N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, b, nullptr, nullptr, sq, nullptr, idx, N, M, 0.0f);
+          a, b, nullptr, sq, nullptr, idx, N, M);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int nn_signed_f32(const float* a, const float* b, const float* n,
                              float* sq, float* sdot, int* idx, int B, int N,
                              int M, void* stream) {
-  nn_sweep_kernel<true, false>
+  nn_sweep_kernel<true>
       <<<sweep_grid(B, N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, b, n, nullptr, sq, sdot, idx, N, M, 0.0f);
+          a, b, n, sq, sdot, idx, N, M);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K2: the prologue writes flags, count [B] and ids [B, ceil(M / TILE)], the
+// ordering kernel order [B] (int32 scratch the caller allocates), the sweep
+// reads count, ids and order.
 extern "C" int nn_signed_pruned_f32(const float* a, const float* b,
-                                    const float* n, const int* flags,
-                                    float* sq, float* sdot, int* idx, int B,
-                                    int N, int M, float delta_sq,
+                                    const float* n, int* flags, int* count,
+                                    int* ids, int* order, float* sq,
+                                    float* sdot, int* idx, int B, int N, int M,
+                                    float delta_sq, float flag_thr,
                                     void* stream) {
-  nn_sweep_kernel<true, true>
-      <<<sweep_grid(B, N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, b, n, flags, sq, sdot, idx, N, M, delta_sq);
+  const int n_seg = (M + TILE - 1) / TILE;
+  const int n_chunks = (N + SWEEP_T * SWEEP_Q - 1) / (SWEEP_T * SWEEP_Q);
+  if (B < 1 || N < 1 || M < 1 || (long long)B * n_chunks > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  segment_list_kernel<<<B, LIST_THREADS, 0, s>>>(a, b, flags, count, ids, N,
+                                                 M, n_seg, flag_thr);
+  frame_order_kernel<<<1, ORDER_THREADS, 0, s>>>(count, order, B);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  pruned_sweep_kernel<SWEEP_T, SWEEP_Q, SWEEP_G>
+      <<<B * n_chunks, SWEEP_T, 0, s>>>(a, b, n, count, ids, order, sq, sdot,
+                                        idx, N, M, n_seg, n_chunks, delta_sq);
   return static_cast<int>(cudaGetLastError());
 }

@@ -24,13 +24,13 @@ the card that sum uses atomic adds, so rows hit more than once are summed in
 an order that changes from run to run.
 
 Bound: bytes (idx, the output, one pass over data); microseconds at the
-main-path shape, the order of a launch.  The library is built with nvcc at
-first use (`ops/_build.py`).
+main-path shape, the order of a launch, so the host path counts as much as
+the copy: the wrapper checks with the cheap conditions first and launches
+through `ops/_build.py::launch` (no stream object, no device guard on the
+current device).  The library is built with nvcc at first use.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -42,24 +42,24 @@ MAX_C = 8  # widest row the kernel takes, the cap of the JAX package
 # reads it back to show that the path went through the kernel
 launches = 0
 
+SOURCE = "gather"  # csrc/gather.cu
+# parameter kinds of its C entries (see `ops/_build.py`)
+C_ENTRIES = {"gather_rows_f32": ("ptr",) * 3 + ("int",) * 3
+             + ("i64", "int", "ptr")}
+
 _lib = None
 
 
 def build() -> str:
     """Compile `csrc/gather.cu` into a shared library (once per source hash)
     and return its path."""
-    return _build.build("gather")
+    return _build.build(SOURCE)
 
 
-def _library() -> ctypes.CDLL:
+def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.gather_rows_f32.argtypes = (
-            [ptr] * 3 + [i32] * 3 + [ctypes.c_longlong, i32, ptr])
-        lib.gather_rows_f32.restype = i32
-        _lib = lib
+        _lib = _build.load(SOURCE, C_ENTRIES)
     return _lib
 
 
@@ -80,30 +80,26 @@ def gather_rows_cuda(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch K5 on the current stream: the same function as
     ``gather_rows_plain``, on contiguous CUDA tensors inside the gate."""
     global launches
-    if data.ndim != 3 or idx.ndim != 2 or idx.shape[0] != data.shape[0]:
-        raise ValueError(f"shapes do not match: data {tuple(data.shape)}, "
-                         f"idx {tuple(idx.shape)}")
-    if not data.is_cuda or not data.is_contiguous() or not in_gate(data):
+    if not (data.is_cuda and data.dtype == torch.float32 and data.ndim == 3
+            and data.shape[2] <= MAX_C and data.is_contiguous()):
         raise ValueError(f"data must be a contiguous float32 CUDA tensor "
-                         f"with at most {MAX_C} channels, got "
-                         f"{tuple(data.shape)} {data.dtype} on {data.device}")
-    if idx.device != data.device or not idx.is_contiguous() \
-            or idx.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"idx must be a contiguous int32 or int64 tensor on "
-                         f"{data.device}, got {idx.dtype} on {idx.device}")
+                         f"[B, N, C <= {MAX_C}], got {tuple(data.shape)} "
+                         f"{data.dtype} on {data.device}")
+    if not (idx.ndim == 2 and idx.shape[0] == data.shape[0]
+            and idx.get_device() == data.get_device()
+            and idx.dtype in (torch.int64, torch.int32)
+            and idx.is_contiguous()):
+        raise ValueError(f"idx must be a contiguous int32 or int64 tensor "
+                         f"[B, K] on {data.device}, got {tuple(idx.shape)} "
+                         f"{idx.dtype} on {idx.device}")
     B, N, C = data.shape
     K = idx.shape[1]
-    out = torch.empty((B, K, C), dtype=torch.float32, device=data.device)
+    out = data.new_empty((B, K, C))
     if B == 0 or K == 0:
         return out
-    lib = _library()
-    with torch.cuda.device(data.device):
-        err = lib.gather_rows_f32(
-            data.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, C, K,
-            int(idx.dtype == torch.int64),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gather_rows_f32 launch failed: CUDA error {err}")
+    _build.launch(_library().gather_rows_f32, data, data.data_ptr(),
+                  idx.data_ptr(), out.data_ptr(), B, N, C, K,
+                  int(idx.dtype == torch.int64))
     launches += 1
     return out
 

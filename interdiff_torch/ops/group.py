@@ -29,7 +29,6 @@ package, into ``_build/`` beside it, and rebuilt when the source changes.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -48,6 +47,10 @@ MAX_C = 8  # widest data row the kernel takes (xyz + up to 5 features)
 # reads it back to show that the path went through the kernel
 launches = 0
 
+SOURCE = "ball_group"  # csrc/ball_group.cu
+# parameter kinds of its C entries (see `ops/_build.py`)
+C_ENTRIES = {"ball_group_f32": ("ptr",) * 4 + ("int",) * 5 + ("f32", "ptr")}
+
 _lib = None
 
 
@@ -61,18 +64,13 @@ def pairwise_sqdist_t(xyz: torch.Tensor, new_xyz: torch.Tensor
 def build() -> str:
     """Compile `csrc/ball_group.cu` into a shared library (once per source
     hash) and return its path."""
-    return _build.build("ball_group")
+    return _build.build(SOURCE)
 
 
-def _library() -> ctypes.CDLL:
+def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        lib.ball_group_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.ball_group_f32.restype = ctypes.c_int
-        _lib = lib
+        _lib = _build.load(SOURCE, C_ENTRIES)
     return _lib
 
 
@@ -112,13 +110,9 @@ def group_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
     lib = _library()
     out = torch.empty((B, M, nsample, C), dtype=torch.float32,
                       device=d2t.device)
-    with torch.cuda.device(d2t.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ball_group_f32(
-            d2t.data_ptr(), data.data_ptr(), new_xyz.data_ptr(),
-            out.data_ptr(), B, N, M, C, nsample, radius_sq(radius), stream)
-    if err != 0:
-        raise RuntimeError(f"ball_group_f32 launch failed: CUDA error {err}")
+    _build.launch(lib.ball_group_f32, d2t, d2t.data_ptr(), data.data_ptr(),
+                  new_xyz.data_ptr(), out.data_ptr(), B, N, M, C, nsample,
+                  radius_sq(radius))
     launches += 1
     return out
 

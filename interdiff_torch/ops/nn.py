@@ -34,7 +34,10 @@ for every query whose nearest point is closer than ``delta``; exactly
 ``(delta^2, +1.0, 0)`` for every other query.  The kernel skips surface
 segments of ``SEGMENT`` points that lie farther than ``delta`` from the
 bounding box of the frame's queries; the plain version sweeps everything
-and applies the same forcing.
+and applies the same forcing.  K2's prologue computes the flags of
+``segment_flags`` and the compacted list of ``segment_list_plain`` on the
+device, so a call is three kernels behind one C entry and waits for nothing
+on the host (it can be captured in a CUDA graph).
 
 Bound: operations (8 float32 operations a pair: 3 products and 2 sums for
 a.b, a product and a difference for the score, one comparison; the inputs
@@ -44,7 +47,6 @@ The library is built with nvcc at first use (`ops/_build.py`).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -64,29 +66,29 @@ _PLAIN_SCORE_ELEMS = 1 << 26  # largest [frames, N, M] score block (256 MB)
 launches = {"nearest_neighbor": 0, "signed_nearest": 0,
             "signed_nearest_pruned": 0}
 
+SOURCE = "nn"  # csrc/nn.cu
+# parameter kinds of its C entries (see `ops/_build.py`)
+C_ENTRIES = {
+    "nn_tile": (),
+    "nn_nearest_f32": ("ptr",) * 4 + ("int",) * 3 + ("ptr",),
+    "nn_signed_f32": ("ptr",) * 6 + ("int",) * 3 + ("ptr",),
+    "nn_signed_pruned_f32": ("ptr",) * 10 + ("int",) * 3
+    + ("f32", "f32", "ptr"),
+}
+
 _lib = None
 
 
 def build() -> str:
     """Compile `csrc/nn.cu` into a shared library (once per source hash) and
     return its path."""
-    return _build.build("nn")
+    return _build.build(SOURCE)
 
 
-def _library() -> ctypes.CDLL:
+def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.nn_tile.argtypes = []
-        lib.nn_tile.restype = i32
-        lib.nn_nearest_f32.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
-        lib.nn_signed_f32.argtypes = [ptr] * 6 + [i32] * 3 + [ptr]
-        lib.nn_signed_pruned_f32.argtypes = (
-            [ptr] * 7 + [i32] * 3 + [ctypes.c_float, ptr])
-        for fn in (lib.nn_nearest_f32, lib.nn_signed_f32,
-                   lib.nn_signed_pruned_f32):
-            fn.restype = i32
+        lib = _build.load(SOURCE, C_ENTRIES)
         if lib.nn_tile() != SEGMENT:
             raise RuntimeError(f"csrc/nn.cu tiles {lib.nn_tile()} points, "
                                f"the wrapper flags segments of {SEGMENT}")
@@ -162,21 +164,43 @@ def signed_nearest_pruned_plain(a: torch.Tensor, b: torch.Tensor,
             torch.where(far, 0, idx))
 
 
+def flag_threshold(delta: float) -> float:
+    """``float32(delta^2 * 1.01)``: a segment is flagged when its least box
+    distance lies below it (in ``segment_flags`` and in K2's prologue)."""
+    return float(np.float32(delta_squared(delta) * _FLAG_SLACK))
+
+
 def segment_flags(a: torch.Tensor, b: torch.Tensor, delta: float
                   ) -> torch.Tensor:
     """int32 [B, ceil(M / SEGMENT)]: 1 where some point of the segment lies
     within ``delta`` (plus the rounding slack) of the bounding box of the
-    frame's queries.  O(M) a frame, plain PyTorch on the tensors' device."""
+    frame's queries, the squared box distance summed as ``(ex*ex + ey*ey) +
+    ez*ez`` like K2's prologue.  O(M) a frame, plain PyTorch on the tensors'
+    device."""
     B, M = b.shape[:2]
     qlo = a.amin(dim=1, keepdim=True)  # [B, 1, 3]
     qhi = a.amax(dim=1, keepdim=True)
     excess = torch.maximum(qlo - b, b - qhi).clamp(min=0.0)
-    boxd2 = (excess * excess).sum(dim=-1)  # [B, M]
+    e2 = excess * excess
+    boxd2 = (e2[..., 0] + e2[..., 1]) + e2[..., 2]  # [B, M]
     n_seg = -(-M // SEGMENT)
     boxd2 = torch.nn.functional.pad(boxd2, (0, n_seg * SEGMENT - M),
                                     value=float("inf"))
     seg_min = boxd2.reshape(B, n_seg, SEGMENT).amin(dim=-1)
-    return (seg_min < delta_squared(delta) * _FLAG_SLACK).to(torch.int32)
+    return (seg_min < flag_threshold(delta)).to(torch.int32)
+
+
+def segment_list_plain(flags: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the compaction in K2's prologue: flags [B, n_seg]
+    -> (count [B], ids [B, n_seg]) int32, the flagged segment ids of each
+    frame in increasing order, then -1."""
+    flagged = flags != 0
+    count = flagged.sum(dim=1, dtype=torch.int32)
+    order = torch.argsort((~flagged).to(torch.int8), dim=1, stable=True)
+    pos = torch.arange(flags.shape[1], device=flags.device)
+    ids = torch.where(pos < count[:, None], order, -1)
+    return count, ids.to(torch.int32)
 
 
 # -- CUDA wrappers ------------------------------------------------------------
@@ -202,14 +226,6 @@ def _check(a: torch.Tensor, *surfaces: torch.Tensor) -> Tuple[int, int, int]:
     return B, N, M
 
 
-def _launch(name: str, fn, a: torch.Tensor, *args) -> None:
-    with torch.cuda.device(a.device):
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err}")
-    launches[name] += 1
-
-
 def nearest_neighbor_cuda(a: torch.Tensor, b: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on the current stream: (sq, idx) as
@@ -218,8 +234,9 @@ def nearest_neighbor_cuda(a: torch.Tensor, b: torch.Tensor
     lib = _library()
     sq = torch.empty((B, N), dtype=torch.float32, device=a.device)
     idx = torch.empty((B, N), dtype=torch.int32, device=a.device)
-    _launch("nearest_neighbor", lib.nn_nearest_f32, a, a.data_ptr(),
-            b.data_ptr(), sq.data_ptr(), idx.data_ptr(), B, N, M)
+    _build.launch(lib.nn_nearest_f32, a, a.data_ptr(), b.data_ptr(),
+                  sq.data_ptr(), idx.data_ptr(), B, N, M)
+    launches["nearest_neighbor"] += 1
     return sq, idx
 
 
@@ -232,10 +249,38 @@ def signed_nearest_cuda(a: torch.Tensor, b: torch.Tensor, n: torch.Tensor
     sq = torch.empty((B, N), dtype=torch.float32, device=a.device)
     sdot = torch.empty_like(sq)
     idx = torch.empty((B, N), dtype=torch.int32, device=a.device)
-    _launch("signed_nearest", lib.nn_signed_f32, a, a.data_ptr(),
-            b.data_ptr(), n.data_ptr(), sq.data_ptr(), sdot.data_ptr(),
-            idx.data_ptr(), B, N, M)
+    _build.launch(lib.nn_signed_f32, a, a.data_ptr(), b.data_ptr(),
+                  n.data_ptr(), sq.data_ptr(), sdot.data_ptr(),
+                  idx.data_ptr(), B, N, M)
+    launches["signed_nearest"] += 1
     return sq, sdot, idx
+
+
+def _signed_nearest_pruned_launch(a: torch.Tensor, b: torch.Tensor,
+                                  n: torch.Tensor, delta: float):
+    """K2's launch: (sq, sdot, idx) and the prologue's flags [B, n_seg],
+    count [B] and ids [B, n_seg] (as ``segment_flags`` and
+    ``segment_list_plain`` give them)."""
+    B, N, M = _check(a, b, n)
+    lib = _library()
+    n_seg = -(-M // SEGMENT)
+    # one allocation for the prologue's flags, ids and count and the order
+    # of the frames
+    scratch = torch.empty(2 * B * (n_seg + 1), dtype=torch.int32,
+                          device=a.device)
+    flags = scratch[:B * n_seg].view(B, n_seg)
+    ids = scratch[B * n_seg:2 * B * n_seg].view(B, n_seg)
+    count, order = scratch[2 * B * n_seg:].view(2, B)
+    sq = torch.empty((B, N), dtype=torch.float32, device=a.device)
+    sdot = torch.empty_like(sq)
+    idx = torch.empty((B, N), dtype=torch.int32, device=a.device)
+    _build.launch(lib.nn_signed_pruned_f32, a, a.data_ptr(), b.data_ptr(),
+                  n.data_ptr(), flags.data_ptr(), count.data_ptr(),
+                  ids.data_ptr(), order.data_ptr(), sq.data_ptr(),
+                  sdot.data_ptr(), idx.data_ptr(), B, N, M,
+                  delta_squared(delta), flag_threshold(delta))
+    launches["signed_nearest_pruned"] += 1
+    return sq, sdot, idx, flags, count, ids
 
 
 def signed_nearest_pruned_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -244,17 +289,7 @@ def signed_nearest_pruned_cuda(a: torch.Tensor, b: torch.Tensor,
                                           torch.Tensor]:
     """Launch K2 on the current stream: (sq, sdot, idx) as
     ``signed_nearest_pruned_plain``."""
-    B, N, M = _check(a, b, n)
-    lib = _library()
-    flags = segment_flags(a, b, delta)
-    sq = torch.empty((B, N), dtype=torch.float32, device=a.device)
-    sdot = torch.empty_like(sq)
-    idx = torch.empty((B, N), dtype=torch.int32, device=a.device)
-    _launch("signed_nearest_pruned", lib.nn_signed_pruned_f32, a,
-            a.data_ptr(), b.data_ptr(), n.data_ptr(), flags.data_ptr(),
-            sq.data_ptr(), sdot.data_ptr(), idx.data_ptr(), B, N, M,
-            delta_squared(delta))
-    return sq, sdot, idx
+    return _signed_nearest_pruned_launch(a, b, n, delta)[:3]
 
 
 # -- gradients ----------------------------------------------------------------

@@ -61,27 +61,25 @@ Affine = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # W [cin, cout], a, b
 # reads it back to show that the path went through the kernel
 launches = 0
 
+SOURCE = "sa"  # csrc/sa.cu
+# parameter kinds of its C entries (see `ops/_build.py`)
+C_ENTRIES = {"sa_max_layers": (), "sa_max_width": (),
+             "sa_scale_f32": ("ptr",) * 6 + ("int",) * 5
+             + ("f32", "int", "int*", "ptr")}
+
 _lib = None
 
 
 def build() -> str:
     """Compile `csrc/sa.cu` into a shared library (once per source hash) and
     return its path."""
-    return _build.build("sa")
+    return _build.build(SOURCE)
 
 
-def _library() -> ctypes.CDLL:
+def _library():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(build())
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.sa_scale_f32.argtypes = (
-            [ptr] * 6 + [i32] * 5 + [ctypes.c_float, i32,
-                                     ctypes.POINTER(i32), ptr])
-        lib.sa_scale_f32.restype = i32
-        for fn in (lib.sa_max_layers, lib.sa_max_width):
-            fn.argtypes = []
-            fn.restype = i32
+        lib = _build.load(SOURCE, C_ENTRIES)
         if (lib.sa_max_layers(), lib.sa_max_width()) != (MAX_LAYERS,
                                                          MAX_WIDTH):
             raise RuntimeError("csrc/sa.cu and ops/sa.py disagree on the "
@@ -185,17 +183,11 @@ def sa_cuda(d2t: torch.Tensor, data: torch.Tensor, new_xyz: torch.Tensor,
                       device=d2t.device)
     grouped = torch.empty((B, M, nsample, C), dtype=torch.float32,
                           device=d2t.device) if with_grouped else None
-    with torch.cuda.device(d2t.device):
-        err = lib.sa_scale_f32(
-            d2t.data_ptr(), data.data_ptr(), new_xyz.data_ptr(),
-            flat.data_ptr(), out.data_ptr(),
-            grouped.data_ptr() if with_grouped else None,
-            B, N, M, C, nsample,
-            radius_sq(radius), len(params),
-            (ctypes.c_int * len(widths))(*widths),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sa_scale_f32 launch failed: CUDA error {err}")
+    _build.launch(lib.sa_scale_f32, d2t, d2t.data_ptr(), data.data_ptr(),
+                  new_xyz.data_ptr(), flat.data_ptr(), out.data_ptr(),
+                  grouped.data_ptr() if with_grouped else None,
+                  B, N, M, C, nsample, radius_sq(radius), len(params),
+                  (ctypes.c_int * len(widths))(*widths))
     launches += 1
     return (out, grouped) if with_grouped else out
 

@@ -123,6 +123,52 @@ def test_segment_flags_keep_every_segment_a_near_query_needs():
     assert 0 < int(flags.sum()) < flags.numel()  # some segments are skipped
 
 
+@pytest.mark.parametrize("n_seg", [1, 5, 27, 40])
+def test_segment_list_plain_matches_a_loop(n_seg):
+    """The compaction of K2's prologue, plain: the flagged ids of each frame
+    in increasing order, their count, then -1; frames with no flag, every
+    flag, flags with gaps and random flags."""
+    rng = np.random.default_rng(n_seg)
+    flags = (rng.random((6, n_seg)) < 0.5).astype(np.int32)
+    flags[0] = 0
+    flags[1] = 1
+    flags[2] = np.arange(n_seg) % 2 == 0  # gaps
+    flags[3] = 0
+    flags[3, -1] = 1  # only the last
+    count, ids = tnn.segment_list_plain(torch.from_numpy(flags))
+    assert count.dtype == ids.dtype == torch.int32
+    assert ids.shape == (6, n_seg)
+    for f in range(6):
+        want = [s for s in range(n_seg) if flags[f, s]]
+        assert int(count[f]) == len(want)
+        assert ids[f].tolist() == want + [-1] * (n_seg - len(want))
+
+
+def test_segment_flags_round_as_the_prologue():
+    """``segment_flags`` against a numpy loop in float32 with K2's
+    prologue's order of operations: the box of the frame's queries, e =
+    max(lo - b, b - hi, 0) per axis, (ex*ex + ey*ey) + ez*ez, the least
+    of each segment below float32(delta^2 * 1.01)."""
+    a, b, _ = _pruned_clouds(M=1500)
+    delta = 0.5
+    thr = np.float32(tnn.flag_threshold(delta))
+    assert thr == np.float32(np.float32(delta) ** 2 * 1.01)
+    want = np.zeros((2, -(-1500 // tnn.SEGMENT)), np.int32)
+    for f in range(2):
+        lo, hi = a[f].min(axis=0), a[f].max(axis=0)
+        for s in range(want.shape[1]):
+            pts = b[f, s * tnn.SEGMENT:(s + 1) * tnn.SEGMENT]
+            e = np.maximum(np.maximum(lo - pts, pts - hi), np.float32(0))
+            e2 = e * e
+            d = (e2[:, 0] + e2[:, 1]) + e2[:, 2]
+            assert d.dtype == np.float32
+            want[f, s] = d.min() < thr
+    got = tnn.segment_flags(*_t(a, b), delta)
+    np.testing.assert_array_equal(got.numpy(), want)
+    count, ids = tnn.segment_list_plain(got)
+    assert 0 < int(count.min()) and int(count.max()) < want.shape[1]
+
+
 def test_pruned_all_far_and_single_point_cloud():
     rng = np.random.default_rng(7)
     a = rng.standard_normal((1, 64, 3)).astype(np.float32)
