@@ -11,26 +11,33 @@ Phases, each printing JSON lines (any failure exits non-zero):
 2. kernels: each kernel against its plain PyTorch version on the card,
    bitwise, at the main-path shapes; kernel and plain times by CUDA events
    (median of 30 runs after warm-up) beside the bound of this run's data.
-   K1: B=32 clouds, N=2048 points, M=1024 centers, C=4, both radius scales,
-   and a small cloud with zero-hit and short rows, M=120 and C=3.
-   K2, K3: 1600 frames of N=2048 object points against the M=6890 vertices
-   and normals of the posed stand-in body; the plain versions on the first
+   K1: B=32 clouds, N=2048 points, M=1024 centers, C=4, both radius scales;
+   `k1_edge_cloud` with C=4 and C=3 (zero-hit, short and full rows, hits on
+   both sides of a word and of a round boundary of its walk, the S-th hit at
+   candidate N-1, a block that fills in the first round beside one that
+   never fills, N=300 and M=120 not multiples of a round and of a block);
+   a cloud of N=12500 (shared memory past 48 KB); ptxas's registers and the
+   waves of its launch; one call captured in a CUDA graph.  K2, K3: 1600
+   frames of N=2048 object points against the M=6890 vertices and normals
+   of the posed stand-in body; the plain versions on the first
    16 frames (a full [1600, 2048, 6890] score tensor is 90 GB); K2 against
    K3 on all frames (bit-equal inside delta, forced beyond).  The object
    clouds are placed so that the run covers penetrating queries, queries
    inside delta outside the body, queries beyond delta, frames with some
    segments skipped and frames with every segment skipped.  K2's prologue
    (flags, count, compacted ids) against `segment_flags` and
-   `segment_list_plain` on that data; its sweep's registers and spills;
-   one call captured in a CUDA graph (one launch), its replay equal to the
-   eager call; the device time of each of its three kernels and of
+   `segment_list_plain` on that data; the registers, spills and waves of
+   the sweep of K2 and of K3 (one body, K3 its full variant); one call of
+   each captured in a CUDA graph (one launch), its replay equal to the
+   eager call; the device time of each of K2's three kernels and of
    `segment_flags` (torch.profiler).  K4: 2240 frames of 67 markers
    against 2048 points, whole.  All three also on a small case with
    duplicated surface rows (exact ties), a one-point cloud and an all-far
-   frame; K2 also on ties across a group and a tile boundary and on a frame
-   whose flagged segments have gaps.  K5: K1's data with the indices the
-   ball query picks there (K = 1024 * 16 and 1024 * 32, int64 and int32),
-   every C in 1..8 on an aligned base and on one offset by a float, and
+   frame; K2 and K3 also on ties across a group and a tile boundary
+   (`nn_tie_frames`) and K2 on a frame whose flagged segments have gaps.
+   K5: K1's data with the indices the ball query picks there (K = 1024 *
+   16 and 1024 * 32, int64 and int32), every C in 1..8 on an aligned base
+   and on one offset by a float, and
    K = 1, repeated indices, the last row, -0.0 and out-of-range indices (a
    zero row); one launch captured in a CUDA graph; its time and
    `torch.gather`'s for one launch between two events (`ms` and
@@ -261,24 +268,93 @@ def phase_build(group, nn, sa, gather, gpu: str) -> None:
             emit(job.result())
 
 
+# K1's block (`csrc/ball_group.cu`): 32 queries and 8 warps, each warp
+# reading a hit word of 32 candidates a round
+K1_BLOCK_QUERIES, K1_WARPS, K1_WORD = 32, 8, 32
+K1_ROUND = K1_WARPS * K1_WORD  # candidates a round
+
+
+def k1_edge_cloud(seed: int = SEED + 3):
+    """(xyz [2, 300, 3], new_xyz [2, 120, 3]) float32 numpy: the rows that
+    the main-path data rarely has, for K1 and K6.  A sparse background
+    (short rows) and three tight clusters far from it: A, 40 points at
+    candidates 10-49 (across the word boundary 31|32), under queries 0-31,
+    so that block 0 fills in the first round while block 1's background
+    queries never fill; R, 20 points at 248-267 (across the round boundary
+    255|256); E, 16 points whose last is candidate N-1 = 299, and 16 more on
+    a shell 0.06-0.08 m out, so that the S-th hit is candidate N-1 at
+    r = 0.05, S = 16 and at r = 0.1, S = 32.  Queries 64 and 65 sit on R
+    and E, the last 8 far from everything (zero-hit rows).  N is not a
+    multiple of a round or of a word, M not one of a block."""
+    rng = np.random.default_rng(seed)
+    B, N, M = 2, 300, 120
+    xyz = rng.uniform(-0.4, 0.4, (B, N, 3))
+    a, r, e = np.eye(3) * 1.5
+
+    def tight(center, idx):
+        xyz[:, idx] = center + rng.uniform(-0.004, 0.004, (B, len(idx), 3))
+
+    tight(a, np.arange(10, 50))
+    tight(r, np.arange(248, 268))
+    tight(e, np.r_[240:248, 284:291, N - 1])
+    shell = rng.standard_normal((B, 16, 3))
+    shell /= np.linalg.norm(shell, axis=-1, keepdims=True)
+    xyz[:, 200:216] = e + shell * rng.uniform(0.06, 0.08, (B, 16, 1))
+    new_xyz = np.empty((B, M, 3))
+    new_xyz[:, :32] = a + rng.uniform(-0.002, 0.002, (B, 32, 3))
+    new_xyz[:, 32:64] = xyz[:, 60:92]
+    new_xyz[:, 64], new_xyz[:, 65] = r, e
+    new_xyz[:, 66:112] = xyz[:, 100:146]
+    new_xyz[:, 112:] = 3.0 + rng.uniform(0.0, 1.0, (B, 8, 3))
+    return xyz.astype(np.float32), new_xyz.astype(np.float32)
+
+
+def k1_row_kinds(d2t, r2: float, S: int) -> dict:
+    """How many rows of d2t [B, N, M] (any device) are of each kind at one
+    radius scale: zero-hit, short and full rows; rows whose slot-taking hits
+    lie on both sides of a word boundary or of a round boundary of K1's
+    walk; rows whose S-th hit is candidate N-1; pairs of neighbouring
+    blocks of which one fills in the first round and the other never; and
+    1 if N is not a multiple of a round."""
+    B, N, M = d2t.shape
+    hit = d2t < r2
+    rank = torch.cumsum(hit, dim=1)
+    total = rank[:, -1]
+    taken = hit & (rank <= S)  # the hits that fill slots
+    fill = torch.where(total >= S, (rank < S).sum(dim=1),
+                       torch.full_like(total, N))  # the S-th hit, or N
+
+    def straddling(period: int) -> int:
+        k = torch.arange(period, N, period, device=d2t.device)
+        return int((taken[:, k - 1] & taken[:, k]).any(dim=1).sum())
+
+    pad = -M % K1_BLOCK_QUERIES  # queries past M never hold a block back
+    block_fill = torch.nn.functional.pad(fill, (0, pad), value=-1).reshape(
+        B, -1, K1_BLOCK_QUERIES).amax(dim=-1)
+    first, never = block_fill < K1_ROUND, block_fill == N
+    return {"zero_hit": int((total == 0).sum()),
+            "short": int(((total > 0) & (total < S)).sum()),
+            "full": int((total >= S).sum()),
+            "word_straddle": straddling(K1_WORD),
+            "round_straddle": straddling(K1_ROUND),
+            "sth_hit_at_last_candidate": int((fill == N - 1).sum()),
+            "first_round_block_beside_never_full": int(
+                ((first[:, :-1] & never[:, 1:])
+                 | (never[:, :-1] & first[:, 1:])).sum()),
+            "ragged_last_round": int(N % K1_ROUND != 0)}
+
+
 def _edge_rows(group, pointcloud, name: str, kernel, plain) -> dict:
     """``kernel`` against ``plain`` (both called as f(d2t, data, new_xyz,
-    radius, S)) on the rows the main-path data rarely has: zero-hit and
-    short rows, M not a multiple of the block, and C = 3 (no features).
-    Returns the row counts the comparison covered."""
-    rng = np.random.default_rng(SEED + 3)
-    B, N, M = 2, 256, 120
-    xyz = np.concatenate([rng.normal(0.0, 0.015, (B, N // 4, 3)),
-                          rng.uniform(-0.4, 0.4, (B, N - N // 4, 3))], 1)
-    new_xyz = xyz[:, :M].copy()
-    new_xyz[:, -8:] += 3.0  # far from every point: zero-hit rows
-    xyz = torch.as_tensor(xyz, dtype=torch.float32, device=DEV)
-    new_xyz = torch.as_tensor(new_xyz, dtype=torch.float32, device=DEV)
+    radius, S)) on `k1_edge_cloud`, with C = 4 and C = 3 (no features), both
+    radius scales.  Returns the row kinds the comparison covered, and raises
+    if one is missing."""
+    xyz, new_xyz = (torch.from_numpy(x).to(DEV) for x in k1_edge_cloud())
     d2t = group.pairwise_sqdist_t(xyz, new_xyz).contiguous()
     feats = torch.linalg.norm(xyz, dim=-1, keepdim=True)
-    rows = {"zero_hit": 0, "short": 0, "full": 0}
+    rows = {}
     for data in (torch.cat([xyz, feats], -1).contiguous(), xyz):
-        for radius, S in ((0.05, 16), (0.1, 32)):
+        for radius, S in SCALES:
             got = kernel(d2t, data, new_xyz, radius, S)
             want = plain(d2t, data, new_xyz, radius, S)
             torch.cuda.synchronize()
@@ -286,10 +362,9 @@ def _edge_rows(group, pointcloud, name: str, kernel, plain) -> dict:
                 raise AssertionError(f"{name} differs from its plain "
                                      f"version on edge rows, "
                                      f"C={data.shape[-1]}, r={radius}")
-            hits = (d2t < pointcloud.radius_sq(radius)).sum(dim=1)
-            rows["zero_hit"] += int((hits == 0).sum())
-            rows["short"] += int(((hits > 0) & (hits < S)).sum())
-            rows["full"] += int((hits >= S).sum())
+            kinds = k1_row_kinds(d2t, pointcloud.radius_sq(radius), S)
+            for kind, count in kinds.items():
+                rows[kind] = rows.get(kind, 0) + count
     if min(rows.values()) == 0:
         raise AssertionError(f"edge check missed a row kind: {rows}")
     return rows
@@ -355,10 +430,42 @@ def phase_kernels(group, pointcloud, gpu: str) -> dict:
         total["bytes"] += n_bytes
         total["ops"] += n_ops
         total["max_abs_err"] = max(total["max_abs_err"], err)
+    # ptxas's registers and the waves of a launch (the S=32 scale's shared
+    # memory: hit words of every round, padded to 33, and a slot list a warp)
+    words = -(-N // K1_ROUND) * K1_WARPS * (K1_BLOCK_QUERIES + 1)
+    total["ptxas"] = _occupancy(
+        next(e for e in _build_report(group.SOURCE)
+             if "ball_group_kernel" in e["kernel"]), 32 * K1_WARPS,
+        B * -(-M // K1_BLOCK_QUERIES),
+        4 * (words + K1_WARPS * min(SCALES[1][1], N)))
+    # a cloud of 12,500 points: 52 KB of hit words, past the 48 KB a block
+    # gets without asking
+    rng = np.random.default_rng(SEED + 16)
+    big = torch.from_numpy(rng.uniform(-0.4, 0.4, (1, 12500, 4)).astype(
+        np.float32)).to(DEV)
+    centers = big[:, 7:47, :3].contiguous()
+    big_d2t = group.pairwise_sqdist_t(big[..., :3], centers).contiguous()
+    for radius, S in SCALES:
+        if not torch.equal(
+                group.group_cuda(big_d2t, big, centers, radius, S),
+                group.group_plain(big_d2t, big, centers, radius, S)):
+            raise AssertionError(f"K1 differs from its plain version at "
+                                 f"N=12500, r={radius}")
+    # one call (S=32) captured in a CUDA graph: one launch, replay equals
+    # eager
+    def call():
+        return group.group_cuda(d2t, data, new_xyz, *SCALES[1])
+
+    capture, graph = _graph_capture("K1", call, lambda: group.launches,
+                                    call())
+    capture["replay_ms"] = cuda_ms(graph.replay)
+    del graph
     emit({"phase": "kernels", "gpu": gpu, "shape": [B, N, M, 4],
           "bitwise_equal": True, "scales": scales,
           "edge_rows_bitwise_equal": _edge_rows(
-              group, pointcloud, "K1", group.group_cuda, group.group_plain)})
+              group, pointcloud, "K1", group.group_cuda, group.group_plain),
+          "ptxas": total["ptxas"], "graph_capture_s32": capture,
+          "n12500_bitwise_equal": True})
     total["library_ms"] = None
     total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
                          >= total["ops"] / F32_OPS_PER_S else "operations")
@@ -396,6 +503,44 @@ def _launch_times(fn, calls: int = 50) -> dict:
             "back_to_back": cuda_ms(lambda: [fn() for _ in range(calls)],
                                     runs=5, warmup=1) / calls,
             "graph_replay": _replay_ms(fn, calls)}
+
+
+def _graph_capture(name: str, fn, launched, want) -> tuple:
+    """One call of ``fn`` captured in a CUDA graph: ``launched()`` (the
+    wrapper's count) must rise by one in the capture, and the replay, into
+    outputs zeroed first, must equal ``want`` bit for bit.  Returns the
+    record and the graph."""
+    before = launched()
+    graph, (replayed,) = _captured(fn)
+    captured = launched() - before - 1  # less the warm-up call
+    outs = replayed if isinstance(replayed, tuple) else (replayed,)
+    wants = want if isinstance(want, tuple) else (want,)
+    for t in outs:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    if captured != 1 or not all(map(torch.equal, outs, wants)):
+        raise AssertionError(f"{name} in a CUDA graph: {captured} launches "
+                             f"captured, or its replay differs")
+    return {"launches_captured": captured, "replay_equals_eager": True}, graph
+
+
+def _occupancy(ptxas: dict, threads: int, blocks: int,
+               dynamic_smem: int = 0) -> dict:
+    """ptxas's registers and spills of a kernel with the blocks an SM they
+    leave room for (65,536 registers an SM, given out per warp in units of
+    256; 2048 threads; 228 KB of shared memory, 1 KB of it reserved a
+    block) and the waves of a launch of ``blocks`` blocks."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_warp = -(-ptxas["registers"] * 32 // 256) * 256
+    smem = ptxas["smem_bytes"] + dynamic_smem + 1024
+    per_sm = min(65536 // (per_warp * (threads // 32)), 2048 // threads, 32,
+                 233472 // smem)
+    return {**{k: ptxas[k] for k in ("kernel", "registers", "spill_stores",
+                                     "spill_loads", "smem_bytes")},
+            "threads": threads, "dynamic_smem_bytes": dynamic_smem,
+            "blocks_per_sm": per_sm, "blocks": blocks,
+            "waves": blocks / (per_sm * sms)}
 
 
 def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
@@ -496,16 +641,10 @@ def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
     # one call captured in a graph: one launch, the replay equals the eager
     idx = pointcloud.ball_query(data[..., :3], new_xyz, *SCALES[1],
                                 d2=d2t.transpose(1, 2)).reshape(B, -1)
-    before = gather.launches
-    graph, (replayed,) = _captured(lambda: gather.gather_rows_cuda(data, idx))
-    captured = gather.launches - before - 1  # less the warm-up call
-    replayed.zero_()
-    graph.replay()
-    if captured != 1 or not torch.equal(
-            replayed, gather.gather_rows_cuda(data, idx)):
-        raise AssertionError(f"K5 in a CUDA graph: {captured} launches "
-                             f"captured, or its replay differs")
-    torch.cuda.synchronize()
+    capture, graph = _graph_capture(
+        "K5", lambda: gather.gather_rows_cuda(data, idx),
+        lambda: gather.launches, gather.gather_rows_cuda(data, idx))
+    del graph
     one = torch.zeros((1, 1), dtype=torch.int64, device=DEV)
     emit({"phase": "kernels", "gpu": gpu, "kernels": "K5",
           "shape": [B, N, C], "bitwise_equal": True, "scales": scales,
@@ -515,8 +654,7 @@ def phase_kernels_gather(gather, group, pointcloud, gpu: str) -> dict:
           "every_c_bitwise_equal": widths,
           "edge_rows_bitwise_equal": edge,
           "out_of_range_index_gives_zero_row": True,
-          "graph_capture": {"launches_captured": captured,
-                            "replay_equals_eager": True}})
+          "graph_capture": capture})
     total["bound_by"] = "bytes"
     return total
 
@@ -704,18 +842,22 @@ def _nn_edge_rows(nn) -> dict:
     return rows
 
 
-def _k2_ties_and_gaps(nn) -> dict:
-    """K2 against its plain version on two frames built for its sweep.
+# surface rows repeated in `nn_tie_frames`: (first, copy); the first must win
+NN_TIES = ((7, 8), (2, 5), (255, 256), (255, 257))
+
+
+def nn_tie_frames(seg: int = 256, seed: int = SEED + 15):
+    """(a [2, 200, 3], b [2, 5 * seg, 3], n) float32 numpy, two frames built
+    for the sweeps of K2 and K3 (groups of 8 points, tiles of ``seg``).
     Frame 0: surface rows repeated across a group boundary (7 -> 8), inside
-    a group (2 -> 5) and across a tile boundary (255 -> 256), with queries
-    on those rows, so each tie's first index must win.
-    Frame 1: five segments, the second and fourth moved 5 m away, so the
+    a group (2 -> 5) and across a tile boundary (255 -> 256, 257), with
+    queries on those rows, so each tie's first index must win.
+    Frame 1: five segments, the second and fourth moved 5 m away, so K2's
     flagged list has gaps (0, 2, 4)."""
-    seg = nn.SEGMENT
-    rng = np.random.default_rng(SEED + 15)
+    rng = np.random.default_rng(seed)
     M, N = 5 * seg, 200
     b = rng.standard_normal((2, M, 3)) * 0.3
-    for src, dst in ((7, 8), (2, 5), (255, 256), (255, 257)):
+    for src, dst in NN_TIES:
         b[0, dst] = b[0, src]
     a = np.empty((2, N, 3))
     a[0] = b[0, [7, 2, 255] * (N // 3) + [7] * (N % 3)] + \
@@ -724,17 +866,28 @@ def _k2_ties_and_gaps(nn) -> dict:
     b[1, 3 * seg:4 * seg] += 5.0
     a[1] = b[1, rng.choice(np.r_[0:seg, 2 * seg:3 * seg, 4 * seg:M], N)] \
         + rng.standard_normal((N, 3)) * 0.01
-    a, b, n = (torch.from_numpy(x.astype(np.float32)).to(DEV)
-               for x in (a, b, rng.standard_normal((2, M, 3))))
+    return tuple(x.astype(np.float32) for x in (
+        a, b, rng.standard_normal((2, M, 3))))
+
+
+def _k2_k3_ties_and_gaps(nn) -> dict:
+    """K2 and K3 against their plain versions on `nn_tie_frames`: the first
+    index of every tie wins in both, and K2's prologue compacts the gap
+    frame to (0, 2, 4).  (K3 splits the queries of a frame over blocks,
+    never its surface, so no merge point needs a tie of its own.)"""
+    a, b, n = (torch.from_numpy(x).to(DEV)
+               for x in nn_tie_frames(nn.SEGMENT))
     want = nn.signed_nearest_pruned_plain(a, b, n, 0.25)
     got = nn._signed_nearest_pruned_launch(a, b, n, 0.25)
     _equal_parts("K2 ties and gaps", got[:3], want)
+    want3 = nn.signed_nearest_plain(a, b, n)
+    _equal_parts("K3 ties and gaps", nn.signed_nearest_cuda(a, b, n), want3)
     torch.cuda.synchronize()
-    first = {j: int((want[2][0] == j).sum()) for j in (7, 2, 255)}
-    later = set(want[2][0].tolist()) & {8, 5, 256, 257}
+    first = {src: int((want3[2][0] == src).sum()) for src in (7, 2, 255)}
+    later = set(want3[2][0].tolist()) & {dst for _, dst in NN_TIES}
     count, ids = got[4], got[5][1].tolist()
     if min(first.values()) == 0 or later or ids != [0, 2, 4, -1, -1] \
-            or int(count[1]) != 3:
+            or int(count[1]) != 3 or not torch.equal(want[2], want3[2]):
         raise AssertionError(f"ties or gaps not covered: winners {first}, "
                              f"ids {ids}")
     return {"tie_first_index_wins": first, "gap_frame_ids": ids}
@@ -858,23 +1011,28 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs[name],
             "bytes": n_bytes[name], "max_abs_err": err[name],
             "library_ms": None if library is None else cuda_ms(library)}
-    # the registers and spills of K2's sweep
-    out["K2"]["ptxas"] = next(e for e in _build_report("nn")
-                              if "pruned_sweep_kernel" in e["kernel"])
+    # the registers, spills and waves of the sweep of K2 (FULL = false) and
+    # of K3 (FULL = true), T threads of Q queries a block
+    for e in _build_report(nn.SOURCE):
+        m = re.search(r"signed_sweep_kernelILi(\d+)ELi(\d+)ELi\d+ELb([01])E",
+                      e["kernel"])
+        if m:
+            T, Q = int(m.group(1)), int(m.group(2))
+            out["K3" if m.group(3) == "1" else "K2"]["ptxas"] = _occupancy(
+                e, T, F * -(-N // (T * Q)))
 
-    # one K2 call captured in a CUDA graph: one launch, replay equals eager
-    before = nn.launches["signed_nearest_pruned"]
-    graph, (replayed,) = _captured(
-        lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta))
-    captured = nn.launches["signed_nearest_pruned"] - before - 1
-    for t in replayed:
-        t.zero_()
-    graph.replay()
-    _equal_parts("K2 replayed from a CUDA graph", replayed, k2)
-    if captured != 1:
-        raise AssertionError(f"K2 in a CUDA graph: {captured} launches")
-    out["K2"]["graph_replay_ms"] = cuda_ms(graph.replay)
-    del graph, replayed
+    # one call of each captured in a CUDA graph: one launch, replay equals
+    # eager
+    captures = {}
+    for name, key, call, want in (
+            ("K2", "signed_nearest_pruned",
+             lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta), k2),
+            ("K3", "signed_nearest",
+             lambda: nn.signed_nearest_cuda(a, b, n), k3)):
+        captures[name], graph = _graph_capture(
+            name, call, lambda: nn.launches[key], tuple(want))
+        out[name]["graph_replay_ms"] = cuda_ms(graph.replay)
+        del graph
     out["K2"]["device_ms_by_kernel"] = _device_ms_by_kernel(
         lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta))
     # the same flags as plain PyTorch launches, K2's route before its prologue
@@ -889,10 +1047,9 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
           "flagged_pair_share": pairs["K2"] / pairs["K3"],
           "rows": rows, "rows_held_against_plain": rows_sub,
           "edge_rows_bitwise_equal": _nn_edge_rows(nn),
-          "k2_ties_and_gaps_bitwise_equal": _k2_ties_and_gaps(nn),
+          "k2_k3_ties_and_gaps_bitwise_equal": _k2_k3_ties_and_gaps(nn),
           "k2_prologue_equals_segment_flags": True,
-          "k2_graph_capture": {"launches_captured": captured,
-                               "replay_equals_eager": True}, **out})
+          "graph_capture": captures, **out})
     return out
 
 

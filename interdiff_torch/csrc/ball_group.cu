@@ -1,62 +1,164 @@
-// Ball query + group for PointNet++ stage 1 on Hopper (sm_90a).
+// Ball query + group for PointNet++ stage 1 on Hopper (sm_90a): kernel K1.
 //
 // Replaces interdiff_tpu/ops/pallas_group.py::_select_sum_pallas together
 // with the row fix-ups of its wrapper _fused_impl.  For query m of cloud b,
-// slot s takes the s-th candidate n (in index order) with d2t[b, n, m] < r2;
-// a short row repeats its first hit, a zero-hit row takes candidate 0, and
-// the xyz channels are recentered on new_xyz[b, m].  The selection consumes
-// the same d2t tensor as the plain PyTorch version and only copies values,
-// so the output is bit-identical to it.
+// slot s takes the in-radius candidate n of prefix rank s+1 (in index order,
+// d2t[b, n, m] < r2); a short row repeats its first hit, a zero-hit row takes
+// candidate 0, and the xyz channels are recentered on new_xyz[b, m] by one
+// rounded subtraction.  The selection consumes the same d2t tensor as the
+// plain PyTorch version and only copies values, so the output is
+// bit-identical to it.
 //
-// Bound: bytes.  The kernel streams d2t [B, N, M] f32 once, up to the
-// candidate that fills a query's last slot: at the main-path shape
-// (B=32, N=2048, M=1024) a full read is 268 MB per radius scale, against
-// 8 MB (S=16) and 16 MB (S=32) of output, about 83 and 85 us at 3.35 TB/s.
-// Design: one thread per (b, m) query, the threads of a warp on neighbouring
-// m, so each step of the walk over n reads 32 consecutive floats of a d2t
-// row (coalesced).  No [N, M] intermediate is kept: the running hit count
-// lives in a register and a thread stops at its S-th hit.  The walk itself is
-// ball_walk.cuh, which K6 (sa.cu) shares.
+// Bound: bytes.  d2t [B, N, M] f32 is read once, up to the candidate that
+// fills a query's last slot: at the main-path shape (B=32, N=2048, M=1024)
+// a full read is 268 MB per radius scale, against 8 MB (S=16) and 16 MB
+// (S=32) of output, about 85 us a scale at 3.35 TB/s.  Keeping HBM busy takes
+// about 25 KB of loads in flight per SM (3.35 TB/s times about 1 us of
+// latency, over 132 SMs); a thread that walks one query's column, each load
+// behind the previous hit count, keeps one 128-byte load in flight per warp.
+//
+// Design: a block owns QUERIES=32 neighbouring queries of one cloud, one per
+// lane, and WARPS=8 warps (grid ceil(M/32) x B: 1024 blocks of 256 threads
+// at the main-path shape).  __launch_bounds__(256, 8) holds a thread to 32
+// registers, so 8 blocks fit on an SM and the 1024 blocks in one wave of
+// 1056 on 132 SMs.
+// 1. The walk, in rounds of ROUND=256 candidates.  In each round warp w
+//    reads candidates [round*256 + 32w, +32): per candidate one coalesced
+//    128-byte segment of a d2t row, LOADS=8 of them issued back to back and
+//    independent of one another (8 x 128 B = 1 KB in flight per warp, 64 KB
+//    per SM at 8 blocks).  Each lane folds its query's 32 comparisons into one
+//    32-bit hit word (bit i: candidate 32k + i of word k), and the words go
+//    to shared memory as [word][query], the rows padded to 33 so that both
+//    the store (a warp on one word) and the selection's load (a warp on one
+//    query) are free of bank conflicts: 64 words x 33 x 4 B = 8.4 KB a
+//    block at N=2048.  After each round every lane adds up its query's
+//    popcounts over the round's words, and the block stops once each of its
+//    queries holds S hits (__syncthreads_and): the early exit of the walk,
+//    at the granularity of 32 queries.
+// 2. The selection, one warp per query (each warp takes 4): lane l holds
+//    words l, l+32, ...; a warp prefix sum of their popcounts gives each
+//    word's first rank, and each lane writes the candidate of every hit of
+//    rank below S (lowest bit first) into the warp's slot list in shared
+//    memory.  Then lane l copies slots l, l+32, ...: the listed candidate,
+//    the first one for the rest of a short row, candidate 0 for a zero-hit
+//    row, one 16-byte load and store a slot at C=4 (aligned), a warp
+//    writing 32 consecutive slots.
+// No [N, M] intermediate reaches device memory.  Past 48 KB of hit words
+// (N above about 11,600) the launch asks for more shared memory, up to the
+// block's 227 KB.  K6 (sa.cu) keeps its own one-thread walk
+// (ball_walk.cuh), and chip_smoke.py holds its grouped output bitwise
+// against this kernel's.
 
 #include <cuda_runtime.h>
 
-#include "ball_walk.cuh"
+#include <cstdint>
 
 namespace {
 
-__global__ void ball_group_kernel(const float* __restrict__ d2t,
-                                  const float* __restrict__ data,
-                                  const float* __restrict__ new_xyz,
-                                  float* __restrict__ out,
-                                  int N, int M, int C, int S, float r2) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+constexpr int QUERIES = 32;               // queries a block, one per lane
+constexpr int WARPS = 8;                  // warps a block
+constexpr int THREADS = WARPS * 32;
+constexpr int ROUND = WARPS * 32;         // candidates a round
+constexpr int LOADS = 8;                  // d2t loads a lane issues at once
+constexpr int PITCH = QUERIES + 1;        // shared row of one hit word
+constexpr int MAX_SMEM = 232448;          // a block's shared memory on sm_90
+
+__global__ void __launch_bounds__(THREADS, 8)
+    ball_group_kernel(const float* __restrict__ d2t,
+                      const float* __restrict__ data,
+                      const float* __restrict__ new_xyz,
+                      float* __restrict__ out, int N, int M, int C, int S,
+                      float r2, int n_rounds, int slot_cap) {
+  extern __shared__ unsigned smem[];
+  unsigned* words = smem;  // [n_rounds * WARPS][PITCH]
+  int* slots = reinterpret_cast<int*>(smem + n_rounds * WARPS * PITCH);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.y;
-  if (m >= M) return;
+  const int m0 = blockIdx.x * QUERIES;
+  const bool live = m0 + lane < M;
+  const size_t stride = M;
+  const float* col = d2t + (size_t)b * N * stride + (m0 + lane);
 
-  const float* col = d2t + (size_t)b * N * M + m;
-  const float* rows = data + (size_t)b * N * C;
-  const float* center = new_xyz + ((size_t)b * M + m) * 3;
-  float* row_out = out + ((size_t)b * M + m) * S * C;
-  const float cx = center[0], cy = center[1], cz = center[2];
-
-  int hits = ball_walk(col, N, M, S, r2, [&](int slot, int n) {
-    const float* src = rows + (size_t)n * C;
-    float* dst = row_out + (size_t)slot * C;
-    dst[0] = src[0] - cx;
-    dst[1] = src[1] - cy;
-    dst[2] = src[2] - cz;
-    for (int c = 3; c < C; ++c) dst[c] = src[c];
-  });
-
-  if (hits == 0) {  // zero-hit row: candidate 0, recentered
-    row_out[0] = rows[0] - cx;
-    row_out[1] = rows[1] - cy;
-    row_out[2] = rows[2] - cz;
-    for (int c = 3; c < C; ++c) row_out[c] = rows[c];
-    hits = 1;
+  // 1. the walk: hit words, round by round, until every query is full
+  int hits = 0;  // of query `lane`, in the rounds read so far
+  int rounds = 0;
+  while (rounds < n_rounds) {
+    const int n0 = rounds * ROUND + warp * 32;
+    unsigned word = 0u;
+    if (live) {
+#pragma unroll
+      for (int h = 0; h < 32; h += LOADS) {
+        float v[LOADS];
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          const int n = n0 + h + i;
+          v[i] = n < N ? col[(size_t)n * stride] : r2;  // r2: not a hit
+        }
+#pragma unroll
+        for (int i = 0; i < LOADS; ++i) {
+          word |= static_cast<unsigned>(v[i] < r2) << (h + i);
+        }
+      }
+    }
+    unsigned* round_words = words + rounds * WARPS * PITCH;
+    round_words[warp * PITCH + lane] = word;
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      hits += __popc(round_words[w * PITCH + lane]);
+    }
+    ++rounds;
+    if (__syncthreads_and(!live || hits >= S)) break;
   }
-  for (int s = hits; s < S; ++s) {  // short row: repeat the first slot
-    for (int c = 0; c < C; ++c) row_out[(size_t)s * C + c] = row_out[c];
+
+  // 2. the selection, one warp a query
+  const int n_words = rounds * WARPS;
+  int* list = slots + warp * slot_cap;
+  const float* rows = data + (size_t)b * N * C;
+  const bool vec4 = C == 4 && ((reinterpret_cast<uintptr_t>(data) |
+                                reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  for (int q = warp; q < QUERIES && m0 + q < M; q += WARPS) {
+    int run = 0;  // hits in the words before this chunk of 32
+    for (int base = 0; base < n_words && run < S; base += 32) {
+      const int k = base + lane;
+      unsigned word = k < n_words ? words[k * PITCH + q] : 0u;
+      const int pc = __popc(word);
+      int inc = pc;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(~0u, inc, o);
+        if (lane >= o) inc += t;
+      }
+      for (int rank = run + inc - pc; word != 0u && rank < S; ++rank) {
+        list[rank] = k * 32 + __ffs(word) - 1;
+        word &= word - 1u;
+      }
+      run += __shfl_sync(~0u, inc, 31);
+    }
+    __syncwarp();
+
+    const int full = min(run, S);
+    const size_t query = (size_t)b * M + (m0 + q);
+    const float cx = new_xyz[query * 3], cy = new_xyz[query * 3 + 1],
+                cz = new_xyz[query * 3 + 2];
+    float* row_out = out + query * S * C;
+    for (int s = lane; s < S; s += 32) {
+      const int n = s < full ? list[s] : (full > 0 ? list[0] : 0);
+      if (vec4) {
+        const float4 v = reinterpret_cast<const float4*>(rows)[n];
+        reinterpret_cast<float4*>(row_out)[s] =
+            make_float4(v.x - cx, v.y - cy, v.z - cz, v.w);
+      } else {
+        const float* src = rows + (size_t)n * C;
+        float* dst = row_out + (size_t)s * C;
+        dst[0] = src[0] - cx;
+        dst[1] = src[1] - cy;
+        dst[2] = src[2] - cz;
+        for (int c = 3; c < C; ++c) dst[c] = src[c];
+      }
+    }
+    __syncwarp();  // the list is read by all lanes before the next query
   }
 }
 
@@ -68,9 +170,24 @@ __global__ void ball_group_kernel(const float* __restrict__ d2t,
 extern "C" int ball_group_f32(const float* d2t, const float* data,
                               const float* new_xyz, float* out, int B, int N,
                               int M, int C, int S, float r2, void* stream) {
-  const int threads = 128;
-  dim3 grid((M + threads - 1) / threads, B);
-  ball_group_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      d2t, data, new_xyz, out, N, M, C, S, r2);
+  if (B < 1 || N < 1 || M < 1 || S < 1 || C < 3) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n_rounds = (N + ROUND - 1) / ROUND;
+  const int slot_cap = S < N ? S : N;  // a query lists at most min(S, N) hits
+  const size_t smem =
+      sizeof(unsigned) * ((size_t)n_rounds * WARPS * PITCH +
+                          (size_t)WARPS * slot_cap);
+  if (smem > MAX_SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ball_group_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const dim3 grid((M + QUERIES - 1) / QUERIES, B);
+  ball_group_kernel<<<grid, THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      d2t, data, new_xyz, out, N, M, C, S, r2, n_rounds, slot_cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,6 @@
-// The ball query's walk, shared by K1 (ball_group.cu) and K6 (sa.cu).
+// The ball query's walk of K6 (sa.cu).  K1 (ball_group.cu) selects the same
+// slots from hit words read by whole warps; chip_smoke.py holds the two
+// against each other bit for bit.
 //
 // One thread walks the candidates of one query in index order over its
 // column of the transposed distances d2t [B, N, M] (`col` points at

@@ -22,13 +22,11 @@
 // floating point, so the single fused step fma(-2, dot, b2) rounds once, to
 // the same float as b2 - 2*dot.
 //
-// K3 and K4: one block per (frame, 128 queries), one thread per query with
-// (best, j*) in registers; the block stages TILE points of b as float4 (x, y,
-// z, b2) in shared memory, so the inner loop costs one broadcast 16-byte
-// shared load and about ten instructions per pair and no global traffic; n
-// is read only once, at j*.  Bound: operations, not bytes.  At the gate's
-// shape (1600 frames, N=2048 queries, M=6890 points) a full sweep is 2.26e10
-// pairs of 8 float32 operations against 0.17 GB of input.
+// K4: one block per (frame, 128 queries), one thread per query with (best,
+// j*) in registers; the block stages TILE points of b as float4 (x, y, z,
+// b2) in shared memory, so the inner loop costs one broadcast 16-byte shared
+// load and about ten instructions per pair and no global traffic.  Bound:
+// operations, not bytes.
 //
 // K2, the pruned sweep, in three kernels launched by one entry:
 //
@@ -49,12 +47,12 @@
 //    and its last wave holds short ones.  A frame's blocks take from 0 to
 //    27 tiles at the main-path shape: dispatched in frame order, a long
 //    block late in the grid kept the card waiting at the end.
-// 3. pruned_sweep_kernel<T, Q, G>, one block per (frame, T*Q queries): it
-//    walks the frame's flagged segments only, one tile each.  One setting
-//    is built: T = 256 threads, Q = 8 queries a thread, groups of G = 8,
-//    one block a frame at N = 2048, the fastest of three on an H100
-//    (PERF.md; scripts/torch_kernel_probes.py rebuilds the library with
-//    -DK2_THREADS, -DK2_QUERIES and -DK2_GROUP to time others).
+// 3. signed_sweep_kernel<T, Q, G, false>, one block per (frame, T*Q
+//    queries): it walks the frame's flagged segments only, one tile each.
+//    One setting is built: T = 256 threads, Q = 8 queries a thread, groups
+//    of G = 8, one block a frame at N = 2048, the fastest of three on an
+//    H100 (PERF.md; scripts/torch_kernel_probes.py rebuilds the library
+//    with -DK2_THREADS, -DK2_QUERIES and -DK2_GROUP to time others).
 //    - Register blocking: thread t owns queries t, t+T, ..., t+(Q-1)T (loads
 //      and stores stay coalesced), so one broadcast shared load of a point
 //      feeds Q pairs.
@@ -85,8 +83,22 @@
 //    the minimum nor the comparison with best (at most 3.0e38) can take.
 //    Per pair: six rounded float32 operations for the score, (G-1)/G of a
 //    minimum, 3/G of a comparison and two selects, and 1/Q of a shared load:
-//    about 7.4 instructions at G = 8, Q = 8, against the 9-10 of K3's loop.
+//    about 7.4 instructions at G = 8, Q = 8, against the 9-10 of K4's loop.
 //    Bound: operations (8 a pair over the flagged pairs of this call's data).
+//
+// K3, the full sweep, is the same kernel with FULL = true:
+// signed_sweep_kernel<T, Q, G, true> walks every segment in index order,
+// with no prologue, no frame order, no reads of count, ids or order and no
+// forcing beyond delta, so K2 equals K3 inside delta by construction.  A
+// query whose best never drops below SCORE_INF keeps j = 0, as the walk
+// does.  Bound: operations, 8 a pair over all F * N * M pairs (2.26e10 at
+// 1600 frames, N=2048, M=6890: 2.70 ms at 67 TFLOP/s).  The shape is chosen
+// for whole waves, every block doing the same work: at K2's 256/8/8 (101
+// registers, 2 blocks an SM) the 1600 blocks fill 6.06 waves of 264 and
+// the seventh runs 6 % full; K3 is built at T = 128, Q = 8, G = 8 (1024
+// queries a block, two blocks a frame at N = 2048; the registers ptxas
+// reports set the blocks an SM: at most 96 give 5, so 3200 blocks fill
+// 4.85 waves of 660), the fastest of four settings on an H100 (PERF.md).
 
 #include <cuda_runtime.h>
 
@@ -102,12 +114,9 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
                    __fmul_rn(az, bz));
 }
 
-template <bool SIGNED>
 __global__ void nn_sweep_kernel(const float* __restrict__ a,
                                 const float* __restrict__ b,
-                                const float* __restrict__ n,
                                 float* __restrict__ sq_out,
-                                float* __restrict__ sdot_out,
                                 int* __restrict__ idx_out, int N, int M) {
   __shared__ float4 tile[TILE];
 
@@ -153,18 +162,8 @@ __global__ void nn_sweep_kernel(const float* __restrict__ a,
   if (!live) return;
 
   const size_t out = (size_t)frame * N + q;
-  float sq = fmaxf(__fadd_rn(best, dot3(ax, ay, az, ax, ay, az)), 0.0f);
-  float sdot = 1.0f;
-  if (SIGNED) {
-    const size_t j = ((size_t)frame * M + best_j) * 3;
-    const float bx = b[j], by = b[j + 1], bz = b[j + 2];
-    const float nx = n[j], ny = n[j + 1], nz = n[j + 2];
-    sdot = __fsub_rn(dot3(ax, ay, az, nx, ny, nz),
-                     dot3(nx, ny, nz, bx, by, bz));
-  }
-  sq_out[out] = sq;
+  sq_out[out] = fmaxf(__fadd_rn(best, dot3(ax, ay, az, ax, ay, az)), 0.0f);
   idx_out[out] = best_j;
-  if (SIGNED) sdot_out[out] = sdot;
 }
 
 dim3 sweep_grid(int B, int N) { return dim3(B, (N + THREADS - 1) / THREADS); }
@@ -319,9 +318,12 @@ __device__ __forceinline__ float group_min(const float (&s)[G]) {
   return m[0];
 }
 
-template <int T, int Q, int G>
+// FULL = false: K2's sweep over the flagged segments of count, ids and
+// order, forced beyond delta.  FULL = true: K3's sweep over every segment
+// (count, ids and order unread, delta_sq unused).
+template <int T, int Q, int G, bool FULL>
 __global__ void __launch_bounds__(T)
-    pruned_sweep_kernel(const float* __restrict__ a,
+    signed_sweep_kernel(const float* __restrict__ a,
                         const float* __restrict__ b,
                         const float* __restrict__ n,
                         const int* __restrict__ count,
@@ -336,12 +338,14 @@ __global__ void __launch_bounds__(T)
   constexpr int PER = TILE / T;  // points each thread stages a tile
   __shared__ float4 tile[2][TILE];
 
-  // the chunks of one frame are neighbours, the frames longest first
-  const int frame = order[blockIdx.x / n_chunks];
+  // the chunks of one frame are neighbours; K2's frames longest first
+  const int chunk = blockIdx.x / n_chunks;
+  const int frame = FULL ? chunk : order[chunk];
   const int q0 = (blockIdx.x % n_chunks) * (T * Q) + threadIdx.x;
   const float* bf = b + (size_t)frame * M * 3;
-  const int* fid = ids + (size_t)frame * n_seg;
-  const int n_flag = count[frame];
+  const int* fid = FULL ? nullptr : ids + (size_t)frame * n_seg;
+  const int n_flag = FULL ? n_seg : count[frame];
+  auto seg_at = [&](int i) { return FULL ? i : fid[i]; };  // i-th segment
 
   // per query: the least score so far and the first point of the group
   // that holds it (-1: none below SCORE_INF yet)
@@ -388,15 +392,15 @@ __global__ void __launch_bounds__(T)
   };
 
   if (n_flag > 0) {
-    fetch(fid[0]);
-    stage(tile[0], fid[0]);
+    fetch(seg_at(0));
+    stage(tile[0], seg_at(0));
   }
   __syncthreads();
   for (int i = 0; i < n_flag; ++i) {
-    const int base = fid[i] * TILE;
+    const int base = seg_at(i) * TILE;
     const int cnt = min(TILE, M - base);
     const bool more = i + 1 < n_flag;
-    const int next = more ? fid[i + 1] : 0;
+    const int next = more ? seg_at(i + 1) : 0;
     if (more) fetch(next);  // in flight while tile i is computed
     const float4* t = tile[i & 1];
     for (int k0 = 0; k0 < cnt; k0 += G) {
@@ -445,7 +449,7 @@ __global__ void __launch_bounds__(T)
         __fadd_rn(best[qi], dot3(ax[qi], ay[qi], az[qi], ax[qi], ay[qi], az[qi])),
         0.0f);
     float sdot = 1.0f;
-    if (sq >= delta_sq) {
+    if (!FULL && sq >= delta_sq) {
       sq = delta_sq;
       j = 0;
     } else {
@@ -472,6 +476,18 @@ __global__ void __launch_bounds__(T)
 #define K2_GROUP 8
 #endif
 constexpr int SWEEP_T = K2_THREADS, SWEEP_Q = K2_QUERIES, SWEEP_G = K2_GROUP;
+// K3's: 128/8/8 for whole waves (see above); scripts/torch_kernel_probes.py
+// rebuilds the library with -DK3_THREADS and -DK3_QUERIES to time others
+#ifndef K3_THREADS
+#define K3_THREADS 128
+#endif
+#ifndef K3_QUERIES
+#define K3_QUERIES 8
+#endif
+constexpr int FULL_T = K3_THREADS, FULL_Q = K3_QUERIES, FULL_G = 8;
+
+// blocks a frame: T threads of Q queries each over its N queries
+int sweep_chunks(int N, int T, int Q) { return (N + T * Q - 1) / (T * Q); }
 
 }  // namespace
 
@@ -483,18 +499,23 @@ extern "C" int nn_tile() { return TILE; }
 
 extern "C" int nn_nearest_f32(const float* a, const float* b, float* sq,
                               int* idx, int B, int N, int M, void* stream) {
-  nn_sweep_kernel<false>
-      <<<sweep_grid(B, N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, b, nullptr, sq, nullptr, idx, N, M);
+  nn_sweep_kernel<<<sweep_grid(B, N), THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(a, b, sq, idx, N, M);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3: the full sweep, K2's sweep body over every segment
 extern "C" int nn_signed_f32(const float* a, const float* b, const float* n,
                              float* sq, float* sdot, int* idx, int B, int N,
                              int M, void* stream) {
-  nn_sweep_kernel<true>
-      <<<sweep_grid(B, N), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-          a, b, n, sq, sdot, idx, N, M);
+  const int n_chunks = sweep_chunks(N, FULL_T, FULL_Q);
+  if (B < 1 || N < 1 || M < 1 || (long long)B * n_chunks > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  signed_sweep_kernel<FULL_T, FULL_Q, FULL_G, true>
+      <<<B * n_chunks, FULL_T, 0, static_cast<cudaStream_t>(stream)>>>(
+          a, b, n, nullptr, nullptr, nullptr, sq, sdot, idx, N, M,
+          (M + TILE - 1) / TILE, n_chunks, 0.0f);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -508,7 +529,7 @@ extern "C" int nn_signed_pruned_f32(const float* a, const float* b,
                                     float delta_sq, float flag_thr,
                                     void* stream) {
   const int n_seg = (M + TILE - 1) / TILE;
-  const int n_chunks = (N + SWEEP_T * SWEEP_Q - 1) / (SWEEP_T * SWEEP_Q);
+  const int n_chunks = sweep_chunks(N, SWEEP_T, SWEEP_Q);
   if (B < 1 || N < 1 || M < 1 || (long long)B * n_chunks > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -518,7 +539,7 @@ extern "C" int nn_signed_pruned_f32(const float* a, const float* b,
   frame_order_kernel<<<1, ORDER_THREADS, 0, s>>>(count, order, B);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  pruned_sweep_kernel<SWEEP_T, SWEEP_Q, SWEEP_G>
+  signed_sweep_kernel<SWEEP_T, SWEEP_Q, SWEEP_G, false>
       <<<B * n_chunks, SWEEP_T, 0, s>>>(a, b, n, count, ids, order, sq, sdot,
                                         idx, N, M, n_seg, n_chunks, delta_sq);
   return static_cast<int>(cudaGetLastError());

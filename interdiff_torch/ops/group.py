@@ -18,10 +18,13 @@ backward: it exists for gradients with respect to the cloud.
 
 Bound: bytes.  The kernel reads the transposed distances d2t [B, N, M] once
 (268 MB per radius scale at the main-path shape B=32, N=2048, M=1024, plus
-8 and 16 MB of output: about 83 and 85 us at 3.35 TB/s; less where a query
-fills its slots early, since its walk stops at the last slot).  It reads
-d2t coalesced, one thread per query walking the candidates in order, and
-keeps no [N, M] intermediate.
+8 and 16 MB of output: about 85 us a scale at 3.35 TB/s; less where a block's
+32 queries fill their slots early, since its walk stops there).  A block of
+eight warps owns 32 neighbouring queries: each warp reads 32 candidates a
+round as coalesced row segments, many loads in flight, and folds them into
+32-bit hit words in shared memory; one warp a query then ranks the hits by a
+prefix sum of popcounts and copies the selected rows (`csrc/ball_group.cu`).
+No [N, M] intermediate reaches device memory.
 
 The library is built with nvcc at first use from the source in this
 package, into ``_build/`` beside it, and rebuilt when the source changes.

@@ -8,6 +8,10 @@ wrappers launch the hand-written kernels of `csrc/nn.cu`:
 * ``signed_nearest_pruned_cuda`` (K2) replaces
   `signed_nearest_pruned_pallas`.
 
+K2 and K3 run one sweep body (`signed_sweep_kernel`): K3 walks every
+segment, K2 only those its prologue flags, so the two agree inside delta by
+construction.
+
 Beside each stands its plain PyTorch version (``*_plain``), which repeats
 the kernel's arithmetic step by step, so that the two agree bit for bit on
 one device; `ops/signed_distance.py` routes a CPU tensor to the plain

@@ -1,17 +1,19 @@
-"""One-off measurements of two kernels of the PyTorch/CUDA port on one
+"""One-off measurements of three kernels of the PyTorch/CUDA port on one
 NVIDIA GPU, kept out of `chip_smoke.py`'s every run.
 
     python3 scripts/torch_kernel_probes.py      # from the repository root
 
 Prints the card's name and power limit, then one JSON line each:
 
-1. ``k2_settings``: K2 (`interdiff_torch/csrc/nn.cu`) at `chip_smoke.py`'s
-   main-path data (1600 frames, N=2048, M=6890) in three settings of its
-   sweep (threads a block T, queries a thread Q, scores a group G), each a
-   library built with ``-DK2_THREADS -DK2_QUERIES -DK2_GROUP``: bitwise
-   against the default build, ms a call (CUDA events, median of 30), device
-   ms of each of its three kernels (torch.profiler), ptxas's registers and
-   spills of the sweep.
+1. ``k2_settings`` and ``k3_settings``: K2 and K3
+   (`interdiff_torch/csrc/nn.cu`, one sweep body) at `chip_smoke.py`'s
+   main-path data (1600 frames, N=2048, M=6890) in several settings of
+   their sweep (threads a block T, queries a thread Q, scores a group G),
+   each a library built with ``-DK2_THREADS -DK2_QUERIES -DK2_GROUP`` or
+   ``-DK3_THREADS -DK3_QUERIES``: bitwise against the default build, ms a
+   call (CUDA events, median of 30), device ms of each kernel
+   (torch.profiler), ptxas's registers and spills of the sweep and the
+   waves of its launch.
 2. ``k5_host``: host microseconds a call, back to back (3000 calls after
    100, the device drained before and after), of K5's wrapper, its output's
    allocation, its C entry through `ctypes` alone and `torch.gather` on the
@@ -35,10 +37,20 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 import chip_smoke as cs  # noqa: E402
 
-SETTINGS = ((128, 8, 8), (256, 4, 8), (256, 8, 8))  # (T, Q, G)
+# sweep settings: K2's (threads a block T, queries a thread Q, scores a
+# group G) and K3's (T, Q; G = 8), each a build with these -D definitions
+SETTINGS = {
+    "K2": [{"K2_THREADS": t, "K2_QUERIES": q, "K2_GROUP": g}
+           for t, q, g in ((128, 8, 8), (256, 4, 8), (256, 8, 8))],
+    "K3": [{"K3_THREADS": t, "K3_QUERIES": q}
+           for t, q in ((256, 8), (256, 4), (128, 8), (64, 8))],
+}
 
 
-def k2_settings(nn, body) -> dict:
+def sweep_settings(nn, body, name: str) -> dict:
+    """K2 or K3 at the main-path data in each of its settings: bitwise
+    against the default build, ms a call, device ms by kernel, ptxas's
+    registers and spills of the sweep and the waves of its launch."""
     from interdiff_torch.ops import _build
 
     rng = np.random.default_rng(cs.SEED + 4)
@@ -46,29 +58,31 @@ def k2_settings(nn, body) -> dict:
         rng, cs.CLIPS * cs.FOLD * cs.FRAMES, cs.POINTS, body)
     F = cs.CLIPS * cs.FOLD * cs.FUTURE
     a, b, n = cloud[:F], verts[:F], normals[:F]
-    want = nn.signed_nearest_pruned_cuda(a, b, n, 0.25)
-    default_lib, rows = nn._library(), []
+    N = a.shape[1]
+
+    def call():
+        if name == "K2":
+            return nn.signed_nearest_pruned_cuda(a, b, n, 0.25)
+        return nn.signed_nearest_cuda(a, b, n)
+
+    want, default_lib, rows = call(), nn._library(), []
+    full = "Lb1E" if name == "K3" else "Lb0E"
     try:
-        for T, Q, G in SETTINGS:
-            defines = [f"K2_THREADS={T}", f"K2_QUERIES={Q}", f"K2_GROUP={G}"]
+        for setting in SETTINGS[name]:
+            defines = [f"{k}={v}" for k, v in setting.items()]
             nn._lib = _build.load(nn.SOURCE, nn.C_ENTRIES, defines)
-
-            def call():
-                return nn.signed_nearest_pruned_cuda(a, b, n, 0.25)
-
-            cs._equal_parts(f"K2 at {T}/{Q}/{G}", call(), want)
+            cs._equal_parts(f"{name} at {setting}", call(), want)
             sweep = next(e for e in _build.ptxas_report(nn.SOURCE, defines)
-                         if "pruned_sweep_kernel" in e["kernel"])
-            rows.append({"threads": T, "queries_a_thread": Q, "group": G,
-                         "ms": cs.cuda_ms(call),
+                         if "signed_sweep_kernel" in e["kernel"]
+                         and full in e["kernel"])
+            T, Q = list(setting.values())[:2]
+            rows.append({**setting, "ms": cs.cuda_ms(call),
                          "device_ms_by_kernel": cs._device_ms_by_kernel(call),
-                         **{k: sweep[k] for k in (
-                             "registers", "spill_stores", "spill_loads",
-                             "smem_bytes")}})
+                         **cs._occupancy(sweep, T, F * -(-N // (T * Q)))})
     finally:
         nn._lib = default_lib
-    return {"probe": "k2_settings", "frames": F, "bitwise_equal": True,
-            "settings": rows}
+    return {"probe": f"{name.lower()}_settings", "frames": F,
+            "bitwise_equal": True, "settings": rows}
 
 
 def _host_us(fn, calls: int = 3000) -> float:
@@ -115,7 +129,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_name_and_power())
     body = build_smpl_body(seed=cs.SEED, num_verts=cs.VERTS)
-    for line in (k2_settings(nn, body), k5_host(gather, group, pointcloud)):
+    for line in (sweep_settings(nn, body, "K2"),
+                 sweep_settings(nn, body, "K3"),
+                 k5_host(gather, group, pointcloud)):
         print(json.dumps(line), flush=True)
     return 0
 

@@ -1,0 +1,53 @@
+"""K1, K2 and K3 of the PyTorch/CUDA port timed at `chip_smoke.py`'s
+main-path data on one NVIDIA GPU, by the `chip_smoke.py` and
+`interdiff_torch` of the checkout it is run from.
+
+    python3 scripts/torch_kernel_times.py TAG     # from a checkout's root
+
+Two checkouts (say the parent commit unpacked with `git archive` and the
+working tree) are compared in one call on one card by running it from each
+root in turn (parent, change, change, parent).  Prints one JSON line: the
+tag, the card's name and power limit, K1's ms per encode (both radius
+scales), K2's and K3's ms a call (CUDA events, median of 30 after warm-up).
+Exits 2 without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 2
+    from interdiff_torch.config import build_smpl_body
+    from interdiff_torch.ops import group, nn, pointcloud
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data, new_xyz, d2t = cs._stage1_inputs(group, pointcloud)
+    k1 = sum(cs.cuda_ms(lambda: group.group_cuda(d2t, data, new_xyz, r, S))
+             for r, S in cs.SCALES)
+    body = build_smpl_body(seed=cs.SEED, num_verts=cs.VERTS)
+    rng = np.random.default_rng(cs.SEED + 4)
+    verts, normals, cloud = cs._nn_geometry(
+        rng, cs.CLIPS * cs.FOLD * cs.FRAMES, cs.POINTS, body)
+    F = cs.CLIPS * cs.FOLD * cs.FUTURE
+    a, b, n = cloud[:F], verts[:F], normals[:F]
+    cs.emit({"tree": sys.argv[1] if len(sys.argv) > 1 else os.getcwd(),
+             "gpu": cs.gpu_name_and_power(), "k1_ms_per_encode": k1,
+             "k2_ms": cs.cuda_ms(
+                 lambda: nn.signed_nearest_pruned_cuda(a, b, n, 0.25)),
+             "k3_ms": cs.cuda_ms(lambda: nn.signed_nearest_cuda(a, b, n))})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402  (numpy builders of the card's edge clouds)
 import interdiff_tpu.ops.pallas_group as pgr  # noqa: E402
 from interdiff_tpu.ops import pointcloud as jpc  # noqa: E402
 from interdiff_torch.ops import group as tgroup  # noqa: E402
@@ -56,6 +57,44 @@ def test_group_plain_matches_jax_bitwise(monkeypatch, radius, nsample):
         torch.from_numpy(feats), radius, nsample,
         torch.from_numpy(d2t)).numpy()
     assert got.shape == (B, M, nsample, C)
+    np.testing.assert_array_equal(got, ref_xla)
+    np.testing.assert_array_equal(got, ref_pallas)
+
+
+@pytest.mark.parametrize("with_features", [True, False])
+@pytest.mark.parametrize("radius,nsample", SCALES)
+def test_group_plain_matches_jax_on_word_and_round_boundaries(
+        monkeypatch, radius, nsample, with_features):
+    """`chip_smoke.k1_edge_cloud`, the cloud that `chip_smoke.py` holds K1
+    and K6 to on the card: hits on both sides of a 32-candidate word and of
+    a 256-candidate round of K1's walk, the S-th hit at candidate N-1, a
+    block of 32 queries full in the first round beside one that never
+    fills, N=300 and M=120 ragged.  The plain version against the XLA
+    reference and the interpreted Pallas kernel, bit for bit."""
+    xyz, new_xyz = chip_smoke.k1_edge_cloud()
+    feats = (np.linalg.norm(xyz, axis=-1, keepdims=True) if with_features
+             else None)
+    d2 = np.array(jpc.pairwise_sqdist(jnp.asarray(new_xyz),
+                                        jnp.asarray(xyz)))  # [B, M, N]
+    d2t = np.ascontiguousarray(d2.transpose(0, 2, 1))
+    kinds = chip_smoke.k1_row_kinds(torch.from_numpy(d2t),
+                                    tpc.radius_sq(radius), nsample)
+    assert min(kinds.values()) > 0, kinds
+
+    jfeats = None if feats is None else jnp.asarray(feats)
+    ref_xla = np.asarray(jpc.query_and_group(
+        jnp.asarray(xyz), jnp.asarray(new_xyz), jfeats, radius, nsample,
+        d2=jnp.asarray(d2)))
+    monkeypatch.setattr(pgr, "_FORCE_PALLAS_INTERPRET", True)
+    ref_pallas = np.asarray(pgr.fused_query_group(
+        jnp.asarray(xyz), jnp.asarray(new_xyz), jfeats, radius, nsample,
+        True, jnp.asarray(d2t)))
+
+    got = tgroup.fused_query_group(
+        torch.from_numpy(xyz), torch.from_numpy(new_xyz),
+        None if feats is None else torch.from_numpy(feats), radius, nsample,
+        torch.from_numpy(d2t)).numpy()
+    assert got.shape == (2, 120, nsample, 4 if with_features else 3)
     np.testing.assert_array_equal(got, ref_xla)
     np.testing.assert_array_equal(got, ref_pallas)
 

@@ -11,6 +11,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402  (numpy builders of the card's edge frames)
+from interdiff_torch.ops import _build  # noqa: E402
 from interdiff_tpu.ops import pallas_nn as jpn  # noqa: E402
 from interdiff_tpu.ops import signed_distance as jsd  # noqa: E402
 from interdiff_torch.ops import nn as tnn  # noqa: E402
@@ -69,6 +71,53 @@ def test_signed_nearest_plain_matches_pallas_and_xla():
     d_ref, s_ref = jsd.signed_nearest(ja, jb, jn, use_pallas=False)
     np.testing.assert_allclose(sq.numpy(), np.asarray(d_ref), atol=1e-4)
     np.testing.assert_allclose(sdot.numpy(), np.asarray(s_ref), atol=1e-4)
+
+
+def test_signed_nearest_plain_matches_pallas_and_xla_on_boundary_ties():
+    """`chip_smoke.nn_tie_frames`, on which `chip_smoke.py` holds K2 and K3
+    on the card: surface rows repeated across a group boundary (7 -> 8) and
+    a tile boundary (255 -> 256, 257) of the sweep, and inside a group
+    (2 -> 5), with queries on them.  The first index of every tie wins in
+    the plain version, in the interpreted Pallas kernel and in K2's plain
+    version inside delta.  (The CUDA sweep splits a frame's queries over
+    blocks, never its surface, so there is no split point to tie across.)"""
+    a, b, n = chip_smoke.nn_tie_frames(tnn.SEGMENT)
+    sq, sdot, idx = tnn.signed_nearest_plain(*_t(a, b, n))
+    winners = set(idx[0].tolist())
+    assert {src for src, _ in chip_smoke.NN_TIES} <= winners
+    assert not winners & {dst for _, dst in chip_smoke.NN_TIES}
+    ja, jb, jn = (jnp.asarray(x) for x in (a, b, n))
+    d_pal, s_pal, i_pal = jpn.signed_nearest_pallas(ja, jb, jn,
+                                                    interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i_pal))
+    np.testing.assert_allclose(sq.numpy(), np.asarray(d_pal), atol=1e-6)
+    np.testing.assert_allclose(sdot.numpy(), np.asarray(s_pal), atol=1e-6)
+    d_ref, s_ref = jsd.signed_nearest(ja, jb, jn, use_pallas=False)
+    np.testing.assert_allclose(sq.numpy(), np.asarray(d_ref), atol=1e-4)
+    np.testing.assert_allclose(sdot.numpy(), np.asarray(s_ref), atol=1e-4)
+    pruned = tnn.signed_nearest_pruned_plain(*_t(a, b, n), 0.25)
+    assert bool((sq < tnn.delta_squared(0.25)).all())
+    for got, want in zip(pruned, (sq, sdot, idx)):
+        assert torch.equal(got, want)
+
+
+def test_k2_and_k3_launch_one_sweep_body():
+    """K3's entry launches the sweep kernel of K2 in its full variant and
+    K2's entry the pruned one; the one-query-a-thread sweep is K4's
+    alone."""
+    with open(_build.source_path(tnn.SOURCE)) as f:
+        text = f.read()
+
+    def body(entry):
+        start = text.index(f'extern "C" int {entry}(')
+        return text[start:text.index("\n}\n", start)]
+
+    assert "signed_sweep_kernel<FULL_T, FULL_Q, FULL_G, true>" in body(
+        "nn_signed_f32")
+    assert "signed_sweep_kernel<SWEEP_T, SWEEP_Q, SWEEP_G, false>" in body(
+        "nn_signed_pruned_f32")
+    assert "nn_sweep_kernel<<<" in body("nn_nearest_f32")
+    assert text.count("nn_sweep_kernel<<<") == 1
 
 
 def test_signed_nearest_pruned_plain_matches_pallas_and_xla():
