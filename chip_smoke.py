@@ -31,10 +31,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
    each captured in a CUDA graph (one launch), its replay equal to the
    eager call; the device time of each of K2's three kernels and of
    `segment_flags` (torch.profiler).  K4: 2240 frames of 67 markers
-   against 2048 points, whole.  All three also on a small case with
-   duplicated surface rows (exact ties), a one-point cloud and an all-far
-   frame; K2 and K3 also on ties across a group and a tile boundary
-   (`nn_tie_frames`) and K2 on a frame whose flagged segments have gaps.
+   against 2048 points, whole; its registers and the waves of its launch
+   (a block a frame); one call captured in a CUDA graph.  All three also on
+   a small case with duplicated surface rows (exact ties), a one-point
+   cloud and an all-far frame; K2 and K3 also on ties across a group and a
+   tile boundary (`nn_tie_frames`) and K2 on a frame whose flagged segments
+   have gaps; K4 also on `k4_tie_frames` (ties across a thread's 16
+   points, a warp's 512, a segment, a pass of 2048 and the whole frame, at
+   N from 1 to 97 and M from 1 to 4100, and a frame whose queries all sit
+   on one point).  In the phase's line, beside each bound, the issue floor
+   worked out from `F32_INSTR_PER_S` (derived, not measured; so it stays
+   out of the kernel table below).
    K5: K1's data with the indices the ball query picks there (K = 1024 *
    16 and 1024 * 32, int64 and int32), every C in 1..8 on an aligned base
    and on one offset by a float, and
@@ -49,7 +56,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
    `folded_affine`, and K1's edge rows; beside its time the plain version's
    (5 runs) and, in place of a library call, the unfused route's (K1 +
    `SharedMLP` + `amax`); then the `with_grouped` variant: features bitwise
-   equal to the variant without, grouped tensor bitwise equal to K1's output.
+   equal to the variant without, grouped tensor bitwise equal to K1's output;
+   every output compared as bits (+0.0 against -0.0); each scale's
+   registers, waves, issue floor and one call in a CUDA graph; K1's edge
+   rows at C=4 also with the encoder's chains (the kernel's lane-per-slot
+   path).
 3. grads: the `torch.autograd.Function` around each kernel on the card, its
    backward against autograd through the kernel's plain version on the same
    inputs and cotangents: K5, K1 (through K5), K6 (W, a, b, the inputs, and
@@ -159,8 +170,17 @@ SIGN_TOL = CORRECTED_TOL
 TIE_TOL = 2 * 0.5 * 2 * CORRECTED_TOL
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+# separately rounded f32 instructions a second: the 67e12 above counts an
+# FMA as two operations, but a __fmul_rn or __fadd_rn (the kernels' bitwise
+# contract allows no contraction) is one instruction of one lane: 132 SMs x
+# 128 f32 lanes x about 1.98 GHz (boost clock) = 33.45e12.  A kernel's issue
+# floor is its operations over this rate (and never under its byte time)
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
 # K2-K4, per pair: 3 mul + 2 add (a.b), 1 mul + 1 sub (score), 1 compare
 NN_OPS_PER_PAIR = 8
+# ... as the kernels issue them: the score's mul and sub are one fma
+# (exact: 2*dot is), so 3 mul + 2 add + 1 fma + 1 min
+NN_INSTR_PER_PAIR = 7
 SEED = 233
 DEV = "cuda"
 # the main path's sizes: 32 clips x 2 diverse samples of 35 frames (10 past,
@@ -344,21 +364,25 @@ def k1_row_kinds(d2t, r2: float, S: int) -> dict:
             "ragged_last_round": int(N % K1_ROUND != 0)}
 
 
-def _edge_rows(group, pointcloud, name: str, kernel, plain) -> dict:
+def _edge_rows(group, pointcloud, name: str, kernel, plain,
+               channels=(4, 3)) -> dict:
     """``kernel`` against ``plain`` (both called as f(d2t, data, new_xyz,
-    radius, S)) on `k1_edge_cloud`, with C = 4 and C = 3 (no features), both
-    radius scales.  Returns the row kinds the comparison covered, and raises
-    if one is missing."""
+    radius, S), float32 out) as bits, so that +0.0 and -0.0 differ, on
+    `k1_edge_cloud` with each C of ``channels`` (4: xyz and a feature; 3: no
+    features), both radius scales.  Returns the row kinds the comparison
+    covered, and raises if one is missing."""
     xyz, new_xyz = (torch.from_numpy(x).to(DEV) for x in k1_edge_cloud())
     d2t = group.pairwise_sqdist_t(xyz, new_xyz).contiguous()
     feats = torch.linalg.norm(xyz, dim=-1, keepdim=True)
+    by_c = {4: torch.cat([xyz, feats], -1).contiguous(), 3: xyz}
     rows = {}
-    for data in (torch.cat([xyz, feats], -1).contiguous(), xyz):
+    for data in (by_c[c] for c in channels):
         for radius, S in SCALES:
             got = kernel(d2t, data, new_xyz, radius, S)
             want = plain(d2t, data, new_xyz, radius, S)
             torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
+            if got.shape != want.shape or not torch.equal(
+                    got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(f"{name} differs from its plain "
                                      f"version on edge rows, "
                                      f"C={data.shape[-1]}, r={radius}")
@@ -667,6 +691,14 @@ def _seeded_shared_mlp(c_in: int, channels, seed: int):
     return mlp.to(DEV).eval()
 
 
+def _k6_smem(N: int, S: int, n_params: int) -> int:
+    """Dynamic shared memory of a K6 block (`csrc/sa.cu`): the folded
+    weights, K1's hit words of every round, a slot list and a hit count a
+    query."""
+    words = -(-N // K1_ROUND) * K1_WARPS * (K1_BLOCK_QUERIES + 1)
+    return 4 * (n_params + words + K1_BLOCK_QUERIES * (min(S, N) + 1))
+
+
 def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
     """K6 at the main-path shape (both radius scales of stage 1, seeded
     `SharedMLP` weights folded by `folded_affine`) against `sa_plain`,
@@ -677,6 +709,7 @@ def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
     B, N, M = d2t.shape
     C = data.shape[-1]
     scales, total = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                         "issue_floor_ms": 0.0, "graph_replay_ms": 0.0,
                          "unfused_ms": 0.0, "with_grouped_ms": 0.0,
                          "bytes": 0, "ops": 0, "max_abs_err": 0.0}
     with torch.no_grad():
@@ -687,7 +720,9 @@ def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
             got = sa.sa_cuda(d2t, data, new_xyz, params, radius, S)
             want = sa.sa_plain(d2t, data, new_xyz, params, radius, S)
             torch.cuda.synchronize()
-            if got.shape != want.shape or not torch.equal(got, want):
+            # the bits, so that +0.0 and -0.0 count as different
+            if got.shape != want.shape or not torch.equal(
+                    got.view(torch.int32), want.view(torch.int32)):
                 raise AssertionError(
                     f"K6 differs from its plain version at r={radius}, "
                     f"S={S}: max abs "
@@ -730,18 +765,33 @@ def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
             n_ops = 2 * macs * slots
             bound_ms = max(n_bytes / HBM_BYTES_PER_S,
                            n_ops / F32_OPS_PER_S) * 1e3
+            # one call captured in a CUDA graph: one launch, replay equal
+            capture, graph = _graph_capture(
+                f"K6 S={S}", lambda: sa.sa_cuda(d2t, data, new_xyz, params,
+                                                radius, S),
+                lambda: sa.launches, got)
+            capture["replay_ms"] = cuda_ms(graph.replay)
+            total["graph_replay_ms"] += capture["replay_ms"]
+            del graph
             scales.append({
                 "radius": radius, "nsample": S, "widths": list(widths),
                 "ms": ms, "with_grouped_ms": grouped_ms,
                 "with_grouped_equals_k6_and_k1": True,
                 "plain_ms": plain_ms, "unfused_ms": unfused_ms,
-                "bound_ms": bound_ms, "bytes": n_bytes, "ops": n_ops,
+                "bound_ms": bound_ms,
+                "issue_floor_ms": issue_floor_ms(n_ops, n_bytes),
+                "graph_capture": capture, "ptxas": _occupancy(
+                    next(e for e in _build_report(sa.SOURCE)
+                         if f"sa_lane_kernelILi{C}ELi{channels[0]}E"
+                         in e["kernel"]), 32 * K1_WARPS,
+                    B * -(-M // K1_BLOCK_QUERIES), _k6_smem(N, S, n_params)),
+                "bytes": n_bytes, "ops": n_ops,
                 "ops_all_slots": 2 * macs * S * M * B,
                 "distinct_slots_mean": slots / (B * M),
                 "max_abs_err": float((got - want).abs().max()),
                 "max_abs_diff_vs_unfused": vs_unfused})
             for k in ("ms", "with_grouped_ms", "plain_ms", "unfused_ms",
-                      "bound_ms", "bytes", "ops"):
+                      "bound_ms", "issue_floor_ms", "bytes", "ops"):
                 total[k] += scales[-1][k]
 
         def edge_params(c):
@@ -761,9 +811,24 @@ def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
 
         _edge_rows(group, pointcloud, "K6 with_grouped", both(sa.sa_cuda),
                    both(sa.sa_plain))
+
+        # the encoder's chains on the edge rows: C = 4 and each scale's
+        # widths, the shapes the lane kernel is built for
+        chains = {S: sa.folded_affine(_seeded_shared_mlp(
+            C, channels, SEED + 11 + i))
+            for i, ((_, S), channels) in enumerate(zip(SCALES, STAGE1_MLPS))}
+
+        def lane_chain(fn):
+            return lambda d, x, c, r, S: torch.cat([t.flatten() for t in fn(
+                d, x, c, chains[S], r, S, with_grouped=True)])
+
+        lane_edge = _edge_rows(group, pointcloud, "K6 encoder chains",
+                               lane_chain(sa.sa_cuda),
+                               lane_chain(sa.sa_plain), channels=(C,))
     emit({"phase": "kernels", "gpu": gpu, "kernels": "K6",
           "shape": [B, N, M, C], "bitwise_equal": True, "scales": scales,
-          "edge_rows_bitwise_equal": edge})
+          "edge_rows_bitwise_equal": edge,
+          "edge_rows_encoder_chains_bitwise_equal": lane_edge})
     total["library_ms"] = None
     total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
                          >= total["ops"] / F32_OPS_PER_S else "operations")
@@ -893,6 +958,76 @@ def _k2_k3_ties_and_gaps(nn) -> dict:
     return {"tie_first_index_wins": first, "gap_frame_ids": ids}
 
 
+# K4's tie data: surface rows repeated as (first, copy), across a thread's
+# 16 points (15|16, 7|8 inside them), a warp's 512 points, a
+# segment (255|256, 100|356), a pass of 2048 and the whole frame (0|M-1,
+# added per shape); the first must win
+K4_TIES = ((7, 8), (15, 16), (100, 356), (255, 256), (511, 512),
+           (1023, 1024), (2047, 2048))
+# (N, M) of the cases: N across a warp and a query chunk of 32 (31, 32, 33)
+# and over several chunks (67, 97), M across a segment and a pass (255,
+# 257, 2048, 4100)
+K4_TIE_SHAPES = ((1, 1), (31, 255), (32, 257), (33, 2048), (67, 2048),
+                 (97, 257), (67, 4100))
+
+
+def k4_ties(M: int) -> list:
+    """The (first, copy) pairs of `K4_TIES` and (0, M-1) that fit in M
+    points, each copy used once."""
+    pairs, copies = [], set()
+    for src, dst in K4_TIES + ((0, M - 1),):
+        if src < dst < M and dst not in copies and src not in copies:
+            pairs.append((src, dst))
+            copies.add(dst)
+    return pairs
+
+
+def k4_tie_frames(seed: int = SEED + 17) -> list:
+    """[(a [2, N, 3], b [2, M, 3])] float32 numpy, one case per
+    `K4_TIE_SHAPES`.  Frame 0: the surface rows of `k4_ties(M)` repeated,
+    with the queries 1e-3 m off the first rows, so each tie's first index
+    must win; frame 1: every query sits on one surface point."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for N, M in K4_TIE_SHAPES:
+        b = rng.standard_normal((2, M, 3)) * 0.3
+        pairs = k4_ties(M)
+        for src, dst in pairs:
+            b[0, dst] = b[0, src]
+        firsts = [src for src, _ in pairs] or [0]
+        a = np.empty((2, N, 3))
+        a[0] = b[0, np.resize(firsts, N)] \
+            + rng.standard_normal((N, 3)) * 1e-3
+        a[1] = b[1, rng.integers(M)]
+        cases.append(tuple(x.astype(np.float32) for x in (a, b)))
+    return cases
+
+
+def _k4_ties(nn) -> dict:
+    """K4 against its plain version on `k4_tie_frames`, bit for bit: the
+    first index of every tie wins, at every N and M of the cases."""
+    wins = {}
+    for (N, M), (a, b) in zip(K4_TIE_SHAPES, k4_tie_frames()):
+        a, b = (torch.from_numpy(x).to(DEV) for x in (a, b))
+        want = nn.nearest_neighbor_plain(a, b)
+        _equal_parts(f"K4 ties at N={N}, M={M}", nn.nearest_neighbor_cuda(
+            a, b), want)
+        got = set(want[1][0].tolist())
+        pairs = k4_ties(M)
+        if got & {dst for _, dst in pairs} or not {
+                src for src, _ in pairs} <= got:
+            raise AssertionError(f"K4 ties at N={N}, M={M} not covered: "
+                                 f"winners {sorted(got)}, pairs {pairs}")
+        wins[f"{N}x{M}"] = len(pairs)
+    return {"ties_first_index_wins_by_case": wins}
+
+
+def issue_floor_ms(n_ops: int, n_bytes: int = 0) -> float:
+    """The least ms of ``n_ops`` separately rounded f32 instructions on the
+    card, and never less than its byte time."""
+    return max(n_ops / F32_INSTR_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+
+
 def _device_ms_by_kernel(fn, calls: int = 5) -> dict:
     """Device ms a call of ``fn`` for each CUDA kernel it launches, by
     torch.profiler over ``calls`` calls after a warm-up."""
@@ -1008,11 +1143,15 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
             "ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain),
             "plain_frames": F_all if name == "K4" else SUB,
             "frames": F_all if name == "K4" else F,
-            "bound_ms": bound_ms, "bound_by": bound_by, "pairs": pairs[name],
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "issue_floor_ms": issue_floor_ms(NN_INSTR_PER_PAIR * pairs[name],
+                                             n_bytes[name]),
+            "pairs": pairs[name],
             "bytes": n_bytes[name], "max_abs_err": err[name],
             "library_ms": None if library is None else cuda_ms(library)}
     # the registers, spills and waves of the sweep of K2 (FULL = false) and
-    # of K3 (FULL = true), T threads of Q queries a block
+    # of K3 (FULL = true), T threads of Q queries a block, and of K4's
+    # kernel, T threads a block and one block a frame
     for e in _build_report(nn.SOURCE):
         m = re.search(r"signed_sweep_kernelILi(\d+)ELi(\d+)ELi\d+ELb([01])E",
                       e["kernel"])
@@ -1020,6 +1159,9 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
             T, Q = int(m.group(1)), int(m.group(2))
             out["K3" if m.group(3) == "1" else "K2"]["ptxas"] = _occupancy(
                 e, T, F * -(-N // (T * Q)))
+        m = re.search(r"nearest_kernelILi(\d+)E", e["kernel"])
+        if m:
+            out["K4"]["ptxas"] = _occupancy(e, int(m.group(1)), F_all)
 
     # one call of each captured in a CUDA graph: one launch, replay equals
     # eager
@@ -1028,7 +1170,9 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
             ("K2", "signed_nearest_pruned",
              lambda: nn.signed_nearest_pruned_cuda(a, b, n, delta), k2),
             ("K3", "signed_nearest",
-             lambda: nn.signed_nearest_cuda(a, b, n), k3)):
+             lambda: nn.signed_nearest_cuda(a, b, n), k3),
+            ("K4", "nearest_neighbor",
+             lambda: nn.nearest_neighbor_cuda(a4, cloud), k4)):
         captures[name], graph = _graph_capture(
             name, call, lambda: nn.launches[key], tuple(want))
         out[name]["graph_replay_ms"] = cuda_ms(graph.replay)
@@ -1048,6 +1192,7 @@ def phase_kernels_nn(nn, body, gpu: str) -> dict:
           "rows": rows, "rows_held_against_plain": rows_sub,
           "edge_rows_bitwise_equal": _nn_edge_rows(nn),
           "k2_k3_ties_and_gaps_bitwise_equal": _k2_k3_ties_and_gaps(nn),
+          "k4_ties_bitwise_equal": _k4_ties(nn),
           "k2_prologue_equals_segment_flags": True,
           "graph_capture": captures, **out})
     return out
@@ -2283,7 +2428,8 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},
         **{k: timed[key][k] for k in (
-            "frames", "plain_frames", "unfused_ms", "with_grouped_ms",
+            "frames", "plain_frames", "unfused_ms",
+            "with_grouped_ms",
             "ptxas", "graph_replay_ms", "device_ms_by_kernel",
             "segment_flags_device_ms", "device_ms", "ms_back_to_back",
             "library_device_ms", "library_ms_back_to_back")

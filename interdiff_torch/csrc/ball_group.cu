@@ -22,45 +22,38 @@
 // at the main-path shape).  __launch_bounds__(256, 8) holds a thread to 32
 // registers, so 8 blocks fit on an SM and the 1024 blocks in one wave of
 // 1056 on 132 SMs.
-// 1. The walk, in rounds of ROUND=256 candidates.  In each round warp w
-//    reads candidates [round*256 + 32w, +32): per candidate one coalesced
-//    128-byte segment of a d2t row, LOADS=8 of them issued back to back and
-//    independent of one another (8 x 128 B = 1 KB in flight per warp, 64 KB
-//    per SM at 8 blocks).  Each lane folds its query's 32 comparisons into one
-//    32-bit hit word (bit i: candidate 32k + i of word k), and the words go
-//    to shared memory as [word][query], the rows padded to 33 so that both
-//    the store (a warp on one word) and the selection's load (a warp on one
-//    query) are free of bank conflicts: 64 words x 33 x 4 B = 8.4 KB a
-//    block at N=2048.  After each round every lane adds up its query's
-//    popcounts over the round's words, and the block stops once each of its
-//    queries holds S hits (__syncthreads_and): the early exit of the walk,
-//    at the granularity of 32 queries.
-// 2. The selection, one warp per query (each warp takes 4): lane l holds
-//    words l, l+32, ...; a warp prefix sum of their popcounts gives each
-//    word's first rank, and each lane writes the candidate of every hit of
-//    rank below S (lowest bit first) into the warp's slot list in shared
-//    memory.  Then lane l copies slots l, l+32, ...: the listed candidate,
-//    the first one for the rest of a short row, candidate 0 for a zero-hit
-//    row, one 16-byte load and store a slot at C=4 (aligned), a warp
-//    writing 32 consecutive slots.
+// 1. The walk (hit_word_walk of hit_words.cuh, shared with K6), in rounds
+//    of 256 candidates: per candidate one coalesced 128-byte segment of a
+//    d2t row, LOADS=8 of them issued back to back and independent of one
+//    another (8 x 128 B = 1 KB in flight per warp, 64 KB per SM at 8
+//    blocks), folded into 32-bit hit words in shared memory ([word][query],
+//    rows padded to 33: 64 words x 33 x 4 B = 8.4 KB a block at N=2048);
+//    the block stops once each of its queries holds S hits.
+// 2. The selection (select_hits), one warp per query (each warp takes 4):
+//    a warp prefix sum of the words' popcounts ranks the hits into the
+//    warp's slot list in shared memory.  Then lane l copies slots l, l+32,
+//    ...: the listed candidate, the first one for the rest of a short row,
+//    candidate 0 for a zero-hit row, one 16-byte load and store a slot at
+//    C=4 (aligned), a warp writing 32 consecutive slots.
 // No [N, M] intermediate reaches device memory.  Past 48 KB of hit words
 // (N above about 11,600) the launch asks for more shared memory, up to the
-// block's 227 KB.  K6 (sa.cu) keeps its own one-thread walk
-// (ball_walk.cuh), and chip_smoke.py holds its grouped output bitwise
-// against this kernel's.
+// block's 227 KB.  K6 (sa.cu) walks and selects by the same header, and
+// chip_smoke.py holds its grouped output bitwise against this kernel's.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hit_words.cuh"
+
 namespace {
 
-constexpr int QUERIES = 32;               // queries a block, one per lane
+constexpr int QUERIES = HIT_QUERIES;      // queries a block, one per lane
 constexpr int WARPS = 8;                  // warps a block
 constexpr int THREADS = WARPS * 32;
 constexpr int ROUND = WARPS * 32;         // candidates a round
 constexpr int LOADS = 8;                  // d2t loads a lane issues at once
-constexpr int PITCH = QUERIES + 1;        // shared row of one hit word
+constexpr int PITCH = HIT_PITCH;          // shared row of one hit word
 constexpr int MAX_SMEM = 232448;          // a block's shared memory on sm_90
 
 __global__ void __launch_bounds__(THREADS, 8)
@@ -81,36 +74,8 @@ __global__ void __launch_bounds__(THREADS, 8)
   const float* col = d2t + (size_t)b * N * stride + (m0 + lane);
 
   // 1. the walk: hit words, round by round, until every query is full
-  int hits = 0;  // of query `lane`, in the rounds read so far
-  int rounds = 0;
-  while (rounds < n_rounds) {
-    const int n0 = rounds * ROUND + warp * 32;
-    unsigned word = 0u;
-    if (live) {
-#pragma unroll
-      for (int h = 0; h < 32; h += LOADS) {
-        float v[LOADS];
-#pragma unroll
-        for (int i = 0; i < LOADS; ++i) {
-          const int n = n0 + h + i;
-          v[i] = n < N ? col[(size_t)n * stride] : r2;  // r2: not a hit
-        }
-#pragma unroll
-        for (int i = 0; i < LOADS; ++i) {
-          word |= static_cast<unsigned>(v[i] < r2) << (h + i);
-        }
-      }
-    }
-    unsigned* round_words = words + rounds * WARPS * PITCH;
-    round_words[warp * PITCH + lane] = word;
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) {
-      hits += __popc(round_words[w * PITCH + lane]);
-    }
-    ++rounds;
-    if (__syncthreads_and(!live || hits >= S)) break;
-  }
+  const int rounds = hit_word_walk<WARPS, LOADS>(col, N, stride, S, r2, live,
+                                                 words, n_rounds);
 
   // 2. the selection, one warp a query
   const int n_words = rounds * WARPS;
@@ -119,26 +84,7 @@ __global__ void __launch_bounds__(THREADS, 8)
   const bool vec4 = C == 4 && ((reinterpret_cast<uintptr_t>(data) |
                                 reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   for (int q = warp; q < QUERIES && m0 + q < M; q += WARPS) {
-    int run = 0;  // hits in the words before this chunk of 32
-    for (int base = 0; base < n_words && run < S; base += 32) {
-      const int k = base + lane;
-      unsigned word = k < n_words ? words[k * PITCH + q] : 0u;
-      const int pc = __popc(word);
-      int inc = pc;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(~0u, inc, o);
-        if (lane >= o) inc += t;
-      }
-      for (int rank = run + inc - pc; word != 0u && rank < S; ++rank) {
-        list[rank] = k * 32 + __ffs(word) - 1;
-        word &= word - 1u;
-      }
-      run += __shfl_sync(~0u, inc, 31);
-    }
-    __syncwarp();
-
-    const int full = min(run, S);
+    const int full = select_hits(words, n_words, q, S, list);
     const size_t query = (size_t)b * M + (m0 + q);
     const float cx = new_xyz[query * 3], cy = new_xyz[query * 3 + 1],
                 cz = new_xyz[query * 3 + 2];

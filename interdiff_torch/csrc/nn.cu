@@ -22,11 +22,38 @@
 // floating point, so the single fused step fma(-2, dot, b2) rounds once, to
 // the same float as b2 - 2*dot.
 //
-// K4: one block per (frame, 128 queries), one thread per query with (best,
-// j*) in registers; the block stages TILE points of b as float4 (x, y, z,
-// b2) in shared memory, so the inner loop costs one broadcast 16-byte shared
-// load and about ten instructions per pair and no global traffic.  Bound:
-// operations, not bytes.
+// K4, nearest_kernel<T, G, QC>: T = 128 threads a block, a block a
+// frame, the frame's surface split over the threads: thread t holds G = 16
+// consecutive points (x, y, z, |b|^2) in registers, t*G .. t*G+G-1 of a
+// pass of T*G = 2048 points (one pass at the main-path M = 2048; a ragged
+// last pass is padded with points of score +inf).  At the main-path shape
+// a frame has only N = 67 queries, which left two thirds of a
+// one-query-a-thread block idle; here every lane works at any N.
+// 0. A pass's points are copied coalesced and asynchronously (cp.async)
+//    into shared memory, for each thread to take its G points; the next
+//    pass's copy runs while this one is computed.  (Persistent blocks,
+//    each walking frames and copying the next frame's points early, were
+//    slower on an H100 than this plain grid.)
+// 1. The queries come in chunks of QC = 32, staged in shared memory.  Per
+//    query (a broadcast 16-byte shared load), each thread computes the G
+//    scores of its points and their minimum (a tree of fminf) and stores it
+//    to part[query][t]: about 7.75 instructions a pair (6 for the score,
+//    15/16 of a minimum, 2/16 of a shared load and store, the loop).
+// 2. Four threads a query: each scans a quarter of the T minima for the
+//    least and its first thread (strict <), and the four merge by (value,
+//    thread), giving the first thread t holding the least value v.  Then
+//    the four score thread t's G points again by the same arithmetic and
+//    the least g whose score is v is the first occurrence in the pass.
+//    Threads and points are in index order; passes merge in increasing
+//    order with a strict <, the running (score, j) kept in the outputs
+//    between passes, so j* is the first occurrence of the least score
+//    overall, the plain version's argmin.
+//    (A merge of one warp a query, each rescanning from global memory in
+//    the warp's serial loop, was latency-bound: 0.24-0.30 ms at the
+//    main-path shape on an H100.)
+// Bound: operations, 8 a pair; the bitwise contract leaves 6 of them fixed.
+// scripts/torch_kernel_probes.py rebuilds the library with -DK4_THREADS,
+// -DK4_POINTS, -DK4_QCHUNK and -DK4_MIN_BLOCKS to time other settings.
 //
 // K2, the pruned sweep, in three kernels launched by one entry:
 //
@@ -83,7 +110,8 @@
 //    the minimum nor the comparison with best (at most 3.0e38) can take.
 //    Per pair: six rounded float32 operations for the score, (G-1)/G of a
 //    minimum, 3/G of a comparison and two selects, and 1/Q of a shared load:
-//    about 7.4 instructions at G = 8, Q = 8, against the 9-10 of K4's loop.
+//    about 7.4 instructions at G = 8, Q = 8, against the 9-10 of a loop of
+//    one query a thread that replaces best on a branch.
 //    Bound: operations (8 a pair over the flagged pairs of this call's data).
 //
 // K3, the full sweep, is the same kernel with FULL = true:
@@ -104,7 +132,6 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // queries per block
 constexpr int TILE = 256;     // surface points per shared-memory tile = pruning segment
 constexpr float SCORE_INF = 3.0e38f;  // beats no real score
 
@@ -114,59 +141,6 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az,
                    __fmul_rn(az, bz));
 }
 
-__global__ void nn_sweep_kernel(const float* __restrict__ a,
-                                const float* __restrict__ b,
-                                float* __restrict__ sq_out,
-                                int* __restrict__ idx_out, int N, int M) {
-  __shared__ float4 tile[TILE];
-
-  const int frame = blockIdx.x;
-  const int q = blockIdx.y * THREADS + threadIdx.x;
-  const bool live = q < N;
-  const float* bf = b + (size_t)frame * M * 3;
-  const int n_seg = (M + TILE - 1) / TILE;
-
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-  if (live) {
-    const float* ap = a + ((size_t)frame * N + q) * 3;
-    ax = ap[0];
-    ay = ap[1];
-    az = ap[2];
-  }
-
-  float best = SCORE_INF;
-  int best_j = 0;
-  for (int seg = 0; seg < n_seg; ++seg) {
-    const int base = seg * TILE;
-    const int count = min(TILE, M - base);
-    __syncthreads();  // the previous tile has been read by every thread
-    for (int k = threadIdx.x; k < count; k += THREADS) {
-      const float* p = bf + (size_t)(base + k) * 3;
-      const float x = p[0], y = p[1], z = p[2];
-      tile[k] = make_float4(x, y, z, dot3(x, y, z, x, y, z));
-    }
-    __syncthreads();
-    if (live) {
-#pragma unroll 8
-      for (int k = 0; k < count; ++k) {
-        const float4 c = tile[k];
-        const float score = __fmaf_rn(-2.0f, dot3(ax, ay, az, c.x, c.y, c.z),
-                                      c.w);
-        if (score < best) {
-          best = score;
-          best_j = base + k;
-        }
-      }
-    }
-  }
-  if (!live) return;
-
-  const size_t out = (size_t)frame * N + q;
-  sq_out[out] = fmaxf(__fadd_rn(best, dot3(ax, ay, az, ax, ay, az)), 0.0f);
-  idx_out[out] = best_j;
-}
-
-dim3 sweep_grid(int B, int N) { return dim3(B, (N + THREADS - 1) / THREADS); }
 
 // ---- K2 ---------------------------------------------------------------------
 
@@ -486,6 +460,188 @@ constexpr int SWEEP_T = K2_THREADS, SWEEP_Q = K2_QUERIES, SWEEP_G = K2_GROUP;
 #endif
 constexpr int FULL_T = K3_THREADS, FULL_Q = K3_QUERIES, FULL_G = 8;
 
+// ---- K4 ---------------------------------------------------------------------
+
+// K4's shape: threads a block, points a thread, queries a chunk and the
+// blocks an SM its registers are held to (see above)
+#ifndef K4_THREADS
+#define K4_THREADS 128
+#endif
+#ifndef K4_POINTS
+#define K4_POINTS 16
+#endif
+#ifndef K4_QCHUNK
+#define K4_QCHUNK 32
+#endif
+#ifndef K4_MIN_BLOCKS
+#define K4_MIN_BLOCKS 5
+#endif
+
+// the least of s[0, G) by a tree of fminf written out at compile time (a
+// loop tree over 16 scores was left rolled, its array in local memory)
+template <int G>
+__device__ __forceinline__ float tree_min(const float* s) {
+  if constexpr (G == 1) {
+    return s[0];
+  } else {
+    return fminf(tree_min<G / 2>(s), tree_min<G / 2>(s + G / 2));
+  }
+}
+
+// a 4-byte copy from global to shared memory that does not wait
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+template <int T, int G, int QC>
+__global__ void __launch_bounds__(T, K4_MIN_BLOCKS)
+    nearest_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ sq_out, int* __restrict__ idx_out,
+                   int N, int M) {
+  constexpr int SUB = 4;            // threads a query in the merge
+  static_assert(T % 32 == 0 && QC * SUB <= T && (G & (G - 1)) == 0,
+                "whole warps; four threads a query; a tree of G scores");
+  constexpr int SPAN = T * G;       // points a pass
+  constexpr int PER = 3 * G;        // floats each thread stages a pass
+  constexpr int STAGE = PER + 1;    // floats of a thread's staged points
+  // a row of part: thread c of a query's four scans k = c, c + 4, ...; the
+  // pitch keeps the warp's 8 queries x 4 scans on 32 banks
+  constexpr int PITCH = T + 4;
+  static_assert(G % SUB == 0, "four threads rescan a group");
+  __shared__ float4 s_q[QC];             // the chunk's queries (x, y, z, 0)
+  __shared__ float s_stage[T * STAGE];   // the pass's points
+  __shared__ float s_part[QC * PITCH];   // per query, each thread's minimum
+
+  const int frame = blockIdx.x;  // a block a frame
+  const float* af = a + (size_t)frame * N * 3;
+  const float* bf = b + (size_t)frame * M * 3;
+  const int n_pass = (M + SPAN - 1) / SPAN;
+  // 0. a pass's points, copied coalesced and asynchronously so that thread
+  //    t's 3G floats start at t * STAGE (the reads below are then free of
+  //    bank conflicts); past M zeros
+  //    (a rolled loop: it runs while the thread holds its points, and
+  //    unrolled its addresses did not fit beside them)
+  auto stage = [&](int base) {
+    const float* src = bf + (size_t)base * 3;
+    const int end = 3 * (M - base);  // floats of the pass before M
+#pragma unroll 1
+    for (int e = threadIdx.x; e < PER * T; e += T) {
+      float* dst = s_stage + (e / PER) * STAGE + e % PER;
+      if (e < end) {
+        copy_async4(dst, src + e);
+      } else {
+        *dst = 0.0f;
+      }
+    }
+  };
+  // Pass by pass; the next pass's points are copied while this one is
+  // computed: once a thread holds its points in registers the staged copy
+  // is free.
+  stage(0);
+  for (int pass = 0; pass < n_pass; ++pass) {
+    const int base = pass * SPAN;
+    const bool last = pass == n_pass - 1;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // the pass's points are staged
+    float4 p[G];  // (x, y, z, |b|^2); +inf past M
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float* src = s_stage + threadIdx.x * STAGE + 3 * g;
+      const float x = src[0], y = src[1], z = src[2];
+      p[g] = base + threadIdx.x * G + g < M
+                 ? make_float4(x, y, z, dot3(x, y, z, x, y, z))
+                 : make_float4(0.0f, 0.0f, 0.0f, inf_f());
+    }
+    __syncthreads();  // every thread holds its points
+    if (!last) stage(base + SPAN);
+
+    for (int q0 = 0; q0 < N; q0 += QC) {
+      const int nq = min(QC, N - q0);
+      __syncthreads();  // the points are read; the previous chunk merged
+      if (threadIdx.x < nq) {
+        const float* ap = af + (size_t)(q0 + threadIdx.x) * 3;
+        s_q[threadIdx.x] = make_float4(ap[0], ap[1], ap[2], 0.0f);
+      }
+      __syncthreads();
+      // 1. per query, the least score of this thread's G points
+      for (int i = 0; i < nq; ++i) {
+        const float4 q = s_q[i];
+        float s[G];
+#pragma unroll
+        for (int g = 0; g < G; ++g) s[g] = score(q.x, q.y, q.z, p[g]);
+        s_part[i * PITCH + threadIdx.x] = tree_min<G>(s);
+      }
+      __syncthreads();
+      // 2. four threads a query.  Thread c scans minima c, c + 4, ...
+      //    for the least and its first thread (strict <); the four merge
+      //    by (value, thread), which gives the first thread t holding the
+      //    least value v.  Then thread c scores points c, c + 4, ... of
+      //    thread t's G again, from global memory by the same
+      //    arithmetic, and the least g whose score is v over the four is
+      //    the first occurrence in the pass.  Passes merge in increasing
+      //    order with a strict <, the running (score, j) kept in the
+      //    outputs.
+      {
+        const int i = threadIdx.x / SUB, c = threadIdx.x % SUB;
+        const int iq = min(i, nq - 1);  // a spare thread repeats a query
+        float v = inf_f();
+        int t = 0;
+        const float* row = s_part + iq * PITCH;
+#pragma unroll 8
+        for (int k = c; k < T; k += SUB) {
+          const float x = row[k];
+          t = x < v ? k : t;
+          v = x < v ? x : v;
+        }
+#pragma unroll
+        for (int o = 1; o < SUB; o <<= 1) {
+          const float ov = __shfl_xor_sync(~0u, v, o);
+          const int ot = __shfl_xor_sync(~0u, t, o);
+          const bool take = ov < v || (ov == v && ot < t);
+          v = take ? ov : v;
+          t = take ? ot : t;
+        }
+        const float4 q = s_q[iq];
+        int g_first = G;  // none
+#pragma unroll
+        for (int g = G - SUB + c; g >= 0; g -= SUB) {
+          const int k = base + t * G + g;
+          const bool real = k < M;
+          const float* src = bf + (size_t)(real ? k : 0) * 3;
+          const float x = src[0], y = src[1], z = src[2];
+          g_first = real && score(q.x, q.y, q.z,
+                                  make_float4(x, y, z,
+                                              dot3(x, y, z, x, y, z))) == v
+                        ? g
+                        : g_first;
+        }
+#pragma unroll
+        for (int o = 1; o < SUB; o <<= 1) {
+          g_first = min(g_first, __shfl_xor_sync(~0u, g_first, o));
+        }
+        if (i < nq && c == 0) {
+          const size_t out = (size_t)frame * N + q0 + i;
+          float best = pass > 0 ? sq_out[out] : inf_f();
+          int best_j = pass > 0 ? idx_out[out] : 0;
+          if (g_first < G && v < best) {
+            best = v;
+            best_j = base + t * G + g_first;
+          }
+          sq_out[out] = last ? fmaxf(__fadd_rn(best, dot3(q.x, q.y, q.z,
+                                                          q.x, q.y, q.z)),
+                                     0.0f)
+                             : best;
+          idx_out[out] = best_j;
+        }
+      }
+    }
+  }
+}
+
+constexpr int NEAR_T = K4_THREADS, NEAR_G = K4_POINTS, NEAR_QC = K4_QCHUNK;
+
 // blocks a frame: T threads of Q queries each over its N queries
 int sweep_chunks(int N, int T, int Q) { return (N + T * Q - 1) / (T * Q); }
 
@@ -499,8 +655,10 @@ extern "C" int nn_tile() { return TILE; }
 
 extern "C" int nn_nearest_f32(const float* a, const float* b, float* sq,
                               int* idx, int B, int N, int M, void* stream) {
-  nn_sweep_kernel<<<sweep_grid(B, N), THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(a, b, sq, idx, N, M);
+  if (B < 1 || N < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  nearest_kernel<NEAR_T, NEAR_G, NEAR_QC>
+      <<<B, NEAR_T, 0, static_cast<cudaStream_t>(stream)>>>(a, b, sq, idx, N,
+                                                            M);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,7 +10,9 @@ wrappers launch the hand-written kernels of `csrc/nn.cu`:
 
 K2 and K3 run one sweep body (`signed_sweep_kernel`): K3 walks every
 segment, K2 only those its prologue flags, so the two agree inside delta by
-construction.
+construction.  K4 (`nearest_kernel`) splits a frame's surface over the
+threads of a block instead, which keeps every lane busy at the 67 queries a
+frame of the correction's marker sweep.
 
 Beside each stands its plain PyTorch version (``*_plain``), which repeats
 the kernel's arithmetic step by step, so that the two agree bit for bit on

@@ -17,9 +17,10 @@ route is K1 + `SharedMLP` + ``amax``.
 
 Bound at the main-path shape (B=32, N=2048, M=1024): bytes for the S=16
 scale (d2t [B, N, M] read up to each query's last slot), operations for the
-S=32 scale (6.7 GFLOP of chain); the walk's dependent loads and the chain's
-dependent product-and-sum steps set the time, about 30 times the bound on an
-H100.
+S=32 scale (6.7 GFLOP of chain).  The kernel walks d2t by K1's hit words
+(`csrc/hit_words.cuh`, shared with `csrc/ball_group.cu`) and, at the
+encoder's two shapes, runs the chain one lane per slot with the activations
+in registers; other widths take a kernel of one warp per query.
 
 Gradient (`_fsa_fwd`, `_fsa_bwd`): ``fused_sa_scale`` is a
 `torch.autograd.Function`.  When a gradient is wanted the forward is one

@@ -1,7 +1,7 @@
-"""One-off measurements of three kernels of the PyTorch/CUDA port on one
-NVIDIA GPU, kept out of `chip_smoke.py`'s every run.
+"""One-off measurements of kernels of the PyTorch/CUDA port on one NVIDIA
+GPU, kept out of `chip_smoke.py`'s every run.
 
-    python3 scripts/torch_kernel_probes.py      # from the repository root
+    python3 scripts/torch_kernel_probes.py [k2 k3 k4 k6 k5]  # from the root
 
 Prints the card's name and power limit, then one JSON line each:
 
@@ -14,17 +14,30 @@ Prints the card's name and power limit, then one JSON line each:
    call (CUDA events, median of 30), device ms of each kernel
    (torch.profiler), ptxas's registers and spills of the sweep and the
    waves of its launch.
-2. ``k5_host``: host microseconds a call, back to back (3000 calls after
+2. ``k4_settings``: K4 (`nearest_kernel` of `csrc/nn.cu`) at its main-path
+   data (2240 frames of 67 markers against 2048 points) built with
+   ``-DK4_THREADS -DK4_POINTS -DK4_QCHUNK -DK4_MIN_BLOCKS`` (threads a
+   block, points a thread, queries a chunk, blocks an SM the registers are
+   held to); ``k6_settings``: K6 (`csrc/sa.cu`) at stage 1's data, both
+   scales, built with ``-DK6_LOADS -DK6_MIN_BLOCKS`` (loads in flight a
+   lane in the walk, blocks an SM the lane kernel's registers are held
+   to).  Each bitwise against the default build, with ms (per
+   encode for K6; for K4 also the device's ms, calls replayed from a CUDA
+   graph), registers, spills and waves; K4's default build also at 32 to 128
+   queries a frame (device ms, calls replayed from a CUDA graph).
+3. ``k5_host``: host microseconds a call, back to back (3000 calls after
    100, the device drained before and after), of K5's wrapper, its output's
    allocation, its C entry through `ctypes` alone and `torch.gather` on the
    same inputs (stage 1's S=32 indices); and of the two ways to read the
    current stream, ``current_stream().cuda_stream`` and the raw handle.
 
-Exits 2 without a CUDA device.  About a minute on an H100.
+Every setting's library is built first, all nvcc runs at once.  Exits 2
+without a CUDA device.  About two minutes on an H100.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import sys
@@ -44,7 +57,34 @@ SETTINGS = {
            for t, q, g in ((128, 8, 8), (256, 4, 8), (256, 8, 8))],
     "K3": [{"K3_THREADS": t, "K3_QUERIES": q}
            for t, q in ((256, 8), (256, 4), (128, 8), (64, 8))],
+    # K4: threads a block, points a thread, queries a chunk, blocks an SM
+    "K4": [{"K4_THREADS": t, "K4_POINTS": g, "K4_QCHUNK": qc,
+            "K4_MIN_BLOCKS": mb}
+           for t, g, qc, mb in ((128, 16, 32, 5), (128, 16, 32, 4),
+                                (128, 16, 32, 6), (128, 8, 32, 6),
+                                (64, 16, 16, 8))],
+    # K6: loads in flight a lane in the walk, blocks an SM
+    "K6": [{"K6_LOADS": ld, "K6_MIN_BLOCKS": mb}
+           for ld, mb in ((8, 3), (16, 3), (8, 2), (8, 4), (16, 4))],
 }
+SOURCES = {"K2": "nn", "K3": "nn", "K4": "nn", "K6": "sa"}
+
+
+def _defines(setting: dict) -> list:
+    return [f"{k}={v}" for k, v in setting.items()]
+
+
+def build_all(names) -> None:
+    """The default libraries and every setting's of the kernels ``names``,
+    one nvcc each, all started together."""
+    from interdiff_torch.ops import _build
+
+    jobs = [(source, []) for source in ("nn", "sa", "ball_group", "gather")]
+    jobs += [(SOURCES[name], _defines(s)) for name in names
+             for s in SETTINGS[name]]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for job in [pool.submit(_build.build, *j) for j in jobs]:
+            job.result()
 
 
 def sweep_settings(nn, body, name: str) -> dict:
@@ -69,7 +109,7 @@ def sweep_settings(nn, body, name: str) -> dict:
     full = "Lb1E" if name == "K3" else "Lb0E"
     try:
         for setting in SETTINGS[name]:
-            defines = [f"{k}={v}" for k, v in setting.items()]
+            defines = _defines(setting)
             nn._lib = _build.load(nn.SOURCE, nn.C_ENTRIES, defines)
             cs._equal_parts(f"{name} at {setting}", call(), want)
             sweep = next(e for e in _build.ptxas_report(nn.SOURCE, defines)
@@ -82,6 +122,91 @@ def sweep_settings(nn, body, name: str) -> dict:
     finally:
         nn._lib = default_lib
     return {"probe": f"{name.lower()}_settings", "frames": F,
+            "bitwise_equal": True, "settings": rows}
+
+
+def k4_settings(nn, body) -> dict:
+    """K4 at its main-path data in each of its settings."""
+    from interdiff_torch.data.constants import MARKERSET_SSM67_SMPLH
+    from interdiff_torch.ops import _build
+
+    rng = np.random.default_rng(cs.SEED + 4)
+    verts, _, cloud = cs._nn_geometry(
+        rng, cs.CLIPS * cs.FOLD * cs.FRAMES, cs.POINTS, body)
+    a = verts[:, torch.from_numpy(MARKERSET_SSM67_SMPLH.astype(
+        np.int64)).to(cs.DEV)].contiguous()
+
+    def call():
+        return nn.nearest_neighbor_cuda(a, cloud)
+
+    want, default_lib, rows = call(), nn._library(), []
+    # the default build's device ms (calls replayed from a CUDA graph) at
+    # other numbers of queries a frame, the markers repeated: the cost of a
+    # query chunk of 32 and of a frame's fixed part
+    by_queries = {}
+    for n_q in (32, 64, 67, 96, 128):
+        x = a[:, torch.arange(n_q, device=a.device) % a.shape[1]].contiguous()
+        by_queries[n_q] = cs._replay_ms(
+            lambda: nn.nearest_neighbor_cuda(x, cloud), 20)
+    try:
+        for setting in SETTINGS["K4"]:
+            defines = _defines(setting)
+            nn._lib = _build.load(nn.SOURCE, nn.C_ENTRIES, defines)
+            cs._equal_parts(f"K4 at {setting}", call(), want)
+            kernel = next(e for e in _build.ptxas_report(nn.SOURCE, defines)
+                          if "nearest_kernel" in e["kernel"])
+            rows.append({**setting, "ms": cs.cuda_ms(call),
+                         "replay_ms": cs._replay_ms(call, 20),
+                         **cs._occupancy(kernel, setting["K4_THREADS"],
+                                         a.shape[0])})
+    finally:
+        nn._lib = default_lib
+    return {"probe": "k4_settings", "shape": list(a.shape[:2])
+            + [cloud.shape[1]], "bitwise_equal": True,
+            "device_ms_by_queries": by_queries, "settings": rows}
+
+
+def k6_settings(sa, group, pointcloud) -> dict:
+    """K6 at stage 1's data, both scales, in each of its settings."""
+    from interdiff_torch.ops import _build
+
+    data, new_xyz, d2t = cs._stage1_inputs(group, pointcloud)
+    B, N, M = d2t.shape
+    C = data.shape[-1]
+    scales = []
+    with torch.no_grad():
+        for i, ((radius, S), channels) in enumerate(zip(cs.SCALES,
+                                                        cs.STAGE1_MLPS)):
+            params = sa.folded_affine(cs._seeded_shared_mlp(
+                C, channels, cs.SEED + 8 + i))
+            n_params = sum(w.numel() + a.numel() + b.numel()
+                           for w, a, b in params)
+            scales.append((radius, S, channels, params, n_params))
+
+        def encode():
+            return [sa.sa_cuda(d2t, data, new_xyz, p, r, S)
+                    for r, S, _, p, _ in scales]
+
+        want, default_lib, rows = encode(), sa._library(), []
+        try:
+            for setting in SETTINGS["K6"]:
+                defines = _defines(setting)
+                sa._lib = _build.load(sa.SOURCE, sa.C_ENTRIES, defines)
+                for got, w in zip(encode(), want):
+                    if not torch.equal(got.view(torch.int32),
+                                       w.view(torch.int32)):
+                        raise AssertionError(f"K6 at {setting} differs")
+                report = _build.ptxas_report(sa.SOURCE, defines)
+                rows.append({**setting, "ms_per_encode": cs.cuda_ms(encode),
+                             "scales": [cs._occupancy(
+                                 next(e for e in report
+                                      if f"sa_lane_kernelILi{C}ELi{ch[0]}E"
+                                      in e["kernel"]), 256,
+                                 B * -(-M // 32), cs._k6_smem(N, S, n))
+                                 for _, S, ch, _, n in scales]})
+        finally:
+            sa._lib = default_lib
+    return {"probe": "k6_settings", "shape": [B, N, M, C],
             "bitwise_equal": True, "settings": rows}
 
 
@@ -124,15 +249,20 @@ def main() -> int:
         print("torch_kernel_probes: no CUDA device", file=sys.stderr)
         return 2
     from interdiff_torch.config import build_smpl_body
-    from interdiff_torch.ops import gather, group, nn, pointcloud
+    from interdiff_torch.ops import gather, group, nn, pointcloud, sa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     print(cs.gpu_name_and_power())
     body = build_smpl_body(seed=cs.SEED, num_verts=cs.VERTS)
-    for line in (sweep_settings(nn, body, "K2"),
-                 sweep_settings(nn, body, "K3"),
-                 k5_host(gather, group, pointcloud)):
-        print(json.dumps(line), flush=True)
+    probes = {"k2": lambda: sweep_settings(nn, body, "K2"),
+              "k3": lambda: sweep_settings(nn, body, "K3"),
+              "k4": lambda: k4_settings(nn, body),
+              "k6": lambda: k6_settings(sa, group, pointcloud),
+              "k5": lambda: k5_host(gather, group, pointcloud)}
+    keys = sys.argv[1:] or list(probes)
+    build_all([k.upper() for k in keys if k.upper() in SETTINGS])
+    for key in keys:
+        print(json.dumps(probes[key]()), flush=True)
     return 0
 
 

@@ -4,6 +4,8 @@ the CPU) against the JAX reference: the XLA `query_and_group` and the Pallas
 distances, so the selection must agree bit for bit.  FPS indices of the
 port match `interdiff_tpu/ops/pointcloud.py` exactly."""
 
+import os
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -13,7 +15,9 @@ torch = pytest.importorskip("torch")
 import chip_smoke  # noqa: E402  (numpy builders of the card's edge clouds)
 import interdiff_tpu.ops.pallas_group as pgr  # noqa: E402
 from interdiff_tpu.ops import pointcloud as jpc  # noqa: E402
+from interdiff_torch.ops import _build  # noqa: E402
 from interdiff_torch.ops import group as tgroup  # noqa: E402
+from interdiff_torch.ops import sa as tsa  # noqa: E402
 from interdiff_torch.ops import pointcloud as tpc  # noqa: E402
 
 B, N, M, C = 2, 256, 128, 4
@@ -97,6 +101,20 @@ def test_group_plain_matches_jax_on_word_and_round_boundaries(
     assert got.shape == (2, 120, nsample, 4 if with_features else 3)
     np.testing.assert_array_equal(got, ref_xla)
     np.testing.assert_array_equal(got, ref_pallas)
+
+
+def test_k1_and_k6_share_one_walk():
+    """K1 (`csrc/ball_group.cu`) and K6 (`csrc/sa.cu`) walk and select by
+    the one header `csrc/hit_words.cuh`, each calling its walk and its
+    selection, and it is the only header of the sources."""
+    csrc = os.path.dirname(_build.source_path(tgroup.SOURCE))
+    for module in (tgroup, tsa):
+        with open(_build.source_path(module.SOURCE)) as f:
+            text = f.read()
+        assert '#include "hit_words.cuh"' in text
+        assert "hit_word_walk<" in text and "select_hits(" in text
+    assert sorted(f for f in os.listdir(csrc) if f.endswith(".cuh")) == [
+        "hit_words.cuh"]
 
 
 def test_cuda_tensor_never_takes_the_plain_path(monkeypatch):

@@ -101,10 +101,40 @@ def test_signed_nearest_plain_matches_pallas_and_xla_on_boundary_ties():
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("case", range(len(chip_smoke.K4_TIE_SHAPES)),
+                         ids=[f"N{n}xM{m}" for n, m in
+                              chip_smoke.K4_TIE_SHAPES])
+def test_nearest_plain_matches_pallas_and_xla_on_k4_ties(case):
+    """`chip_smoke.k4_tie_frames`, on which `chip_smoke.py` holds K4 on the
+    card: surface rows repeated across a thread's block of 16 points, a
+    warp's 512, a segment, a pass of 2048 and the whole frame, with queries
+    on the first rows, and a frame whose queries all sit on one point, at N
+    across a warp and a query chunk and M across a segment and a pass.  The
+    first index of every tie wins in the plain version, and the
+    interpreted Pallas kernel and the XLA reference give the same idx and
+    sq within 1e-6."""
+    N, M = chip_smoke.K4_TIE_SHAPES[case]
+    a, b = chip_smoke.k4_tie_frames()[case]
+    assert a.shape == (2, N, 3) and b.shape == (2, M, 3)
+    sq, idx = tnn.nearest_neighbor_plain(*_t(a, b))
+    pairs = chip_smoke.k4_ties(M)
+    winners = set(idx[0].tolist())
+    assert {src for src, _ in pairs} <= winners
+    assert not winners & {dst for _, dst in pairs}
+    assert len(set(idx[1].tolist())) == 1  # every query on one point
+    ja, jb = jnp.asarray(a), jnp.asarray(b)
+    d_pal, i_pal = jpn.nearest_neighbor_pallas(ja, jb, interpret=True)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i_pal))
+    np.testing.assert_allclose(sq.numpy(), np.asarray(d_pal), atol=1e-6)
+    d_ref, i_ref = jsd.nearest_neighbor(ja, jb, chunk=None, use_pallas=False)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(i_ref))
+    np.testing.assert_allclose(sq.numpy(), np.asarray(d_ref), atol=1e-6)
+
+
 def test_k2_and_k3_launch_one_sweep_body():
     """K3's entry launches the sweep kernel of K2 in its full variant and
-    K2's entry the pruned one; the one-query-a-thread sweep is K4's
-    alone."""
+    K2's entry the pruned one; K4's entry launches its own kernel, which
+    splits a frame's surface over the threads, and nothing else does."""
     with open(_build.source_path(tnn.SOURCE)) as f:
         text = f.read()
 
@@ -116,8 +146,9 @@ def test_k2_and_k3_launch_one_sweep_body():
         "nn_signed_f32")
     assert "signed_sweep_kernel<SWEEP_T, SWEEP_Q, SWEEP_G, false>" in body(
         "nn_signed_pruned_f32")
-    assert "nn_sweep_kernel<<<" in body("nn_nearest_f32")
-    assert text.count("nn_sweep_kernel<<<") == 1
+    assert "nearest_kernel<NEAR_T, NEAR_G, NEAR_QC>" in body("nn_nearest_f32")
+    assert text.count("nearest_kernel<NEAR_T, NEAR_G, NEAR_QC>") == 1
+    assert "nn_sweep_kernel" not in text
 
 
 def test_signed_nearest_pruned_plain_matches_pallas_and_xla():

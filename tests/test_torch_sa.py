@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import chip_smoke  # noqa: E402  (numpy builders of the card's edge clouds)
 import interdiff_tpu.ops.pallas_group as pg  # noqa: E402
 from interdiff_tpu.models.pointnet import SAModuleMSG as JSAModule  # noqa: E402
 from interdiff_tpu.models.pointnet import SharedMLP as JSharedMLP  # noqa: E402
@@ -21,7 +22,7 @@ from interdiff_tpu.ops import pallas_sa as jsa  # noqa: E402
 from interdiff_tpu.ops.pointcloud import ball_query as j_ball_query  # noqa: E402
 from interdiff_torch.models import pointnet as tpn  # noqa: E402
 from interdiff_torch.ops import sa as tsa  # noqa: E402
-from interdiff_torch.ops.group import pairwise_sqdist_t  # noqa: E402
+from interdiff_torch.ops.group import group_plain, pairwise_sqdist_t  # noqa: E402
 from interdiff_torch.ops.pointcloud import ball_query  # noqa: E402
 from interdiff_torch.utils.convert import flax_to_torch_state_dict  # noqa: E402
 
@@ -142,6 +143,46 @@ def test_short_rows_repeat_the_first_hit():
     wide = tsa.fused_sa_scale(xyz, new_xyz, None, params, 0.7, 16, d2t)
     tight = tsa.fused_sa_scale(xyz, new_xyz, None, params, 0.7, hits, d2t)
     assert torch.equal(wide, tight)
+
+
+@pytest.mark.parametrize("with_features", [True, False])
+@pytest.mark.parametrize("scale", [0, 1])
+def test_grouped_output_matches_pallas_and_k1_on_edge_cloud(
+        force_interpret, scale, with_features):
+    """`chip_smoke.k1_edge_cloud`, on which `chip_smoke.py` holds K6's
+    grouped output against K1's on the card, through the encoder's chain of
+    each stage-1 scale: `sa_plain`'s grouped tensor equals `group_plain`'s
+    and the interpreted Pallas kernel's (`_sa_pallas` with_grouped) bit for
+    bit, and its output the kernel's within the module's tolerance.  K1 and
+    K6 select by one walk (`csrc/hit_words.cuh`), so the grouped tensors of
+    the two kernels are this one on the card."""
+    radius, nsample = chip_smoke.SCALES[scale]
+    xyz, new_xyz = chip_smoke.k1_edge_cloud()
+    feats = (np.linalg.norm(xyz, axis=-1, keepdims=True) if with_features
+             else None)
+    C = 3 + (feats is not None)
+    widths = (C,) + chip_smoke.STAGE1_MLPS[scale]
+    params = _params(np.random.default_rng(6 + scale),
+                     tuple(zip(widths, widths[1:])))
+    txyz, tnew = torch.from_numpy(xyz), torch.from_numpy(new_xyz)
+    data = txyz if feats is None else torch.cat(
+        [txyz, torch.from_numpy(feats)], -1)
+    d2t = pairwise_sqdist_t(txyz, tnew)
+    out, grouped = tsa.sa_plain(
+        d2t, data, tnew, tuple(tuple(torch.from_numpy(t) for t in layer)
+                               for layer in params),
+        radius, nsample, with_grouped=True)
+    assert grouped.shape == (2, 120, nsample, C)
+    np.testing.assert_array_equal(
+        grouped.numpy(), group_plain(d2t, data, tnew, radius, nsample).numpy())
+    want_out, want_grouped = jsa._fused_sa_impl(
+        jnp.asarray(xyz), jnp.asarray(new_xyz),
+        None if feats is None else jnp.asarray(feats),
+        tuple(tuple(jnp.asarray(t) for t in layer) for layer in params),
+        radius, nsample, True, jnp.asarray(d2t.numpy()), with_grouped=True)
+    np.testing.assert_array_equal(grouped.numpy(), np.asarray(want_grouped))
+    np.testing.assert_allclose(out.numpy(), np.asarray(want_out), rtol=RTOL,
+                               atol=ATOL)
 
 
 def _shared_mlp_pair(rng, c_in, channels):
