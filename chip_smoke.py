@@ -118,16 +118,32 @@ Phases, each printing JSON lines (any failure exits non-zero):
 8. profile: a 10-step respaced corrected sampler call at full width (two
    firings) and five full-width train steps under torch.profiler: device
    busy time against wall time.
+9. skeleton_cpu_vs_gpu: the skeleton track's small runs (2 + 2 layers,
+   width 32, 2 clips of 20 frames, seeded weights) on the card and on the
+   CPU with the same noise: the sampler on "10" respacing without
+   correction (within 1e-5) and with it (the gate at t = 9, 6, 3, 0;
+   within CORRECTED_TOL), `evaluate` with correction and one rollout
+   (metrics within 1e-4), three train steps (loss within 1e-5, parameters
+   within 2 * steps * lr); no kernel launched.
+10. skeleton: the skeleton entry points at full width: `MDMSkeleton`
+   defaults, 1000 DDPM steps, 32 clips of 20 frames of
+   `synthetic_skeleton_batches`: `evaluate` with correction (11 firings),
+   without, and with `--rollouts 1` (sequences/s, ms per DDPM step, hook ms
+   per firing, the parts' seconds; past frames equal to gt), `train(...)`
+   for 20 steps with one validation at "25" respacing (ms per step, loss
+   before and after, peak memory), and a corrected 10-step call under
+   torch.profiler (launches per step, device busy share); 0 launches of
+   every kernel on both paths.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
-its own; K6's of its opt-in routes, K5's of the backward with respect to the
-cloud), and the device line.  Weights and data come from numpy seeds;
+its own, beside the skeleton paths' zeros; K6's of its opt-in routes, K5's
+of the backward with respect to the cloud), and the device line.  Weights and data come from numpy seeds;
 no file outside this repository and no network is needed.  The run uses one
 card: it sees only device 0 unless CUDA_VISIBLE_DEVICES says otherwise, and
 stops if that shows more than one.  A few minutes on an H100.  Depth cut to
 fit: the full-sweep sampler path runs 100 respaced steps, the fused-route
-sampler call 100, the validations inside the train phase 25.
+sampler call 100, the validations inside the train phases 25.
 """
 
 from __future__ import annotations
@@ -2379,6 +2395,346 @@ def phase_profile_train(gpu: str) -> None:
                                       for name, us in top}})
 
 
+# ---------------------------------------------------------------------------
+# the skeleton (HO-GCN) track: no kernel of the port on its paths
+# ---------------------------------------------------------------------------
+
+SKEL_SMALL = dict(embedding_dim=32, num_heads=4, ff_size=32, num_layers=2)
+SKEL_KEYS = ("skeleton", "obj_points", "poses", "zero_pose_obj")
+# the full-width skeleton paths: 32 clips of 20 frames (10 past, 10 future)
+SKEL_CLIPS, SKEL_FRAMES, SKEL_PAST = 32, 20, 10
+NO_LAUNCHES = {k: 0 for k in ("K1", "K2", "K3", "K4", "K5", "K6")}
+
+
+def _skeleton_models(device, small: bool, seed: int = SEED):
+    """`MDMSkeleton` (``small``: 2 + 2 layers, width 32; else the defaults)
+    and the skeleton `ObjProjectorSkeleton` (21 joints, 10 + 10 frames) on
+    ``device`` with seeded weights."""
+    from interdiff_torch.config import CorrectionConfig, SkeletonTrackConfig
+
+    model = SkeletonTrackConfig(future_len=10,
+                                **(SKEL_SMALL if small else {})).build_model(
+                                    device)
+    projector = CorrectionConfig(track="skeleton", num_nodes=21,
+                                 future_len=10).build_model(device)
+    for module, s in ((model, seed), (projector, seed + 6)):
+        module.load_state_dict(seeded_state(module, s), strict=True)
+    return model, projector
+
+
+def _skeleton_batch(rng, clips: int) -> dict:
+    """One batch of `synthetic_skeleton_batches`, the eval and train entry
+    points' `--synthetic` data."""
+    from interdiff_torch.cli.common import synthetic_skeleton_batches
+
+    return next(synthetic_skeleton_batches(rng, batch_size=clips,
+                                           seq_len=SKEL_FRAMES, steps=1))
+
+
+def _check_forecast(full: dict, batch: dict, corrected: bool,
+                    frames: int) -> None:
+    """Finite forecast of ``frames`` frames whose past frames are the
+    batch's: the body exactly, with correction (the blend moves the past
+    object as well), and the object and pose too without it."""
+    parts = (("body", "skeleton"),) + (() if corrected else (
+        ("obj", "obj_points"), ("pose", "poses")))
+    B = batch["skeleton"].shape[0]
+    for k, shape in (("body", (21, 3)), ("obj", (12, 3)), ("pose", (7,))):
+        if tuple(full[k].shape) != (B, frames) + shape or not bool(
+                torch.isfinite(full[k]).all()):
+            raise AssertionError(f"bad forecast {k}: {tuple(full[k].shape)}")
+    for k, src in parts:
+        past = torch.from_numpy(batch[src][:, :SKEL_PAST]).to(full[k].device)
+        if not torch.equal(full[k][:, :SKEL_PAST], past):
+            raise AssertionError(f"past frames of {k} differ from gt")
+
+
+def _small_skeleton_runs(device, rng_seed: int = 38):
+    """The small skeleton runs on ``device``: the sampler on "10" respacing
+    without and with correction (the gate at t <= 9, every 3: t = 9, 6, 3,
+    0), `evaluate` with correction and one rollout, three train steps.
+    Returns a dict of CPU tensors and floats."""
+    from interdiff_torch.cli.eval_skeleton import evaluate
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.eval.skeleton import (
+        SkeletonEvalConfig,
+        make_skeleton_sampler,
+    )
+    from interdiff_torch.train import trainer
+
+    rng = np.random.default_rng(rng_seed)
+    B, T = 2, SKEL_FRAMES
+    batch = _skeleton_batch(rng, B)
+    noise = rng.standard_normal((3, B, T, 106)).astype(np.float32)
+    step_noise = rng.standard_normal((3, 10, B, T, 106)).astype(np.float32)
+    ts = rng.integers(0, 1000, (3, B))
+    train_noise = rng.standard_normal((3, B, T, 106)).astype(np.float32)
+    on = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    model, projector = _skeleton_models(device, small=True)
+    diffusion = DiffusionConfig(timestep_respacing="10").build(device)
+    cfg = SkeletonEvalConfig(correction_t_max=9, correction_every=3)
+    out, trace = {}, []
+    for name, kwargs in (("plain", {}), ("corrected", dict(
+            projector=projector, use_correction=True, trace=trace))):
+        x = make_skeleton_sampler(cfg, model, diffusion, **kwargs)(
+            *(on[k] for k in SKEL_KEYS),
+            noise=torch.from_numpy(noise[0]).to(device),
+            step_noise=torch.from_numpy(step_noise[0]).to(device))
+        out[name] = x.cpu()
+    out["fired"] = [e["t"] for e in trace]
+    forecasts = []
+    out["metrics"], _ = evaluate(
+        cfg, model, diffusion, [batch], projector=projector, rollouts=1,
+        noises=iter([(torch.from_numpy(noise[i]).to(device),
+                      torch.from_numpy(step_noise[i]).to(device))
+                     for i in (1, 2)]),
+        report=lambda nb, means: None, forecasts=forecasts)
+    out["forecast"] = {k: v.cpu() for k, v in forecasts[0].items()}
+    step = trainer.make_skeleton_train_step(
+        model, DiffusionConfig().build(device))
+    state = trainer.TrainState.create(dict(model.named_parameters()),
+                                      trainer.adamw(TRAIN_LR))
+    out["losses"] = []
+    for t, n in zip(ts, train_noise):
+        state, metrics = step(state, on, t=torch.from_numpy(t).to(device),
+                              noise=torch.from_numpy(n).to(device))
+        out["losses"].append(float(metrics["loss"]))
+    out["params"] = {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}
+    return out, batch
+
+
+def phase_skeleton_cpu_vs_gpu(group, nn, sa, gpu: str) -> None:
+    """The small skeleton runs on the card against the CPU, same seeded
+    weights, noise, timesteps and batches: the uncorrected sampler within
+    1e-5, the corrected one within CORRECTED_TOL, `evaluate`'s metrics
+    within 1e-4, the three train steps' losses within 1e-5 and the
+    parameters within 2 * steps * lr; no kernel of the port launched."""
+    cpu, batch = _small_skeleton_runs("cpu")
+    _reset_launches(group, nn, sa)
+    cuda, _ = _small_skeleton_runs(DEV)
+    torch.cuda.synchronize()
+    launches = _read_launches(group, nn, sa)
+    errs = {
+        "sampler": float((cpu["plain"] - cuda["plain"]).abs().max()),
+        "sampler_corrected": float(
+            (cpu["corrected"] - cuda["corrected"]).abs().max()),
+        "evaluate_metrics": max(abs(cpu["metrics"][k] - cuda["metrics"][k])
+                                for k in cpu["metrics"]),
+        "train_loss": max(abs(a - b) for a, b in zip(cpu["losses"],
+                                                     cuda["losses"])),
+        "train_params": max(float((cpu["params"][k] - cuda["params"][k])
+                                  .abs().max()) for k in cpu["params"])}
+    start = seeded_state(_skeleton_models("cpu", small=True)[0], SEED)
+    moved = max(float((cuda["params"][k] - start[k]).abs().max())
+                for k in start)
+    tols = {"sampler": 1e-5, "sampler_corrected": CORRECTED_TOL,
+            "evaluate_metrics": 1e-4, "train_loss": 1e-5,
+            "train_params": 2 * 3 * TRAIN_LR}
+    emit({"phase": "skeleton_cpu_vs_gpu", "gpu": gpu, "rows": 2,
+          "frames": SKEL_FRAMES, "steps": 10, "fired_at": cuda["fired"],
+          "metrics_cuda": cuda["metrics"], "losses_cuda": cuda["losses"],
+          "max_abs_err": errs, "tolerance": tols,
+          "largest_parameter_move": moved,
+          "tolerance_reason": "summation order of the card's GEMMs and "
+          "reductions, full f32 (no TF32); through the projector's "
+          "6D-to-quaternion step with correction; Adam normalises a "
+          "gradient that is rounding noise into a step of up to lr",
+          "launches": launches})
+    if cuda["fired"] != [9, 6, 3, 0] or cpu["fired"] != [9, 6, 3, 0]:
+        raise AssertionError(f"skeleton gate fired at {cuda['fired']}")
+    if launches != NO_LAUNCHES:
+        raise AssertionError(f"the skeleton path launched {launches}")
+    for k, tol in tols.items():
+        if not errs[k] <= tol:
+            raise AssertionError(f"skeleton {k}: card vs CPU {errs[k]} > "
+                                 f"{tol}")
+    if not moved > TRAIN_LR:
+        raise AssertionError("skeleton train steps did not move the weights")
+    for dev in (cpu, cuda):
+        _check_forecast(dev["forecast"], batch, True, 2 * SKEL_FRAMES
+                        - SKEL_PAST)
+
+
+def _skeleton_fixed_draw_loss(model, diffusion, batch) -> float:
+    """The skeleton training loss of ``batch`` on fixed timesteps and
+    noise."""
+    from interdiff_torch.train.losses import skeleton_diffusion_losses
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 22)
+    with torch.no_grad():
+        memory, gt = model.encode(*(batch[k] for k in SKEL_KEYS))
+        t = torch.arange(gt.shape[0], device=DEV) * (
+            diffusion.num_timesteps // gt.shape[0])
+        noise = torch.randn(gt.shape, generator=gen, device=DEV)
+        pred, target = diffusion.training_losses(
+            lambda x, ts: model.denoise(x, ts, batch["zero_pose_obj"],
+                                        memory), gt, t, noise=noise)
+        return float(skeleton_diffusion_losses(
+            pred, target, past_len=model.past_len)[0])
+
+
+def phase_skeleton(group, nn, sa, gpu: str) -> dict:
+    """The skeleton track's entry points at full width: `MDMSkeleton`
+    defaults, the cosine 1000-step DDPM predicting x0, 32 clips of 20
+    frames of `synthetic_skeleton_batches`, seeded weights.  (a) `evaluate`
+    with correction (11 firings), (b) without, (c) with one rollout window,
+    (d) `train(...)` for 20 steps with one validation at "25" respacing,
+    (e) a 10-step corrected sampler call under torch.profiler.  Returns the
+    kernels' launches of the eval and of the train path (all 0)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from interdiff_torch.cli.eval_skeleton import evaluate
+    from interdiff_torch.cli.train_diffusion_skeleton import train
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.eval.skeleton import (
+        SkeletonEvalConfig,
+        make_skeleton_sampler,
+    )
+
+    rng = np.random.default_rng(SEED + 30)
+    model, projector = _skeleton_models(DEV, small=False, seed=SEED + 31)
+    cfg, diffusion = SkeletonEvalConfig(), DiffusionConfig().build(DEV)
+    batch = _skeleton_batch(rng, SKEL_CLIPS)
+    common = {"phase": "skeleton", "gpu": gpu, "clips": SKEL_CLIPS,
+              "frames": SKEL_FRAMES, "past": SKEL_PAST}
+    launches = {}
+    # warm-up: a 2-step corrected call on 2 clips (the gate fires at t = 0)
+    evaluate(cfg, model, DiffusionConfig(timestep_respacing="2").build(DEV),
+             [{k: v[:2] for k, v in batch.items()}], projector=projector,
+             report=lambda nb, means: None)
+
+    # -- (a) with correction, (b) without, (c) with one rollout window
+    for case, corrected, rollouts in (("correction", True, 0),
+                                      ("no_correction", False, 0),
+                                      ("correction, --rollouts 1", True, 1)):
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        trace, timings, forecasts, running = [], {}, [], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(group, nn, sa)
+        t0 = time.perf_counter()
+        totals, batches = evaluate(
+            cfg, model, diffusion, [batch],
+            projector=projector if corrected else None, rollouts=rollouts,
+            generator=gen, timings=timings, trace=trace,
+            forecasts=forecasts,
+            report=lambda nb, means: running.append(means))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = _read_launches(group, nn, sa)
+        launches[case] = launched
+        fired = [e["t"] for e in trace]
+        want_fired = list(range(500, -1, -50)) * (1 + rollouts) \
+            if corrected else []
+        frames = SKEL_FRAMES + rollouts * (SKEL_FRAMES - SKEL_PAST)
+        _check_forecast(forecasts[0], batch, corrected, frames)
+        if fired != want_fired or launched != NO_LAUNCHES or batches != 1 \
+                or running != [totals] or not all(
+                    np.isfinite(v) and v >= 0 for v in totals.values()):
+            raise AssertionError(f"skeleton {case}: fired {fired}, launches "
+                                 f"{launched}, metrics {totals}")
+        steps = diffusion.num_timesteps * (1 + rollouts)
+        hook_ms = [e["start"].elapsed_time(e["end"]) for e in trace]
+        emit({**common, "path": f"evaluate, {case}", "steps": steps,
+              "metrics": totals, "wall_s": wall, "part_s": timings,
+              "seq_per_s": SKEL_CLIPS / wall,
+              "ms_per_ddpm_step": timings["sampler"] * 1e3 / steps,
+              "firings": len(fired),
+              "hook_ms_per_firing_median": statistics.median(hook_ms)
+              if hook_ms else None, "hook_ms": hook_ms,
+              "forecast_frames": frames, "launches": launched,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
+
+    # -- (d) the trainer: 20 steps on one repeated batch, one validation
+    train_model, _ = _skeleton_models(DEV, small=False, seed=SEED + 32)
+    on_card = {k: torch.from_numpy(batch[k]).to(DEV) for k in SKEL_KEYS}
+    before = _skeleton_fixed_draw_loss(train_model, diffusion, on_card)
+    rec = {"loss": [], "events": []}
+
+    def on_step(i, state, metrics):
+        rec["loss"].append(metrics["loss"])
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        rec["events"].append(event)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(group, nn, sa)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as results:
+        _, summary = train(
+            train_model, diffusion, lambda: [batch] * TRAIN_STEPS,
+            results_dir=results, lr=TRAIN_LR, validate_every_epoch=True,
+            val_diffusion=DiffusionConfig(timestep_respacing="25").build(DEV),
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            on_step=on_step)
+        saved = sorted(os.listdir(results))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["train"] = _read_launches(group, nn, sa)
+    events = [start] + rec["events"]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = torch.stack(rec["loss"]).tolist()
+    after = _skeleton_fixed_draw_loss(train_model, diffusion, on_card)
+    ms = statistics.median(step_ms[1:])
+    line = {**common, "path": "train", "steps": summary["steps"],
+            "lr": TRAIN_LR, "loss_first_step": losses[0],
+            "loss_last_step": losses[-1], "fixed_draw_loss_before": before,
+            "fixed_draw_loss_after": after,
+            "ms_per_step_cuda_events_median": ms,
+            "ms_first_step": step_ms[0], "steps_per_s": 1e3 / ms,
+            "seq_per_s": SKEL_CLIPS * 1e3 / ms, "val": summary["val"],
+            "saved": saved, "wall_s_with_validation": wall,
+            "launches": launches["train"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    if summary["steps"] != TRAIN_STEPS or launches["train"] != NO_LAUNCHES \
+            or not (np.isfinite(losses).all() and after < before) \
+            or len(summary["val"]) != 1 or not all(
+                np.isfinite(v) for v in summary["val"][0].values()) \
+            or saved != ["ckpt", "metrics.jsonl"]:
+        raise AssertionError(f"skeleton train: {line}")
+
+    # -- (e) launches per DDPM step and the device's busy share
+    trace = []
+    run = make_skeleton_sampler(
+        SkeletonEvalConfig(correction_t_max=9, correction_every=5), model,
+        DiffusionConfig(timestep_respacing="10").build(DEV), projector=projector,
+        use_correction=True, reuse_memory=True, trace=trace)
+    memory, gt = model.encode(*(on_card[k] for k in SKEL_KEYS))
+    args = tuple(on_card[k] for k in SKEL_KEYS) + (memory, gt)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    run(*args, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    del trace[:]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*args, generator=gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events, busy_ms, top = _device_events(prof)
+    emit({**common, "path": "profile, corrected sampler call", "steps": 10,
+          "fired_at": [e["t"] for e in trace], "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms if events else "not measured",
+          "device_busy_share": busy_ms / wall_ms if events
+          else "not measured",
+          "kernel_launches": len(events),
+          "kernel_launches_per_step": len(events) / 10,
+          "top_kernels_ms": {name: us / 1e3 for name, us in top}})
+    if [e["t"] for e in trace] != [5, 0]:
+        raise AssertionError("skeleton profile: the gate did not fire")
+    return {"skeleton_eval": {k: sum(launches[c][k] for c in launches
+                                     if c != "train")
+                              for k in NO_LAUNCHES},
+            "skeleton_train": launches["train"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2402,20 +2758,26 @@ def main() -> int:
     phase_slice_cpu_vs_gpu(gpu)
     phase_slice_eval_cpu_vs_gpu(gpu)
     phase_slice_train_cpu_vs_gpu(group, sa, gpu)
+    phase_skeleton_cpu_vs_gpu(group, nn, sa, gpu)
     phase_sampler(group, nn, sa, models, gpu)
     eval_launches = phase_eval(group, nn, sa, models, gpu)
     train_launches = phase_train(group, nn, sa, gather, gpu)
     phase_profile(models, gpu)
     phase_profile_train(gpu)
+    skeleton_launches = phase_skeleton(group, nn, sa, gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
-    # on its opt-in route; K5 in the backward with respect to the cloud)
+    # on its opt-in route; K5 in the backward with respect to the cloud);
+    # the skeleton track's entry points launch none of them
     by_path = {"eval": eval_launches,
-               "train": {"K2": 0, "K3": 0, "K4": 0, **train_launches}}
-    launches = {k: by_path["eval"][k] + by_path["train"][k]
+               "train": {"K2": 0, "K3": 0, "K4": 0, **train_launches},
+               **skeleton_launches}
+    launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never ran on a main path: {by_path}")
+    if any(by_path[p] != NO_LAUNCHES for p in skeleton_launches):
+        raise AssertionError(f"a kernel ran on a skeleton path: {by_path}")
 
     print(gpu)
     emit({"kernels": [{

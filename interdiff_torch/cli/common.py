@@ -1,13 +1,14 @@
-"""Shared set-up of the SMPL entry points (`interdiff_tpu/cli/common.py`):
-seeding, the `--synthetic` batches and stand-in body, and the loader of the
-port's own weight files.  The readers of orbax directories and of the
+"""Shared set-up of the entry points (`interdiff_tpu/cli/common.py`):
+seeding, the `--synthetic` batches of both tracks and the stand-in body, the
+host-side batch iterator and stacker, and the loader of the port's own
+weight files.  The readers of orbax directories and of the
 reference's Lightning checkpoints are not ported: a checkpoint comes across
 once, through `utils/convert.py`, and is kept as a `torch.save`d state dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +50,76 @@ def synthetic_smpl_batches(rng: np.random.Generator, *, batch_size: int,
             "ground_joint_label": np.zeros((B, T, 2), np.float32),
             "gender": np.zeros((B,), np.int32),
         }
+
+
+def synthetic_skeleton_batches(rng: np.random.Generator, *, batch_size: int,
+                               seq_len: int, steps: int = 4
+                               ) -> Iterator[Dict[str, np.ndarray]]:
+    """Random HO-GCN-shaped batches (`collate_skeleton` layout), the same
+    draws in the same order as
+    `interdiff_tpu/cli/common.py::synthetic_skeleton_batches`."""
+    B, T = batch_size, seq_len
+    for _ in range(steps):
+        quat = rng.standard_normal((B, T, 4)).astype(np.float32)
+        quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+        poses = np.concatenate(
+            [rng.standard_normal((B, T, 3)).astype(np.float32), quat], axis=-1)
+        yield {
+            "skeleton": rng.standard_normal((B, T, 21, 3)).astype(np.float32),
+            "obj_points": rng.standard_normal((B, T, 12, 3)).astype(np.float32),
+            "poses": poses,
+            "zero_pose_obj": rng.standard_normal((B, 12, 3)).astype(np.float32),
+        }
+
+
+def batch_iterator(dataset, collate_fn, *, batch_size: int,
+                   rng: np.random.Generator, shuffle: bool = True,
+                   drop_last: bool = True) -> Iterator[Dict[str, np.ndarray]]:
+    """Host-side minibatches of ``dataset`` (the JAX package's replacement
+    of the torch DataLoader): the order shuffled by ``rng`` when asked, a
+    short last batch dropped unless ``drop_last`` is False."""
+    order = np.arange(len(dataset))
+    if shuffle:
+        rng.shuffle(order)
+    for s in range(0, len(order) - (batch_size - 1 if drop_last else 0),
+                   batch_size):
+        idx = order[s : s + batch_size]
+        if len(idx) < batch_size and drop_last:
+            break
+        yield collate_fn([dataset[int(i)] for i in idx])
+
+
+def stack_batches(batches: Iterable[Dict[str, np.ndarray]], spd: int,
+                  device, keys: Sequence[str]
+                  ) -> Iterator[Tuple[Dict[str, np.ndarray],
+                                      Dict[str, torch.Tensor]]]:
+    """(last raw batch, its ``keys`` as tensors on ``device``) per dispatch
+    of a trainer: one batch, or ``spd`` batches stacked on a new leading
+    axis (`train/trainer.py::chain_steps`).  A trailing partial stack is
+    dropped with a warning; with no full stack at all the run stops."""
+    buf, yielded = [], 0
+    for b in batches:
+        buf.append(b)
+        if len(buf) < spd:
+            continue
+        if spd == 1:
+            placed = {k: torch.as_tensor(buf[0][k], device=device)
+                      for k in keys}
+        else:
+            placed = {k: torch.as_tensor(np.stack([x[k] for x in buf]),
+                                         device=device) for k in keys}
+        yield buf[-1], placed
+        yielded += 1
+        buf = []
+    if buf:
+        msg = (f"steps_per_dispatch={spd}: dropped trailing partial stack "
+               f"of {len(buf)} batch(es)")
+        if yielded == 0:
+            raise SystemExit(
+                f"ERROR: {msg} and the epoch yielded NO full stack: 0 train "
+                f"steps. Lower --steps_per_dispatch or raise the "
+                f"dataset/--synthetic size.")
+        print(f"WARNING: {msg}", flush=True)
 
 
 def fit_batch_size(num_clips: int, batch_size: int) -> int:

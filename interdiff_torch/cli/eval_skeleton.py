@@ -1,0 +1,236 @@
+"""Skeleton-track evaluation (`interdiff_tpu/cli/eval_skeleton.py`, the
+reference's `interdiff/eval_skeleton.py` with correction and
+`eval_skeleton_no_correction.py` without, as ``--mode``).
+
+Usage:
+  python -m interdiff_torch.cli.eval_skeleton --synthetic N \\
+      [--mode correction] [--rollouts K] [--respacing 100] \\
+      [--diffusion_ckpt model.pt] [--correction_ckpt projector.pt] \\
+      [--device cpu]
+  python -m interdiff_torch.cli.eval_skeleton --motion_path DIR ...
+
+It runs on the CUDA device unless ``--device`` names another; without a CUDA
+device and without ``--device`` it stops.  ``--motion_path`` reads the
+HO-GCN sequence pickles (`data/skeleton.py`) and evaluates the seen and the
+unseen test splits; ``--synthetic N`` evaluates N random batches instead.
+The checkpoints are state dicts written by
+`utils/convert.py::save_state_dict`; without them the weights are the
+modules' seeded initial ones.  Rendering (``--render_dir``), YAML path
+configs (``--config``) and several devices (``--mesh_devices``) are not
+ported yet, and the parser does not know those flags.
+
+``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
+on any models and iterator of batches.
+"""
+
+from __future__ import annotations
+
+import time
+from argparse import ArgumentParser
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from interdiff_torch import resolve_device
+from interdiff_torch.cli.common import (
+    batch_iterator,
+    load_weights,
+    seed_everything,
+    synthetic_skeleton_batches,
+)
+from interdiff_torch.config import (
+    CorrectionConfig,
+    DiffusionConfig,
+    SkeletonTrackConfig,
+)
+from interdiff_torch.diffusion.gaussian import GaussianDiffusion
+from interdiff_torch.eval.metrics import skeleton_metrics
+from interdiff_torch.eval.skeleton import (
+    SkeletonEvalConfig,
+    make_skeleton_sampler,
+    rollout_batch,
+    split_skeleton_state,
+)
+from interdiff_torch.models.correction import ObjProjectorSkeleton
+from interdiff_torch.models.mdm_skeleton import MDMSkeleton
+
+Noises = Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]
+KEYS = ("skeleton", "obj_points", "poses", "zero_pose_obj")
+
+
+def _print_running(nb: int, running: Dict[str, float]) -> None:
+    print({k: round(v, 5) for k, v in running.items()}, flush=True)
+
+
+def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
+             diffusion: GaussianDiffusion,
+             batches: Iterable[Dict[str, np.ndarray]], *,
+             projector: Optional[ObjProjectorSkeleton] = None,
+             rollouts: int = 0,
+             generator: Optional[torch.Generator] = None,
+             noises: Optional[Noises] = None,
+             report: Callable[[int, Dict[str, float]], None] = _print_running,
+             timings: Optional[Dict[str, float]] = None,
+             trace: Optional[List[Dict]] = None,
+             forecasts: Optional[List[Dict[str, torch.Tensor]]] = None
+             ) -> Tuple[Dict[str, float], int]:
+    """The evaluation loop (`interdiff_tpu/cli/eval_skeleton.py:149-197`) on
+    the model's device; returns (the sum over batches of each metric, the
+    number of batches).
+
+    Per batch (``skeleton`` [B,T,21,3], ``obj_points`` [B,T,12,3],
+    ``poses`` [B,T,7], ``zero_pose_obj`` [B,12,3]; numpy or tensors):
+    encode once, one sampler call on that memory, `skeleton_metrics` on the
+    future frames, and ``report(batches so far, running means)``.  With
+    ``rollouts`` K, K more windows follow, each re-batched from the last
+    one's prediction (`rollout_batch`), encoded and sampled; the metrics
+    score the first window.  ``forecasts`` receives each batch's whole
+    forecast: ``body``, ``obj`` and ``pose`` over the past and K + 1
+    futures.
+
+    With ``projector`` the correction runs in the loop (``trace`` gets one
+    entry per firing).  The noise is drawn from ``generator`` unless
+    ``noises`` yields one ``(noise, step_noise)`` pair per sampler call.
+    ``timings`` collects the wall seconds of ``encode``, ``sampler`` (the
+    rollouts' calls included) and ``metrics``, with a device
+    synchronisation around every part (none without it).
+    """
+    device = next(model.parameters()).device
+    sample = make_skeleton_sampler(
+        cfg, model, diffusion, projector=projector,
+        use_correction=projector is not None, reuse_memory=True,
+        trace=trace)
+
+    def timed(part: str, fn, *args, **kwargs):
+        if timings is None:
+            return fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
+        return out
+
+    def encode_and_sample(b):
+        memory, gt = timed("encode", model.encode, b["skeleton"],
+                           b["obj_points"], b["poses"], b["zero_pose_obj"])
+        noise, step_noise = (None, None) if noises is None else next(noises)
+        return timed("sampler", sample, b["skeleton"], b["obj_points"],
+                     b["poses"], b["zero_pose_obj"], memory, gt, noise=noise,
+                     step_noise=step_noise, generator=generator)
+
+    def rollout(x, zero_pose_obj, pred):
+        full = dict(pred)
+        for _ in range(rollouts):
+            x = encode_and_sample(rollout_batch(x, zero_pose_obj, cfg))
+            for k, v in split_skeleton_state(x, cfg).items():
+                full[k] = torch.cat([full[k], v[:, cfg.past_len:]], dim=1)
+        return full
+
+    totals: Dict[str, float] = {}
+    nb = 0
+    with torch.no_grad():
+        for batch in batches:
+            b = {k: torch.as_tensor(batch[k], device=device) for k in KEYS}
+            x = encode_and_sample(b)
+            pred = split_skeleton_state(x, cfg)
+            full = pred
+            if rollouts:
+                full = rollout(x, b["zero_pose_obj"], pred)
+                print(f"rollout: {full['body'].shape[1]} frames total",
+                      flush=True)
+            if forecasts is not None:
+                forecasts.append(full)
+            m = timed("metrics", skeleton_metrics, pred["body"],
+                      b["skeleton"], pred["obj"], b["obj_points"],
+                      pred["pose"], b["poses"], start=cfg.past_len)
+            nb += 1
+            # one read of the device per batch
+            values = torch.stack(list(m.values())).tolist()
+            for k, v in zip(m, values):
+                totals[k] = totals.get(k, 0.0) + v
+            report(nb, {k: v / nb for k, v in totals.items()})
+    return totals, nb
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--motion_path", default=None,
+                        help="directory of HO-GCN sequence pickles")
+    parser.add_argument("--mode", default="correction",
+                        choices=["correction", "no_correction"])
+    parser.add_argument("--diffusion_ckpt", default=None,
+                        help="state dict of MDMSkeleton (save_state_dict)")
+    parser.add_argument("--correction_ckpt", default=None,
+                        help="state dict of ObjProjectorSkeleton")
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--past_len", type=int, default=10)
+    parser.add_argument("--future_len", type=int, default=10)
+    parser.add_argument("--seed", type=int, default=233)
+    parser.add_argument("--respacing", default="",
+                        help="timestep respacing, e.g. '100'")
+    parser.add_argument("--synthetic", type=int, default=0,
+                        help="evaluate N synthetic batches (no dataset)")
+    parser.add_argument("--rollouts", type=int, default=0,
+                        help="autoregressive future windows after the first "
+                             "(the reference's get_batch re-batching, "
+                             "eval_skeleton.py:71-80)")
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda' (the default; stops without a CUDA "
+                             "device) or 'cpu'")
+    return parser
+
+
+def main(argv=None) -> Tuple[Dict[str, float], int]:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.synthetic and not args.motion_path:
+        parser.error("--motion_path is required unless --synthetic is set")
+    device = resolve_device(None if args.device == "cuda" else args.device)
+
+    rng = seed_everything(args.seed)
+    cfg = SkeletonEvalConfig(past_len=args.past_len,
+                             future_len=args.future_len)
+    track = SkeletonTrackConfig(
+        past_len=args.past_len, future_len=args.future_len,
+        diffusion=DiffusionConfig(timestep_respacing=args.respacing))
+    model = track.build_model(device)
+    load_weights(model, args.diffusion_ckpt)
+    diffusion = track.diffusion.build(device)
+    projector = None
+    if args.mode == "correction":
+        projector = CorrectionConfig(
+            track="skeleton", num_nodes=cfg.num_joints,
+            past_len=args.past_len,
+            future_len=args.future_len).build_model(device)
+        load_weights(projector, args.correction_ckpt)
+
+    def batches():
+        if args.synthetic:
+            yield from synthetic_skeleton_batches(
+                rng, batch_size=args.batch_size, seq_len=cfg.seq_len,
+                steps=args.synthetic)
+            return
+        from interdiff_torch.data.skeleton import (
+            collate_skeleton,
+            load_skeleton_datasets,
+        )
+
+        _, _, test_seen, test_unseen = load_skeleton_datasets(
+            args.motion_path)
+        for name, split in (("seen", test_seen), ("unseen", test_unseen)):
+            print(f"--- {name} split: {len(split)} clips ---", flush=True)
+            yield from batch_iterator(split, collate_skeleton,
+                                      batch_size=args.batch_size, rng=rng,
+                                      shuffle=False)
+
+    generator = torch.Generator(device=device).manual_seed(args.seed)
+    return evaluate(cfg, model, diffusion, batches(), projector=projector,
+                    rollouts=args.rollouts, generator=generator)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,264 @@
+"""Train the skeleton-track MDM (`interdiff_tpu/cli/train_diffusion_skeleton.py`,
+the reference's `interdiff/train_diffusion_skeleton.py`).
+
+Usage:
+  python -m interdiff_torch.cli.train_diffusion_skeleton --synthetic N_steps \\
+      [--batch_size 32] [--lr 3e-4] [--ema_decay 0.9999] \\
+      [--steps_per_dispatch K] [--val_respacing 25] \\
+      [--resume_checkpoint model.pt] [--results_dir DIR] [--device cpu]
+  python -m interdiff_torch.cli.train_diffusion_skeleton --motion_path DIR ...
+
+It runs on the CUDA device unless ``--device`` names another; without a CUDA
+device and without ``--device`` it stops.  ``--motion_path`` reads the
+HO-GCN sequence pickles (`data/skeleton.py`), trains on the train split and
+validates on a batch of the validation split every ``--val_every`` epochs;
+``--synthetic N`` trains on N random batches, one epoch with one
+validation.  Validation runs the full inpainting sampler
+(``--val_respacing``) and scores `skeleton_metrics` (the reference's
+`validation_step`, `train_diffusion_skeleton.py:272-295`), on the EMA
+shadow when there is one.  ``--resume_checkpoint`` takes a state-dict file
+of the port (`utils/convert.py::save_state_dict`).  Validation renders
+(``--render_interval``), YAML path configs (``--config``) and the profiler
+flags are not ported, and the parser does not know them.
+
+``main`` builds the objects from the flags; ``train`` is the loop itself.
+It writes ``<results_dir>/ckpt/`` (the weights, the best three by the
+validation's ``mpjpe_h``), ``ckpt_ema/`` (the shadow, with
+``--ema_decay``) and ``metrics.jsonl``.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+from argparse import ArgumentParser
+from typing import Callable, Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from interdiff_torch import resolve_device
+from interdiff_torch.cli.common import (
+    batch_iterator,
+    fit_batch_size,
+    load_weights,
+    seed_everything,
+    stack_batches,
+    synthetic_skeleton_batches,
+)
+from interdiff_torch.config import DiffusionConfig, SkeletonTrackConfig
+from interdiff_torch.diffusion.gaussian import GaussianDiffusion
+from interdiff_torch.eval.metrics import skeleton_metrics
+from interdiff_torch.eval.skeleton import (
+    SkeletonEvalConfig,
+    make_skeleton_sampler,
+    split_skeleton_state,
+)
+from interdiff_torch.models.mdm_skeleton import MDMSkeleton
+from interdiff_torch.train.trainer import (
+    TrainState,
+    adamw,
+    chain_steps,
+    make_skeleton_train_step,
+)
+from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
+
+KEYS = ("skeleton", "obj_points", "poses", "zero_pose_obj")
+Batch = Dict[str, np.ndarray]
+
+
+def make_validation(model: MDMSkeleton, val_diffusion: GaussianDiffusion
+                    ) -> Callable:
+    """``run_validation(batch, generator) -> metrics``: the inpainting
+    sampler without correction on a raw batch, then `skeleton_metrics` on
+    the frames after the model's ``past_len``, as floats."""
+    past_len = model.past_len
+    cfg = SkeletonEvalConfig(past_len=past_len)
+    sampler = make_skeleton_sampler(cfg, model, val_diffusion)
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def run_validation(batch: Batch, generator=None) -> Dict[str, float]:
+        b = {k: torch.as_tensor(batch[k], device=device) for k in KEYS}
+        x = sampler(*(b[k] for k in KEYS), generator=generator)
+        pred = split_skeleton_state(x, cfg)
+        m = skeleton_metrics(pred["body"], b["skeleton"], pred["obj"],
+                             b["obj_points"], pred["pose"], b["poses"],
+                             start=past_len)
+        return dict(zip(m, torch.stack(list(m.values())).tolist()))
+
+    return run_validation
+
+
+def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
+          epoch_batches: Callable[[], Iterable[Batch]], *, results_dir: str,
+          epochs: int = 1, lr: float = 3e-4,
+          ema_decay: float = 0.0, steps_per_dispatch: int = 1,
+          val_every: int = 10, validate_every_epoch: bool = False,
+          val_diffusion: Optional[GaussianDiffusion] = None,
+          val_batch: Optional[Batch] = None,
+          generator: Optional[torch.Generator] = None,
+          on_step: Optional[Callable] = None) -> Tuple[TrainState, Dict]:
+    """The training loop
+    (`interdiff_tpu/cli/train_diffusion_skeleton.py:199-268`) on the model's
+    device; returns (the final `TrainState`, a summary with ``steps`` and
+    the validations' metric dicts under ``val``).
+
+    ``epoch_batches()`` yields one epoch of raw batches (``skeleton``
+    [B,T,21,3], ``obj_points`` [B,T,12,3], ``poses`` [B,T,7],
+    ``zero_pose_obj`` [B,12,3]; numpy).  Every ``val_every`` epochs (every
+    epoch with ``validate_every_epoch``) it samples ``val_batch`` (the
+    epoch's last train batch when None) with ``val_diffusion`` and the EMA
+    shadow where there is one, logs the metrics and saves ``ckpt/`` and
+    ``ckpt_ema/``, ranked by ``mpjpe_h``.  The timesteps, the training noise
+    and the validation's noise come from ``generator``.  ``on_step(steps so
+    far, state, metrics)`` is called after every dispatch with the metrics
+    still on the device.
+    """
+    device = next(model.parameters()).device
+    spd = max(1, steps_per_dispatch)
+    state = TrainState.create(dict(model.named_parameters()), adamw(lr),
+                              ema_rate=ema_decay)
+    step = make_skeleton_train_step(model, diffusion)
+    if spd > 1:
+        step = chain_steps(step)
+
+    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
+    ckpt_ema = (CheckpointManager(os.path.join(results_dir, "ckpt_ema"))
+                if ema_decay > 0 else None)
+    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
+    # with EMA on, validation scores the shadow, loaded into a second module
+    val_model = copy.deepcopy(model) if ema_decay > 0 else model
+    run_validation = make_validation(val_model, val_diffusion or diffusion)
+
+    i, summary = 0, {"val": []}
+    for epoch in range(epochs):
+        batch_np = None
+        for batch_np, batch in stack_batches(epoch_batches(), spd, device,
+                                             KEYS):
+            state, metrics = step(state, batch, generator)
+            if (i // spd) % max(1, 10 // spd) == 0:
+                loss = float(metrics["loss"].mean())
+                logger.log(i, {"loss": loss}, epoch=epoch)
+                print(f"step {i} loss {loss:.4f}", flush=True)
+            i += spd
+            if on_step is not None:
+                on_step(i, state, metrics)
+        if (epoch + 1) % val_every == 0 or validate_every_epoch:
+            if state.ema_params is not None:
+                val_model.load_state_dict(state.ema_params, strict=True)
+            val_metrics = run_validation(
+                batch_np if val_batch is None else val_batch, generator)
+            logger.log(i, val_metrics, epoch=epoch, split="valid")
+            print(f"epoch {epoch} val {val_metrics}", flush=True)
+            summary["val"].append(val_metrics)
+            ckpt.save(i, state.params, val_loss=val_metrics["mpjpe_h"])
+            if ckpt_ema is not None:
+                ckpt_ema.save(i, state.ema_params,
+                              val_loss=val_metrics["mpjpe_h"])
+    ckpt.wait()
+    if ckpt_ema is not None:
+        ckpt_ema.wait()
+    logger.close()
+    summary["steps"] = i
+    print("done:", i, "steps", flush=True)
+    return state, summary
+
+
+def build_parser() -> ArgumentParser:
+    parser = ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--motion_path", default=None,
+                        help="directory of HO-GCN sequence pickles")
+    parser.add_argument("--results_dir",
+                        default="./results/skeleton_diffusion")
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--epochs", type=int, default=200)
+    parser.add_argument("--lr", type=float, default=3e-4)
+    parser.add_argument("--past_len", type=int, default=10)
+    parser.add_argument("--future_len", type=int, default=10)
+    parser.add_argument("--embedding_dim", type=int, default=256)
+    parser.add_argument("--ff_size", type=int, default=256)
+    parser.add_argument("--num_layers", type=int, default=8)
+    parser.add_argument("--ema_decay", type=float, default=0.0,
+                        help=">0 keeps an EMA shadow of the parameters (rate "
+                             "= this value, e.g. 0.9999); validation scores "
+                             "the shadow and ckpt_ema/ stores it")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="optimiser steps per dispatch "
+                        "(train/trainer.py::chain_steps)")
+    parser.add_argument("--seed", type=int, default=233)
+    parser.add_argument("--resume_checkpoint", default=None,
+                        help="state-dict file of the port to start from")
+    parser.add_argument("--synthetic", type=int, default=0,
+                        help="train on N synthetic batches (no dataset)")
+    parser.add_argument("--val_every", type=int, default=10)
+    parser.add_argument("--val_respacing", default="",
+                        help="timestep respacing of the validation sampler "
+                             "('' = the full schedule; e.g. '25')")
+    parser.add_argument("--device", default="cuda",
+                        help="'cuda' (the default; stops without a CUDA "
+                             "device) or 'cpu'")
+    return parser
+
+
+def main(argv=None) -> Tuple[TrainState, Dict]:
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.synthetic and not args.motion_path:
+        parser.error("--motion_path is required unless --synthetic is set")
+    device = resolve_device(None if args.device == "cuda" else args.device)
+
+    rng = seed_everything(args.seed)
+    track = SkeletonTrackConfig(past_len=args.past_len,
+                                future_len=args.future_len,
+                                embedding_dim=args.embedding_dim,
+                                ff_size=args.ff_size,
+                                num_layers=args.num_layers)
+    model = track.build_model(device)
+    load_weights(model, args.resume_checkpoint)
+    if args.resume_checkpoint:
+        print(f"resumed parameters from {args.resume_checkpoint}")
+    val_diffusion = None
+    if args.val_respacing:
+        val_diffusion = DiffusionConfig(
+            timestep_respacing=args.val_respacing).build(device)
+    T = args.past_len + args.future_len
+
+    val_batch, epochs = None, args.epochs
+    if args.synthetic:
+        epochs = 1  # one epoch with one validation, whatever --epochs
+
+        def epoch_batches():
+            return synthetic_skeleton_batches(
+                rng, batch_size=args.batch_size, seq_len=T,
+                steps=args.synthetic)
+    else:
+        from interdiff_torch.data.skeleton import (
+            collate_skeleton,
+            load_skeleton_datasets,
+        )
+
+        train_split, val_split, _, _ = load_skeleton_datasets(
+            args.motion_path)
+
+        def epoch_batches():
+            return batch_iterator(train_split, collate_skeleton,
+                                  batch_size=args.batch_size, rng=rng)
+
+        if len(val_split):
+            val_batch = next(iter(batch_iterator(
+                val_split, collate_skeleton,
+                batch_size=fit_batch_size(len(val_split), args.batch_size),
+                rng=rng, shuffle=False)))
+
+    return train(
+        model, track.diffusion.build(device), epoch_batches,
+        results_dir=args.results_dir, epochs=epochs, lr=args.lr, ema_decay=args.ema_decay,
+        steps_per_dispatch=args.steps_per_dispatch, val_every=args.val_every,
+        validate_every_epoch=bool(args.synthetic),
+        val_diffusion=val_diffusion, val_batch=val_batch,
+        generator=torch.Generator(device=device).manual_seed(args.seed))
+
+
+if __name__ == "__main__":
+    main()

@@ -31,7 +31,7 @@ from __future__ import annotations
 import copy
 import os
 from argparse import ArgumentParser
-from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +40,7 @@ from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
     load_weights,
     seed_everything,
+    stack_batches,
     synthetic_smpl_batches,
 )
 from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
@@ -113,36 +114,6 @@ def make_validation(model: MDMSmpl, val_diffusion: GaussianDiffusion, *,
     return run_validation
 
 
-def _stacks(batches: Iterable[Batch], spd: int, device
-            ) -> Iterator[Tuple[Batch, Dict[str, torch.Tensor]]]:
-    """(last raw batch, tensors on ``device``) per dispatch: one batch, or
-    ``spd`` batches stacked on a new leading axis.  A trailing partial stack
-    is dropped with a warning; with no full stack at all the run stops."""
-    buf, yielded = [], 0
-    for b in batches:
-        buf.append(b)
-        if len(buf) < spd:
-            continue
-        if spd == 1:
-            placed = {k: torch.as_tensor(buf[0][k], device=device)
-                      for k in KEEP}
-        else:
-            placed = {k: torch.as_tensor(np.stack([x[k] for x in buf]),
-                                         device=device) for k in KEEP}
-        yield buf[-1], placed
-        yielded += 1
-        buf = []
-    if buf:
-        msg = (f"steps_per_dispatch={spd}: dropped trailing partial stack "
-               f"of {len(buf)} batch(es)")
-        if yielded == 0:
-            raise SystemExit(
-                f"ERROR: {msg} and the epoch yielded NO full stack: 0 train "
-                f"steps. Lower --steps_per_dispatch or raise the "
-                f"dataset/--synthetic size.")
-        print(f"WARNING: {msg}", flush=True)
-
-
 def train(model: MDMSmpl, diffusion: GaussianDiffusion,
           epoch_batches: Callable[[], Iterable[Batch]], *, results_dir: str,
           epochs: int = 1, lr: float = 3e-4,
@@ -203,7 +174,8 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
     i, summary = 0, {"val_loss": [], "val_terms": []}
     for epoch in range(epochs):
         batch_np = None
-        for batch_np, batch in _stacks(epoch_batches(), spd, device):
+        for batch_np, batch in stack_batches(epoch_batches(), spd, device,
+                                             KEEP):
             state, metrics = step(state, batch, generator)
             if (i // spd) % max(1, 10 // spd) == 0:
                 # chained dispatches return stacked [K] metrics: log the mean

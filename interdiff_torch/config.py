@@ -1,4 +1,4 @@
-"""Typed configuration of the SMPL track (`interdiff_tpu/config.py:16-68`).
+"""Typed configuration of both tracks (`interdiff_tpu/config.py:16-123`).
 
 The defaults are the reference's training-time values; ``build``,
 ``build_model`` and ``build_smpl_body`` return the port's objects on
@@ -66,22 +66,59 @@ class SmplTrackConfig:
 
 
 @dataclass(frozen=True)
-class CorrectionConfig:
-    """`train_correction_smpl.py:286-330` / `correction.ckpt` hparams, SMPL
-    track (the skeleton-track projector is not ported yet)."""
+class SkeletonTrackConfig:
+    """`train_diffusion_skeleton.py:354-383` defaults (ff 256)."""
 
-    num_nodes: int = 67  # markers
-    dct: int = 10  # n_pre, the kept DCT coefficients
+    num_joints: int = 21
+    num_points: int = 12
+    embedding_dim: int = 256
+    num_heads: int = 4
+    ff_size: int = 256
+    activation: str = "gelu"
+    dropout: float = 0.0
+    num_layers: int = 8
+    latent_usage: str = "memory"
     past_len: int = 10
-    future_len: int = 25
+    future_len: int = 25  # train default; eval ckpts use 10
+    cond_mask_prob: float = 0.0
+    diffusion: DiffusionConfig = DiffusionConfig()
 
     def build_model(self, device=None):
-        from interdiff_torch.models.correction import ObjProjectorSmpl
+        from interdiff_torch.models.mdm_skeleton import MDMSkeleton
 
-        return ObjProjectorSmpl(
-            num_markers=self.num_nodes, n_pre=self.dct,
-            past_len=self.past_len, future_len=self.future_len,
-            device=device)
+        return MDMSkeleton(
+            num_joints=self.num_joints, num_points=self.num_points,
+            embed_dim=self.embedding_dim, num_heads=self.num_heads,
+            ff_size=self.ff_size, num_layers=self.num_layers,
+            dropout=self.dropout, activation=self.activation,
+            past_len=self.past_len, cond_mask_prob=self.cond_mask_prob,
+            latent_usage=self.latent_usage, device=device)
+
+
+@dataclass(frozen=True)
+class CorrectionConfig:
+    """`train_correction_smpl.py:286-330` / `correction.ckpt` hparams."""
+
+    track: str = "smpl"  # or "skeleton"
+    num_nodes: int = 67  # markers (smpl) / joints (skeleton)
+    dct: int = 10  # n_pre, the kept DCT coefficients; skeleton hardcodes 20
+    past_len: int = 10
+    future_len: int = 25  # skeleton: 10
+
+    def build_model(self, device=None):
+        from interdiff_torch.models.correction import (
+            ObjProjectorSkeleton,
+            ObjProjectorSmpl,
+        )
+
+        if self.track == "smpl":
+            return ObjProjectorSmpl(
+                num_markers=self.num_nodes, n_pre=self.dct,
+                past_len=self.past_len, future_len=self.future_len,
+                device=device)
+        return ObjProjectorSkeleton(
+            num_joints=self.num_nodes, past_len=self.past_len,
+            future_len=self.future_len, device=device)
 
 
 def build_smpl_body(arrays=None, *, seed: int = 0, num_verts: int = 6890,

@@ -1,15 +1,26 @@
 """Rotation representation conversions (`interdiff_tpu/geometry/rotations.py`).
 
-pytorch3d conventions: quaternions are wxyz, the 6-D representation is the
-first two rows of the rotation matrix, ``matrix_to_quaternion`` picks the
-best-conditioned candidate, and ``matrix_to_axis_angle`` goes through
-quaternions (the angle may exceed pi).  All functions broadcast over
-leading batch dimensions.
+pytorch3d conventions: quaternions are wxyz (the skeleton dataset stores
+xyzw; ``quat_xyzw_to_wxyz`` and ``quat_wxyz_to_xyzw`` swap at the
+boundary), the 6-D representation is the first two rows of the rotation
+matrix, ``matrix_to_quaternion`` picks the best-conditioned candidate, and
+``matrix_to_axis_angle`` goes through quaternions (the angle may exceed
+pi).  All functions broadcast over leading batch dimensions.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def quat_xyzw_to_wxyz(q: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) -> (w, x, y, z); cf. `interdiff/model/diffusion_skeleton.py:225`."""
+    return torch.cat([q[..., 3:4], q[..., 0:3]], dim=-1)
+
+
+def quat_wxyz_to_xyzw(q: torch.Tensor) -> torch.Tensor:
+    """(w, x, y, z) -> (x, y, z, w); cf. `interdiff/model/correction_skeleton.py:133`."""
+    return torch.cat([q[..., 1:4], q[..., 0:1]], dim=-1)
 
 
 def axis_angle_to_quaternion(axis_angle: torch.Tensor) -> torch.Tensor:

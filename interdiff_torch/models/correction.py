@@ -1,7 +1,8 @@
-"""Interaction-correction network of the SMPL track (`ObjProjector`,
-`interdiff_tpu/models/correction.py`), contract of
+"""Interaction-correction networks (`ObjProjector`,
+`interdiff_tpu/models/correction.py`) of both tracks, contracts of
 `interdiff/model/correction_smpl.py` (67 SSM markers, contact-based marker
-selection).
+selection) and `interdiff/model/correction_skeleton.py` (21 joints, the
+absolute-stream node, quaternion I/O).
 
 The object trajectory is lifted to a contact-relative representation
 (object rot6d plus the translation relative to every human marker), DCT'd
@@ -14,7 +15,7 @@ marker choice is a masked `where` / `gather`, never boolean indexing, so
 shapes do not depend on the data.
 
 Inference mode only: the multinomial marker choice of training and the
-skeleton-track projector are not ported yet.
+train-mode ST-GCNN layers are not ported yet.
 """
 
 from __future__ import annotations
@@ -28,6 +29,14 @@ from torch import nn
 from interdiff_torch import resolve_device
 from interdiff_torch.data.constants import hand_bias_vector
 from interdiff_torch.geometry.dct import dct_matrices
+from interdiff_torch.geometry.rotations import (
+    matrix_to_quaternion,
+    matrix_to_rotation_6d,
+    quat_wxyz_to_xyzw,
+    quat_xyzw_to_wxyz,
+    quaternion_to_matrix,
+    rotation_6d_to_matrix,
+)
 from interdiff_torch.models.layers import STGCNNLayer
 
 
@@ -160,3 +169,44 @@ class ObjProjectorSmpl(nn.Module):
         marker_pick = results.gather(2, pick)[:, :, 0]  # [B,T,9]
         return torch.where(has_contact[:, None, None], marker_pick,
                            results[:, :, 0])
+
+
+class ObjProjectorSkeleton(nn.Module):
+    """Skeleton-track correction net (`correction_skeleton.py:7-134`), built
+    on ``device`` (CUDA unless given).
+
+    I/O in the dataset's 7-D pose convention, quaternion **xyzw**; inside,
+    the object is rot6d | trans.  The output is always the absolute-stream
+    node (`:130` takes node 0); this track has no contact-based choice.
+    """
+
+    def __init__(self, num_joints: int = 21, n_pre: int = 20,
+                 past_len: int = 10, future_len: int = 10, device=None):
+        super().__init__()
+        seq_len = past_len + future_len
+        self.core = ObjProjectorCore(
+            num_nodes=num_joints,
+            n_pre=min(n_pre, seq_len),  # no more DCT coefficients than frames
+            seq_len=seq_len, past_len=past_len,
+            fusion_channels=(9, 64, 32, 64, 9))
+        self.to(resolve_device(device))
+
+    def forward(self, obj_quat_xyzw, obj_trans, joints, *,
+                train: bool = False):
+        return self.sample(obj_quat_xyzw, obj_trans, joints, train=train)
+
+    def sample(self, obj_quat_xyzw: torch.Tensor, obj_trans: torch.Tensor,
+               joints: torch.Tensor, *, train: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """quat [B,T,4] xyzw, trans [B,T,3], joints [B,T,J,3] ->
+        (corrected quat xyzw [B,T,4], corrected trans [B,T,3])."""
+        if train:
+            raise NotImplementedError(
+                "train-mode ST-GCNN layers come with the correction-training "
+                "slice of the port")
+        rot6d = matrix_to_rotation_6d(
+            quaternion_to_matrix(quat_xyzw_to_wxyz(obj_quat_xyzw)))
+        obj9 = torch.cat([rot6d, obj_trans], dim=-1)
+        results = self.core(obj9, joints)[:, :, 0]  # the absolute node
+        quat = matrix_to_quaternion(rotation_6d_to_matrix(results[..., :6]))
+        return quat_wxyz_to_xyzw(quat), results[..., 6:9]

@@ -1,13 +1,14 @@
-"""SMPL-track diffusion losses (`interdiff_tpu/train/losses.py`): the
+"""Diffusion losses of both tracks (`interdiff_tpu/train/losses.py`): the
 weighted MSE pyramids of `interdiff/train_diffusion_smpl.py:60-166` (16
-terms, per sample), its validation loss and its diverse-sample test loss.
+terms, per sample), its validation loss and its diverse-sample test loss,
+and of `interdiff/train_diffusion_skeleton.py:89-160` (13 terms, scalar).
 
 The reference's "velocity" terms subtract the gt sequence from itself, a
 zero target, and also penalise the prediction's discrete acceleration
 (`train_diffusion_smpl.py:91-99,107-115`).  That is reproduced as it is (the
 terms act as smoothness regularisers); ``faithful=False`` switches to the
-presumably intended gt-velocity matching for ablation.  The skeleton track's
-loss is not ported yet.
+presumably intended gt-velocity matching for ablation.  The skeleton
+track's velocity terms match real gt velocities.
 
 All tensors are batch-first: pred/gt [B, T, C].
 """
@@ -25,6 +26,11 @@ from interdiff_torch.geometry.rotations import axis_angle_to_matrix
 def _l2_per_sample(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """MSE over (time, feature) -> [B] (`train_diffusion_smpl.py:54-58`)."""
     return ((a - b) ** 2).mean(dim=(1, 2))
+
+
+def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ((a - b) ** 2).mean()
+
 
 @dataclass(frozen=True)
 class SmplLossWeights:
@@ -250,3 +256,59 @@ def smpl_diverse_test_losses(
 
     weighted = {k: loss_dict[k] * weight_of(k) for k in pairs}
     return sum(weighted.values()), loss_dict, weighted
+
+
+@dataclass(frozen=True)
+class SkeletonLossWeights:
+    """Defaults from `train_diffusion_skeleton.py:372-379`."""
+
+    past: float = 0.5
+    body: float = 2.0
+    obj: float = 1.0
+    obj_rot: float = 1.0
+    obj_nonrot: float = 1.0
+    quat_reg: float = 0.01
+    v: float = 1.0
+
+
+def skeleton_diffusion_losses(
+    pred: torch.Tensor, gt: torch.Tensor, *, past_len: int,
+    num_joints: int = 21, num_points: int = 12,
+    weights: SkeletonLossWeights = SkeletonLossWeights(),
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """13-term weighted loss -> (scalar loss, weighted term dict)
+    (`train_diffusion_skeleton.py:101-160`)."""
+    w = weights
+    bd, od = num_joints * 3, num_points * 3
+    body, body_gt = pred[..., :bd], gt[..., :bd]
+    obj, obj_gt = pred[..., bd : bd + od], gt[..., bd : bd + od]
+    pose, pose_gt = pred[..., bd + od :], gt[..., bd + od :]
+    p = past_len
+
+    def vel(x):
+        return x[:, 1:] - x[:, :-1]
+
+    quat = pose[..., -4:]
+    quat_reg = ((torch.linalg.norm(quat, dim=-1) ** 2 - 1.0) ** 2).mean()
+    terms = {
+        "body_past": _mse(body[:, :p], body_gt[:, :p]) * w.body * w.past,
+        "body_future": _mse(body[:, p:], body_gt[:, p:]) * w.body,
+        "obj_past": _mse(obj[:, :p], obj_gt[:, :p]) * w.obj * w.past,
+        "obj_future": _mse(obj[:, p:], obj_gt[:, p:]) * w.obj,
+        "loss_obj_nonrot_past": _mse(pose[:, :p, :3], pose_gt[:, :p, :3])
+        * w.obj_nonrot * w.past,
+        "loss_obj_nonrot_future": _mse(pose[:, p:, :3], pose_gt[:, p:, :3])
+        * w.obj_nonrot,
+        "loss_obj_rot_past": _mse(pose[:, :p, -4:], pose_gt[:, :p, -4:])
+        * w.obj_rot * w.past,
+        "loss_obj_rot_future": _mse(pose[:, p:, -4:], pose_gt[:, p:, -4:])
+        * w.obj_rot,
+        "quaternion_reg_loss": quat_reg * w.quat_reg,
+        "loss_obj_rot_v": _mse(vel(pose[..., -4:]), vel(pose_gt[..., -4:]))
+        * w.obj_rot * w.v,
+        "loss_obj_nonrot_v": _mse(vel(pose[..., :3]), vel(pose_gt[..., :3]))
+        * w.obj_nonrot * w.v,
+        "loss_body_v": _mse(vel(body), vel(body_gt)) * w.body * w.v,
+        "loss_obj_v": _mse(vel(obj), vel(obj_gt)) * w.obj * w.v,
+    }
+    return sum(terms.values()), terms

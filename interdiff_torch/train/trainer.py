@@ -1,13 +1,13 @@
-"""The SMPL-track diffusion train step (`interdiff_tpu/train/trainer.py`):
-AdamW, the timestep samplers, the EMA shadow and the two BatchNorm modes of
-the PointNet++ encoder.
+"""The diffusion train steps of both tracks (`interdiff_tpu/train/trainer.py`):
+AdamW, the timestep samplers, the EMA shadow and, on the SMPL track, the
+two BatchNorm modes of the PointNet++ encoder.
 
 Where the JAX package threads an immutable `TrainState` through a jitted
 function, the port updates in place: the parameters live in the `MDMSmpl`
 module, ``state.params`` names them, the optimiser steps them, and a step
-returns the same state object with its counter advanced.  The skeleton and
-correction steps and the data-parallel wrapper (`data_parallel_step`) are
-not ported yet.
+returns the same state object with its counter advanced.  The correction
+steps and the data-parallel wrapper (`data_parallel_step`) are not ported
+yet.
 
 BatchNorm modes.  Default: the encoder's BatchNorms normalise with their
 running statistics, which are parameters, are differentiated and are stepped
@@ -17,8 +17,8 @@ where ``batch_stats`` sit inside the optimised tree.  ``bn_train_mode``
 running statistics move by momentum and stay out of the optimiser;
 :func:`split_bn_state` takes them out.
 
-The denoiser runs as `MDMSmpl` is built, in eval mode, as the JAX step runs
-it (``train=False``).
+The denoisers run as they are built, in eval mode, as the JAX steps run
+them (``train=False``).
 """
 
 from __future__ import annotations
@@ -34,8 +34,14 @@ from interdiff_torch.diffusion.resample import (
     LossSecondMomentResampler,
     UniformSampler,
 )
+from interdiff_torch.models.mdm_skeleton import MDMSkeleton
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
-from interdiff_torch.train.losses import SmplLossWeights, smpl_diffusion_losses
+from interdiff_torch.train.losses import (
+    SkeletonLossWeights,
+    SmplLossWeights,
+    skeleton_diffusion_losses,
+    smpl_diffusion_losses,
+)
 from interdiff_torch.utils.train_io import quartile_metrics
 
 Params = Dict[str, torch.Tensor]
@@ -99,6 +105,64 @@ def sample_timesteps(generator: Optional[torch.Generator], batch: int,
     """`UniformSampler`: t ~ U [batch] int64, weights = 1, on ``device``
     (the generator's when not given)."""
     return UniformSampler(num_timesteps).sample(generator, batch, device)
+
+
+def skeleton_gt_from_batch(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Batch dict -> state tensor [B, T, 106]."""
+    B, T = batch["skeleton"].shape[:2]
+    return torch.cat([batch["skeleton"].reshape(B, T, -1),
+                      batch["obj_points"].reshape(B, T, -1),
+                      batch["poses"]], dim=-1)
+
+
+def make_skeleton_train_step(
+    model: MDMSkeleton, diffusion: GaussianDiffusion, *,
+    weights: SkeletonLossWeights = SkeletonLossWeights(),
+) -> Callable:
+    """Returns ``step(state, batch, generator=None, *, t=None, noise=None)
+    -> (state, metrics)`` on the model's device.
+
+    ``state`` is a `TrainState` over ``model``'s parameters; ``batch`` holds
+    tensors ``skeleton`` [B,T,21,3], ``obj_points`` [B,T,12,3], ``poses``
+    [B,T,7] and ``zero_pose_obj`` [B,12,3].  The encode runs
+    deterministic; the timesteps (uniform) and the noise are drawn from
+    ``generator`` unless ``t`` [B] and ``noise`` [B,T,106] are given.
+    ``metrics``: ``loss`` and the 13 weighted terms, 0-d tensors on the
+    device.  After the step each parameter's ``.grad`` holds this step's
+    gradient.  TF32 is turned off: parity with the reference needs
+    full-f32 matmuls.
+    """
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def step(state: TrainState, batch, generator=None, *, t=None,
+             noise=None):
+        zero_pose = batch["zero_pose_obj"]
+        memory, gt = model.encode(batch["skeleton"], batch["obj_points"],
+                                  batch["poses"], zero_pose)
+        if t is None:
+            t, _ = sample_timesteps(generator, gt.shape[0],
+                                    diffusion.num_timesteps, gt.device)
+        if noise is None:
+            noise = torch.randn(gt.shape, generator=generator,
+                                device=gt.device, dtype=gt.dtype)
+
+        def model_fn(x, ts):
+            return model.denoise(x, ts, zero_pose, memory)
+
+        pred, target = diffusion.training_losses(model_fn, gt, t, noise=noise)
+        loss, terms = skeleton_diffusion_losses(
+            pred, target, past_len=model.past_len,
+            num_joints=model.num_joints, num_points=model.num_points,
+            weights=weights)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics["loss"] = loss.detach()
+        return state, metrics
+
+    return step
 
 
 def smpl_cond_inputs(batch: Dict[str, torch.Tensor]

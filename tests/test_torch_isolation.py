@@ -34,11 +34,14 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 43
+    assert n_modules >= 48
     for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa",
                    "cli.train_diffusion_smpl", "train.trainer",
                    "train.losses", "diffusion.resample", "diffusion.nn",
-                   "ops.gather", "utils.train_io"):
+                   "ops.gather", "utils.train_io", "cli.eval_skeleton",
+                   "cli.train_diffusion_skeleton", "eval.skeleton",
+                   "models.mdm_skeleton", "data.skeleton",
+                   "geometry.rotations_np"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -152,3 +155,28 @@ def test_default_device_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_smpl_body(num_verts=16)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_skeleton_entry_points_stop_without_a_card(monkeypatch, tmp_path):
+    """The skeleton CLIs and objects asked for the default device with no
+    CUDA device present raise before any step; ``--device cpu`` runs."""
+    from interdiff_torch.cli import eval_skeleton, train_diffusion_skeleton
+    from interdiff_torch.config import CorrectionConfig, SkeletonTrackConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_skeleton.main(["--synthetic", "1", "--batch_size", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_diffusion_skeleton.main(["--synthetic", "1", "--batch_size",
+                                       "2", "--results_dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        SkeletonTrackConfig(embedding_dim=32, ff_size=32,
+                            num_layers=2).build_model()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CorrectionConfig(track="skeleton", num_nodes=21,
+                         future_len=10).build_model()
+    _, n = eval_skeleton.main(["--device", "cpu", "--synthetic", "1",
+                               "--batch_size", "2", "--respacing", "2",
+                               "--mode", "no_correction"])
+    assert n == 1
