@@ -134,11 +134,38 @@ Phases, each printing JSON lines (any failure exits non-zero):
    before and after, peak memory), and a corrected 10-step call under
    torch.profiler (launches per step, device busy share); 0 launches of
    every kernel on both paths.
+11. correction_cpu_vs_gpu: three steps of each correction trainer (SMPL
+   through the initialize phase and the main phase, with the same marker
+   draws; skeleton) and a 5-iteration refine of two clips on a 256-vertex
+   stand-in body, started 0.01 off its anchors, card against CPU: losses
+   within 1e-5, parameters and BatchNorm statistics within 2 * steps * lr,
+   refined poses, best losses and every trace row within REFINE_TOL
+   relative (reason in the line).
+12. correction_train: `train(...)` of `cli/train_correction_smpl.py` at the
+   CLI's defaults (16 clips of 10 + 25 frames, 67 markers) on batches of
+   the V=6890 body with 2048-point clouds (`correction_batch`), 20 steps
+   (10 in the initialize phase, 10 in the main one): K3 and K4 once a step
+   each, forward and backward; K4 at N=6890 queries (a ragged last chunk)
+   and K3 at this shape bitwise against their plain versions, with times,
+   bounds and, for K4, `torch.cdist`'s; the loss's gradient through both
+   against autograd through the plain versions on 2 clips.  Then
+   `cli/train_correction_skeleton.py`'s `train(...)`, 20 steps of 32 clips
+   of 10 + 10 frames, no kernel.  ms per step, losses, peak memory.
+13. refine: `cli/optimization.py`'s generate-then-refine path at full
+   width (a rest-pose `MDMSmpl` of 10 + 10 frames, 8 clips, 2048 points,
+   "100" respacing, 200 iterations, V=6890): seconds of each part, ms per
+   iteration, launches (K1 2, K2 2, K3 and K4 one an iteration), the
+   penetration before and after, every trace term finite; K3 and K4 at
+   the refiner's shapes, K4 beside `torch.cdist`'s time; the refiner's gradient through K3 with respect to
+   the queries, the surface and its normals against autograd through the
+   plain versions.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
-its own, beside the skeleton paths' zeros; K6's of its opt-in routes, K5's
-of the backward with respect to the cloud), and the device line.  Weights and data come from numpy seeds;
+its own, beside the skeleton paths' zeros, the correction trainers' and
+the refiner's; K6's of its opt-in routes, K5's of the backward with
+respect to the cloud; K3 and K4 also at this slice's shapes), and the
+device line.  Weights and data come from numpy seeds;
 no file outside this repository and no network is needed.  The run uses one
 card: it sees only device 0 unless CUDA_VISIBLE_DEVICES says otherwise, and
 stops if that shows more than one.  A few minutes on an H100.  Depth cut to
@@ -1672,13 +1699,22 @@ def full_width_models():
     body's centre: the denoised frames then scatter by about 0.05 around an
     object that straddles the body's surface, and the sweep, the contact
     labels and the projector's marker choice all have work to do."""
-    from interdiff_torch.config import (
-        CorrectionConfig,
-        SmplTrackConfig,
-        build_smpl_body,
-    )
+    from interdiff_torch.config import CorrectionConfig, build_smpl_body
 
-    model = SmplTrackConfig().build_model()
+    projector = CorrectionConfig().build_model()
+    projector.load_state_dict(seeded_state(projector, SEED + 7), strict=True)
+    return (rest_pose_mdm(), projector,
+            build_smpl_body(seed=SEED, num_verts=VERTS))
+
+
+def rest_pose_mdm(future_len: int = FUTURE):
+    """`MDMSmpl` defaults (``future_len`` future frames) with seeded
+    weights, its two output layers scaled to a twentieth and biased to the
+    rest pose with the object 0.25 m to the side of the body's centre (see
+    `full_width_models`)."""
+    from interdiff_torch.config import SmplTrackConfig
+
+    model = SmplTrackConfig(future_len=future_len).build_model()
     model.load_state_dict(seeded_state(model, SEED + 1), strict=True)
     identity6d = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
     with torch.no_grad():
@@ -1687,9 +1723,7 @@ def full_width_models():
                 (model.objFinalLinear, identity6d + [0.25, 0.1, 0.0])):
             layer.weight.mul_(0.05)
             layer.bias.copy_(torch.tensor(bias))
-    projector = CorrectionConfig().build_model()
-    projector.load_state_dict(seeded_state(projector, SEED + 7), strict=True)
-    return model, projector, build_smpl_body(seed=SEED, num_verts=VERTS)
+    return model
 
 
 def _reset_launches(group, nn, sa) -> None:
@@ -2735,6 +2769,611 @@ def phase_skeleton(group, nn, sa, gpu: str) -> dict:
             "skeleton_train": launches["train"]}
 
 
+# ---------------------------------------------------------------------------
+# correction training (both tracks) and test-time refinement
+
+CORR_LR = 3e-4
+# `cli/train_correction_smpl.py`'s defaults: 16 clips of 10 + 25 frames;
+# 20 steps, 10 in the initialize phase (mean over nodes), 10 in the main
+CORR_CLIPS, CORR_PAST, CORR_FUTURE, CORR_EPOCHS, CORR_INIT = 16, 10, 25, 20, 10
+CORR_SKEL_CLIPS = 32  # `cli/train_correction_skeleton.py`: 32 of 10 + 10
+# `cli/optimization.py`'s defaults: 8 clips of 10 + 10 frames, "100"
+# respacing, 200 iterations
+REFINE_CLIPS, REFINE_PAST, REFINE_FUTURE = 8, 10, 10
+REFINE_RESPACING, REFINE_ITERS = "100", 200
+# the small card-against-CPU runs: 3 train steps, a 5-iteration refine
+# started 0.01 off its anchors
+CORR_SMALL_STEPS, REFINE_SMALL_ITERS, REFINE_LR = 3, 5, 1e-3
+REFINE_SHIFT = 0.01
+# the refine's poses, best losses and every trace row, each against the
+# larger of its size and 1
+REFINE_TOL = 1e-4
+REFINE_TOL_REASON = ("started 0.01 off the anchors, no gradient sits on a "
+                     "kink of |x| (at the anchors FK compares with itself "
+                     "and the anchors' gradients are rounding noise whose "
+                     "sign Adam turns into a step of lr), so the two "
+                     "devices differ by rounding alone, as the CPU test "
+                     "against the JAX refiner holds at 1e-4")
+# a sanity bound on the poses alone: Adam moves an entry by about lr a step
+REFINE_SANITY = 2 * REFINE_SMALL_ITERS * REFINE_LR
+
+
+def correction_batch(rng, body, clips: int, frames: int, points: int
+                     ) -> dict:
+    """One correction training batch on ``body``'s device, built by the
+    port's own FK: seeded poses, the body's vertices and normals, an
+    ellipsoid object cloud whose centre sits 0.2 m to the side of the body's
+    centroid in every frame (straddling the surface), contact labels on the
+    vertices within 0.05 m of the placed cloud (K4 on CUDA), and the 67
+    markers (xyz | normal | label) picked from the vertices (their indices
+    clamped to the body's last vertex, as the JAX gather clamps them)."""
+    from interdiff_torch.data.constants import MARKERSET_SSM67_SMPLH
+    from interdiff_torch.geometry.normals import vertex_normals
+    from interdiff_torch.geometry.rotations import axis_angle_to_matrix
+    from interdiff_torch.ops.signed_distance import nearest_neighbor
+    from interdiff_torch.smpl.model import smpl_forward
+
+    device = body.v_template.device
+    B, T, P = clips, frames, points
+
+    def dev(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(
+            device)
+
+    pose = dev(np.concatenate([rng.standard_normal((B, T, 66)) * 0.3,
+                               rng.standard_normal((B, T, 90)) * 0.1], -1))
+    betas = dev(np.broadcast_to(rng.standard_normal((B, 1, 10)) * 0.5,
+                                (B, T, 10)))
+    trans = dev(rng.standard_normal((B, T, 3)) * 0.1)
+    cloud = dev(object_cloud(rng, B, P))
+    obj_angles = dev(rng.standard_normal((B, T, 3)) * 0.5)
+    with torch.no_grad():
+        verts = smpl_forward(body, pose.reshape(B * T, -1),
+                             betas.reshape(B * T, -1),
+                             trans.reshape(B * T, 3))[0]
+        normals = vertex_normals(verts, body.faces_idx, body.incident)
+        obj_trans = verts.reshape(B, T, -1, 3).mean(dim=2) + torch.tensor(
+            [0.2, 0.0, 0.0], device=device)
+        placed = (torch.einsum("btij,bpj->btpi",
+                               axis_angle_to_matrix(obj_angles),
+                               cloud[..., :3]) + obj_trans[:, :, None])
+        h2o, _ = nearest_neighbor(verts, placed.reshape(B * T, P, 3))
+        label = (h2o < 0.05 ** 2).to(torch.float32)[..., None]
+        human = torch.cat([verts, normals, label], -1).reshape(B, T, -1, 7)
+    idx = np.minimum(MARKERSET_SSM67_SMPLH, body.num_verts - 1)
+    return {"obj_angles": obj_angles, "obj_trans": obj_trans.contiguous(),
+            "markers": human[:, :, torch.from_numpy(idx.astype(
+                np.int64)).to(device)].contiguous(),
+            "human_verts": human.contiguous(), "obj_points": cloud}
+
+
+@contextlib.contextmanager
+def _plain_nn(nn):
+    """K3's and K4's `autograd.Function`s swapped for their plain versions,
+    whose gradient autograd takes through the sweep: the consumer's
+    gradient through the kernels can then be held against autograd's."""
+    saved = nn.nearest_neighbor_diff, nn.signed_nearest_diff
+    nn.nearest_neighbor_diff = nn.nearest_neighbor_plain
+    nn.signed_nearest_diff = nn.signed_nearest_plain
+    try:
+        yield
+    finally:
+        nn.nearest_neighbor_diff, nn.signed_nearest_diff = saved
+
+
+def _consumer_grads(nn, loss_fn, leaves: dict, want_launches: dict) -> dict:
+    """The gradient of ``loss_fn()`` with respect to ``leaves`` through the
+    kernels (they must launch as ``want_launches`` says) against autograd
+    through the plain versions, each relative to the largest entry of its
+    gradient; raises beyond GRAD_TOL (K3's and K4's)."""
+    before = dict(nn.launches)
+    got = torch.autograd.grad(loss_fn(), list(leaves.values()))
+    launched = {k: nn.launches[k] - before[k] for k in want_launches}
+    if launched != want_launches:
+        raise AssertionError(f"the consumer launched {launched}")
+    before = dict(nn.launches)
+    with _plain_nn(nn):
+        want = torch.autograd.grad(loss_fn(), list(leaves.values()))
+    if nn.launches != before:
+        raise AssertionError("a kernel ran in the plain consumer")
+    errs = {}
+    for label, g, w in zip(leaves, got, want):
+        rel = float((g - w).abs().max() / w.abs().max().clamp(min=1e-30))
+        errs[label] = rel
+        if not rel <= GRAD_TOL["K3"] or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"consumer gradient of {label}: {rel} from "
+                                 f"autograd through the plain versions")
+    return errs
+
+
+def _correction_projectors(device, small: bool):
+    """The SMPL and skeleton projectors on ``device`` with seeded weights:
+    the CLIs' defaults, or (``small``) 4 past and 8 future frames."""
+    from interdiff_torch.models.correction import (
+        ObjProjectorSkeleton,
+        ObjProjectorSmpl,
+    )
+
+    kw = (dict(past_len=4, future_len=8) if small else
+          dict(past_len=CORR_PAST, future_len=CORR_FUTURE))
+    smpl = ObjProjectorSmpl(n_pre=6 if small else 10, **kw, device=device)
+    skel = ObjProjectorSkeleton(
+        **(kw if small else dict(past_len=SKEL_PAST, future_len=SKEL_PAST)),
+        device=device)
+    for module, s in ((smpl, SEED + 40), (skel, SEED + 41)):
+        module.load_state_dict(seeded_state(module, s), strict=True)
+    return smpl, skel
+
+
+def _small_correction_runs(device, batches, skel_batches, draws, clips,
+                           body_seed: int):
+    """On ``device``: three steps of each correction trainer (SMPL through
+    the initialize phase, then the main phase with the given marker draws)
+    and a 5-iteration refine of ``clips`` on a 256-vertex stand-in body,
+    every parameter moved REFINE_SHIFT off its anchor by one seeded draw.
+    Returns CPU tensors and floats."""
+    from interdiff_torch.config import build_smpl_body
+    from interdiff_torch.eval.optimization import (OptimConfig, descend,
+                                                   refiner_init)
+    from interdiff_torch.train import trainer
+
+    def on(d):
+        return {k: torch.as_tensor(v).to(device) for k, v in d.items()}
+
+    smpl_p, skel_p = _correction_projectors(device, small=True)
+    out = {"smpl_losses": [], "skeleton_losses": []}
+    state = trainer.CorrectionTrainState.create(smpl_p, trainer.adam(CORR_LR))
+    steps = {p: trainer.make_correction_smpl_train_step(smpl_p, initialize=p)
+             for p in (True, False)}
+    for i, (batch, draw) in enumerate(zip(batches, draws)):
+        state, m = steps[i == 0](state, on(batch), epoch=8.0 + 6 * i,
+                                 marker_idx=torch.as_tensor(draw).to(device))
+        out["smpl_losses"].append(float(m["loss"]))
+    state = trainer.CorrectionTrainState.create(skel_p, trainer.adam(CORR_LR))
+    step = trainer.make_correction_skeleton_train_step(skel_p)
+    for batch in skel_batches:
+        state, m = step(state, on(batch))
+        out["skeleton_losses"].append(float(m["loss"]))
+    out["smpl_state"] = {k: v.cpu() for k, v in smpl_p.state_dict().items()}
+    out["skeleton_state"] = {k: v.cpu()
+                             for k, v in skel_p.state_dict().items()}
+    body = build_smpl_body(seed=body_seed, num_verts=256, device=device)
+    cfg = OptimConfig(iters=REFINE_SMALL_ITERS, keep_after=2)
+    params, aux = refiner_init(body, cfg, **on(clips))
+    shift_rng = np.random.default_rng(SEED + 49)
+    with torch.no_grad():
+        for k in sorted(params):
+            params[k].add_(torch.from_numpy((shift_rng.standard_normal(
+                tuple(params[k].shape)) * REFINE_SHIFT).astype(np.float32))
+                .to(device))
+    refined = descend(body, cfg, params, aux)
+    out["refined"] = {k: v.cpu() for k, v in refined.items()}
+    return out
+
+
+def phase_correction_cpu_vs_gpu(gpu: str) -> None:
+    """The small correction train steps of both tracks and a small refine
+    on the card against the CPU, from the same weights, batches and marker
+    draws: the loss of every step within 1e-5, the parameters and the
+    BatchNorm statistics within 2 * steps * lr (a bias in front of a
+    BatchNorm in train mode has a zero gradient that each device rounds
+    differently, and Adam steps it by up to lr all the same; the running
+    mean carries that bias); the refined poses, the best losses and every
+    row of the trace within REFINE_TOL of the larger of their size and 1
+    (reason in the line), and the poses within REFINE_SANITY."""
+    from interdiff_torch.cli.common import synthetic_skeleton_batches
+    from interdiff_torch.config import build_smpl_body
+
+    rng = np.random.default_rng(SEED + 42)
+    body_seed = SEED + 43
+    cpu_body = build_smpl_body(seed=body_seed, num_verts=256, device="cpu")
+    batches = [{k: v.numpy() for k, v in correction_batch(
+        rng, cpu_body, 2, 12, 64).items()} for _ in range(CORR_SMALL_STEPS)]
+    draws = [rng.integers(0, 67, 2) for _ in range(CORR_SMALL_STEPS)]
+    skel_batches = [{k: b[k] for k in ("skeleton", "poses")} for b in
+                    synthetic_skeleton_batches(rng, batch_size=2, seq_len=12,
+                                               steps=CORR_SMALL_STEPS)]
+    T = 8
+    clips = {"body_pose": rng.standard_normal((2, T, 66)) * 0.2,
+             "hand_pose": rng.standard_normal((2, T, 90)) * 0.05,
+             "body_trans": rng.standard_normal((2, T, 3)) * 0.02,
+             "betas": rng.standard_normal((2, T, 10)) * 0.1,
+             "obj_angles": rng.standard_normal((2, T, 3)) * 0.3,
+             "obj_trans": np.array([0.2, 0.0, 0.0])
+             + rng.standard_normal((2, T, 3)) * 0.02,
+             "obj_points": rng.standard_normal((2, 64, 3)) * 0.06}
+    clips = {k: np.asarray(v, np.float32) for k, v in clips.items()}
+    runs = {d: _small_correction_runs(d, batches, skel_batches, draws, clips,
+                                      body_seed) for d in ("cpu", DEV)}
+    cpu, card = runs["cpu"], runs[DEV]
+    line = {"phase": "correction_cpu_vs_gpu", "gpu": gpu,
+            "steps": CORR_SMALL_STEPS, "lr": CORR_LR,
+            "loss_tolerance": 1e-5, "state_tolerance":
+            2 * CORR_SMALL_STEPS * CORR_LR}
+    ok = True
+    for track in ("smpl", "skeleton"):
+        loss_err = max(abs(a - b) for a, b in zip(
+            cpu[f"{track}_losses"], card[f"{track}_losses"]))
+        params = {k for k in cpu[f"{track}_state"]
+                  if not k.endswith(("running_mean", "running_var"))}
+        diff = {k: float((cpu[f"{track}_state"][k] - card[f"{track}_state"][k])
+                         .abs().max()) for k in cpu[f"{track}_state"]}
+        p_err = max(diff[k] for k in params)
+        s_err = max(v for k, v in diff.items() if k not in params)
+        line[track] = {"losses_cuda": card[f"{track}_losses"],
+                       "loss_max_abs_err": loss_err,
+                       "param_max_abs_diff": p_err,
+                       "stat_max_abs_diff": s_err}
+        ok &= (loss_err <= 1e-5 and max(p_err, s_err)
+               <= 2 * CORR_SMALL_STEPS * CORR_LR)
+    rc, rg = cpu["refined"], card["refined"]
+    poses = ("pose", "trans", "obj_angles", "obj_trans")
+
+    def rel(k):
+        return float(((rg[k] - rc[k]).abs() / rc[k].abs().clamp(min=1.0))
+                     .max())
+
+    rel_err = {k: rel(k) for k in poses + ("best_loss", "terms")}
+    pose_err = max(float((rc[k] - rg[k]).abs().max()) for k in poses)
+    finite = all(bool(torch.isfinite(rg[k]).all()) for k in rg)
+    line["refine"] = {
+        "iters": REFINE_SMALL_ITERS, "lr": REFINE_LR, "clips": 2,
+        "start_off_anchors": REFINE_SHIFT,
+        "max_rel_diff": rel_err, "tolerance": REFINE_TOL,
+        "refined_max_abs_diff": pose_err, "sanity_bound": REFINE_SANITY,
+        "best_loss_cuda": rg["best_loss"].tolist(),
+        "tolerance_reason": REFINE_TOL_REASON}
+    emit(line)
+    ok &= (max(rel_err.values()) <= REFINE_TOL and pose_err <= REFINE_SANITY
+           and finite)
+    if not ok:
+        raise AssertionError("correction: card vs CPU out of tolerance")
+
+
+def _nn_at(nn, name: str, a, b, n=None, *, plain_frames: int = 16,
+           library=None, library_calls: int = 1) -> dict:
+    """K3 (with ``n``) or K4 at the shape of a consumer of this slice:
+    bitwise against its plain version on the first ``plain_frames``
+    frames, the kernel's time by CUDA events, the plain version's on those
+    frames, the bound of the whole call and, for K4, the library's time
+    (``library_calls`` calls that together cover the frames)."""
+    F, N, _ = a.shape
+    M = b.shape[1]
+    if n is None:
+        kernel = (lambda: nn.nearest_neighbor_cuda(a, b))
+        plain_in = (a[:plain_frames], b[:plain_frames])
+        plain = (lambda: nn.nearest_neighbor_plain(*plain_in))
+        n_bytes = 4 * (3 * F * N + 3 * F * M + 2 * F * N)
+    else:
+        kernel = (lambda: nn.signed_nearest_cuda(a, b, n))
+        plain_in = (a[:plain_frames], b[:plain_frames], n[:plain_frames])
+        plain = (lambda: nn.signed_nearest_plain(*plain_in))
+        n_bytes = 4 * (3 * F * N + 6 * F * M + 3 * F * N)
+    got = kernel()
+    err = _equal_parts(name, tuple(x[:plain_frames] for x in got), plain())
+    bound_ms, bound_by = _nn_bound(F * N * M, n_bytes)
+    return {"frames": F, "queries": N, "points": M, "ms": cuda_ms(kernel),
+            "plain_ms": cuda_ms(plain, runs=5), "plain_frames": plain_frames,
+            "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": err,
+            "library_ms": None if library is None
+            else cuda_ms(library, runs=5), "library_calls": library_calls}
+
+
+def _correction_fixed_loss(projector, batch) -> dict:
+    """The SMPL correction loss of ``batch`` in the main phase at full
+    annealing, the first maximum as the marker, on a copy of the projector
+    (train mode moves the running statistics): the total and the pose
+    terms' sum."""
+    import copy
+
+    from interdiff_torch.train import trainer
+    from interdiff_torch.train.losses_correction import correction_smpl_losses
+
+    p = copy.deepcopy(projector)
+    with torch.no_grad():
+        obj_gt, contact = trainer.correction_smpl_inputs(batch, p.past_len)
+        pred = p.sample(obj_gt, batch["markers"][..., :3], contact,
+                        train=True, marker_idx=(contact + p.hand_bias)
+                        .argmax(dim=-1))
+        loss, terms = correction_smpl_losses(
+            pred, obj_gt, past_len=p.past_len,
+            obj_points=batch["obj_points"], human_verts=batch["human_verts"],
+            epoch=float(CORR_EPOCHS))
+    return {"loss": float(loss), "pose_terms": float(sum(
+        v for k, v in terms.items() if k.startswith("obj_")))}
+
+
+def _timed_train(run, group, nn, sa) -> dict:
+    """``run(on_step)`` (a trainer's ``train``, which returns its state and
+    summary) between a reset and a read of the launches, with a CUDA event
+    after every step: the launches, ms per step, the losses, wall s and
+    peak memory."""
+    rec = {"loss": [], "events": []}
+
+    def on_step(i, state, metrics):
+        rec["loss"].append(metrics["loss"])
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        rec["events"].append(event)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(group, nn, sa)
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    _, summary = run(on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read_launches(group, nn, sa)
+    events = [start] + rec["events"]
+    step_ms = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    return {"summary": summary, "launches": launched, "step_ms": step_ms,
+            "losses": torch.stack(rec["loss"]).tolist(), "wall_s": wall,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def phase_correction_train(group, nn, sa, body, gpu: str) -> tuple:
+    """Both correction trainers' `train(...)` at full width.  SMPL: the
+    CLI's defaults (16 clips of 10 + 25 frames, `ObjProjectorSmpl()`
+    defaults, 67 markers) on batches of the V=6890 stand-in body with
+    2048-point clouds (`correction_batch`), 20 steps, 10 in the initialize
+    phase and 10 in the main one; K3 and K4 forward and backward once a
+    step, K3 and K4 at these shapes against their plain versions (K4 at
+    N=6890 queries, whose last chunk of 32 is ragged) with times and
+    bounds, and the loss's gradient through them against autograd through
+    the plain versions on 2 clips.  Skeleton: 20 steps of 32 clips of 10 +
+    10 frames, no kernel.  Returns (launches by path, K3's and K4's
+    records)."""
+    import tempfile
+
+    from interdiff_torch.cli import train_correction_skeleton as cli_skel
+    from interdiff_torch.cli import train_correction_smpl as cli_smpl
+    from interdiff_torch.geometry.rotations import rotation_6d_to_matrix
+    from interdiff_torch.train.losses_correction import (
+        contact_penetration_terms,
+    )
+    from interdiff_torch.train.trainer import correction_smpl_inputs
+
+    rng = np.random.default_rng(SEED + 44)
+    frames = CORR_PAST + CORR_FUTURE
+    batch = correction_batch(rng, body, CORR_CLIPS, frames, POINTS)
+    F = CORR_CLIPS * frames
+    verts = batch["human_verts"][..., :3].reshape(F, -1, 3).contiguous()
+    normals = batch["human_verts"][..., 3:6].reshape(F, -1, 3).contiguous()
+    obj_gt, _ = correction_smpl_inputs(batch, CORR_PAST)
+    placed = (torch.einsum("btij,bpj->btpi",
+                           rotation_6d_to_matrix(obj_gt[..., :6]),
+                           batch["obj_points"][..., :3])
+              + obj_gt[..., None, 6:]).reshape(F, POINTS, 3).contiguous()
+    quarter = F // 4
+    records = {
+        "K4": _nn_at(nn, "K4 at N=6890", verts, placed,
+                     library=lambda: [torch.cdist(
+                         verts[s:s + quarter], placed[s:s + quarter])
+                         .square().min(dim=-1) for s in range(0, F,
+                                                              quarter)],
+                     library_calls=4),
+        "K3": _nn_at(nn, "K3 at the correction loss's shape", placed, verts,
+                     normals)}
+    if verts.shape[1] % 32 == 0:
+        raise AssertionError("K4's queries fill whole chunks")
+    labelled = float(batch["human_verts"][..., 6].mean())
+
+    # the loss's gradient through K3 and K4 inside the consumer
+    sub = {k: v[:2] for k, v in batch.items()}
+    obj_gt2, _ = correction_smpl_inputs(sub, CORR_PAST)
+    lrng = np.random.default_rng(SEED + 45)
+    pred = (obj_gt2 + torch.from_numpy((lrng.standard_normal(
+        tuple(obj_gt2.shape)) * 0.02).astype(np.float32)).to(DEV)
+            ).requires_grad_(True)
+    terms = {}
+
+    def consumer():
+        c, p = contact_penetration_terms(pred, sub["obj_points"],
+                                         sub["human_verts"])
+        terms.update(contact=float(c.detach()), penetration=float(
+            p.detach()))
+        return c + p
+
+    grad_err = _consumer_grads(nn, consumer, {"obj_pred": pred},
+                               {"signed_nearest": 1, "nearest_neighbor": 1})
+    if not (terms["contact"] > 0 and terms["penetration"] > 0):
+        raise AssertionError(f"the consumer's terms do no work: {terms}")
+
+    smpl_p, skel_p = _correction_projectors(DEV, small=False)
+    before = _correction_fixed_loss(smpl_p, batch)
+    with tempfile.TemporaryDirectory() as results:
+        smpl = _timed_train(lambda on_step: cli_smpl.train(
+            smpl_p, lambda: [batch], results_dir=results,
+            epochs=CORR_EPOCHS, lr=CORR_LR, initialize_epochs=CORR_INIT,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            on_step=on_step), group, nn, sa)
+        saved = sorted(os.listdir(os.path.join(results, "ckpt")))
+    after = _correction_fixed_loss(smpl_p, batch)
+    want = {**NO_LAUNCHES, "K3": CORR_EPOCHS, "K4": CORR_EPOCHS}
+    ms = smpl["step_ms"]
+    line = {"phase": "correction_train", "gpu": gpu, "track": "smpl",
+            "clips": CORR_CLIPS, "frames": frames, "past": CORR_PAST,
+            "points": POINTS, "verts": int(verts.shape[1]), "markers": 67,
+            "steps": smpl["summary"]["steps"],
+            "initialize_steps": CORR_INIT, "lr": CORR_LR,
+            "labelled_contact_vertex_share": labelled,
+            "loss_first_step": smpl["losses"][0],
+            "loss_last_step": smpl["losses"][-1],
+            "fixed_draw_loss_before": before, "fixed_draw_loss_after": after,
+            "ms_per_step_cuda_events_median": statistics.median(ms[1:]),
+            "ms_per_step_initialize_phase_median": statistics.median(
+                ms[1:CORR_INIT]),
+            "ms_per_step_main_phase_median": statistics.median(
+                ms[CORR_INIT:]),
+            "ms_first_step": ms[0], "wall_s": smpl["wall_s"],
+            "launches": smpl["launches"],
+            "launches_per_step": {k: v / CORR_EPOCHS
+                                  for k, v in smpl["launches"].items()},
+            "consumer_gradient_vs_plain": grad_err,
+            "consumer_terms_on_2_clips": terms,
+            "gradient_tolerance": GRAD_TOL["K3"],
+            "kernels_at_this_shape": records, "saved": saved,
+            "peak_mem_gb": smpl["peak_mem_gb"]}
+    emit(line)
+    if smpl["launches"] != want or smpl["summary"]["steps"] != CORR_EPOCHS \
+            or not np.isfinite(smpl["losses"]).all() \
+            or not after["pose_terms"] < before["pose_terms"] \
+            or saved != ["index.json", f"step_{CORR_EPOCHS}.pt"]:
+        raise AssertionError(f"correction train (SMPL): {line}")
+
+    skel_batch = {k: v for k, v in _skeleton_batch(
+        np.random.default_rng(SEED + 46), CORR_SKEL_CLIPS).items()
+        if k in ("skeleton", "poses")}
+    with tempfile.TemporaryDirectory() as results:
+        skel = _timed_train(lambda on_step: cli_skel.train(
+            skel_p, lambda: [skel_batch] * TRAIN_STEPS, results_dir=results,
+            lr=CORR_LR, on_step=on_step), group, nn, sa)
+    ms = skel["step_ms"]
+    line = {"phase": "correction_train", "gpu": gpu, "track": "skeleton",
+            "clips": CORR_SKEL_CLIPS, "frames": SKEL_FRAMES,
+            "steps": skel["summary"]["steps"], "lr": CORR_LR,
+            "loss_first_step": skel["losses"][0],
+            "loss_last_step": skel["losses"][-1],
+            "ms_per_step_cuda_events_median": statistics.median(ms[1:]),
+            "ms_first_step": ms[0], "wall_s": skel["wall_s"],
+            "launches": skel["launches"], "peak_mem_gb": skel["peak_mem_gb"]}
+    emit(line)
+    if skel["launches"] != NO_LAUNCHES or not np.isfinite(
+            skel["losses"]).all() or not skel["losses"][-1] < \
+            skel["losses"][0] or skel["summary"]["steps"] != TRAIN_STEPS:
+        raise AssertionError(f"correction train (skeleton): {line}")
+    return ({"correction_train_smpl": smpl["launches"],
+             "correction_train_skeleton": skel["launches"]}, records)
+
+
+def phase_refine(group, nn, sa, body, gpu: str) -> tuple:
+    """`cli/optimization.py`'s generate-then-refine path at full width: the
+    rest-pose `MDMSmpl` of 10 + 10 frames, 8 clips with 2048-point clouds,
+    "100" respacing, 200 iterations on the V=6890 stand-in body: the seconds
+    of sampling, penetration and refinement, ms per iteration, launches
+    (K1 2 for the encode, K2 2 for the penetration before and after, K3 and
+    K4 one an iteration), the penetration before and after, every trace
+    term finite; K3 and K4 at the refiner's shapes; the refiner's gradient
+    through K3 (queries, surface and normals) against autograd through the
+    plain versions on one clip.  Returns (launches, K3's and K4's
+    records)."""
+    import tempfile
+
+    from interdiff_torch.cli.optimization import generate_and_refine
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.eval.optimization import (
+        OptimConfig,
+        TERM_NAMES,
+        refiner_init,
+        refiner_loss,
+    )
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+    from interdiff_torch.geometry.normals import vertex_normals
+    from interdiff_torch.geometry.rotations import axis_angle_to_matrix
+    from interdiff_torch.smpl.model import smpl_forward
+
+    rng = np.random.default_rng(SEED + 47)
+    frames = REFINE_PAST + REFINE_FUTURE
+    model = rest_pose_mdm(REFINE_FUTURE)
+    cfg = SmplEvalConfig(past_len=REFINE_PAST, future_len=REFINE_FUTURE)
+    diffusion = DiffusionConfig(timestep_respacing=REFINE_RESPACING).build(
+        DEV)
+    ocfg = OptimConfig(iters=REFINE_ITERS, keep_after=150)
+    batch = _main_path_batch(rng, REFINE_CLIPS, frames, POINTS)
+    # warm-up: 2 respaced steps and 3 iterations on 2 clips
+    with tempfile.TemporaryDirectory() as out_dir:
+        generate_and_refine(
+            cfg, model, DiffusionConfig(timestep_respacing="2").build(DEV),
+            body, [{k: v[:2] for k, v in batch.items()}],
+            OptimConfig(iters=3, keep_after=1), out_dir=out_dir)
+    timings, outputs = {}, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(group, nn, sa)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        summary = generate_and_refine(
+            cfg, model, diffusion, body, [batch], ocfg, out_dir=out_dir,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            timings=timings, outputs=outputs,
+            extra={"respacing": REFINE_RESPACING})
+        written = sorted(os.listdir(out_dir))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _read_launches(group, nn, sa)
+    want = {**NO_LAUNCHES, "K1": 2, "K2": 2, "K3": REFINE_ITERS,
+            "K4": REFINE_ITERS}
+    refined = outputs[0]
+    terms = refined["terms"]  # [clips, iters, terms]
+    finite = {name: bool(torch.isfinite(terms[..., j]).all())
+              for j, name in enumerate(TERM_NAMES)}
+
+    # K3 and K4 at the refiner's shapes, on the refined clips
+    F = REFINE_CLIPS * frames
+    betas = torch.from_numpy(batch["body_betas"]).to(DEV)
+    obj_points = torch.from_numpy(batch["obj_points"][..., :3]).to(DEV)
+    with torch.no_grad():
+        verts = smpl_forward(body, refined["pose"].reshape(F, -1),
+                             betas.reshape(F, -1),
+                             refined["trans"].reshape(F, 3))[0]
+        normals = vertex_normals(verts, body.faces_idx, body.incident)
+        pts = (torch.einsum("cpj,ctij->ctpi", obj_points,
+                            axis_angle_to_matrix(refined["obj_angles"]))
+               + refined["obj_trans"][:, :, None]).reshape(F, POINTS, 3)
+    records = {"K3": _nn_at(nn, "K3 at the refiner's shape",
+                            pts.contiguous(), verts, normals),
+               "K4": _nn_at(nn, "K4 at the refiner's shape", verts,
+                            pts.contiguous(),
+                            library=lambda: torch.cdist(
+                                verts, pts.contiguous()).square()
+                            .min(dim=-1))}
+    # the refiner's gradient through K3 on clip 0, 0.01 off the refined
+    # parameters (off the kinks of |x|)
+    params, aux = refiner_init(
+        body, ocfg, body_pose=refined["pose"][:1, :, :66],
+        hand_pose=refined["pose"][:1, :, 66:], body_trans=refined["trans"][:1],
+        betas=betas[:1], obj_angles=refined["obj_angles"][:1],
+        obj_trans=refined["obj_trans"][:1], obj_points=obj_points[:1])
+    lrng = np.random.default_rng(SEED + 48)
+    one = {k: (v + torch.from_numpy((lrng.standard_normal(tuple(v.shape))
+                                     * 0.01).astype(np.float32)).to(DEV)
+               ).requires_grad_(True) for k, v in params.items()}
+    grad_err = _consumer_grads(
+        nn, lambda: refiner_loss(body, ocfg, one, 1.0, aux)[0].sum(), one,
+        {"signed_nearest": 1, "nearest_neighbor": 1})
+
+    line = {"phase": "refine", "gpu": gpu, "clips": REFINE_CLIPS,
+            "frames": frames, "past": REFINE_PAST, "points": POINTS,
+            "verts": body.num_verts, "respacing": REFINE_RESPACING,
+            "iters": REFINE_ITERS, "summary": summary, "wall_s": wall,
+            "part_s": timings,
+            "ms_per_refine_iteration": timings["refine"] * 1e3
+            / REFINE_ITERS, "launches": launched,
+            "launches_per_iteration": {"K3": launched["K3"] / REFINE_ITERS,
+                                       "K4": launched["K4"] / REFINE_ITERS},
+            "best_loss": refined["best_loss"].tolist(),
+            "trace_first_iteration": dict(zip(
+                TERM_NAMES, terms[:, 0].mean(dim=0).tolist())),
+            "trace_last_iteration": dict(zip(
+                TERM_NAMES, terms[:, -1].mean(dim=0).tolist())),
+            "trace_terms_finite": finite,
+            "consumer_gradient_vs_plain": grad_err,
+            "gradient_tolerance": GRAD_TOL["K3"],
+            "kernels_at_this_shape": records, "written": written,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(line)
+    if launched != want or not all(finite.values()) or written != [
+            "refined_1.npz", "summary.json"] or not all(
+            np.isfinite(summary[k]) for k in (
+                "penetrate_before", "penetrate_after", "depth_before",
+                "depth_after")) or not bool(
+            torch.isfinite(refined["best_loss"]).all()):
+        raise AssertionError(f"refine: {line}")
+    return launched, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2765,19 +3404,29 @@ def main() -> int:
     phase_profile(models, gpu)
     phase_profile_train(gpu)
     skeleton_launches = phase_skeleton(group, nn, sa, gpu)
+    phase_correction_cpu_vs_gpu(gpu)
+    correction_launches, at_train = phase_correction_train(
+        group, nn, sa, models[2], gpu)
+    refine_launches, at_refine = phase_refine(group, nn, sa, models[2], gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
-    # the skeleton track's entry points launch none of them
+    # the skeleton track's entry points launch none of them, the correction
+    # trainer of the SMPL track K3 and K4, the refiner K1-K4
     by_path = {"eval": eval_launches,
                "train": {"K2": 0, "K3": 0, "K4": 0, **train_launches},
-               **skeleton_launches}
+               **skeleton_launches, **correction_launches,
+               "refine": refine_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never ran on a main path: {by_path}")
-    if any(by_path[p] != NO_LAUNCHES for p in skeleton_launches):
+    no_kernel = list(skeleton_launches) + ["correction_train_skeleton"]
+    if any(by_path[p] != NO_LAUNCHES for p in no_kernel):
         raise AssertionError(f"a kernel ran on a skeleton path: {by_path}")
+    for key in ("K3", "K4"):
+        timed[key]["at_slice_shapes"] = {"correction_train": at_train[key],
+                                         "refine": at_refine[key]}
 
     print(gpu)
     emit({"kernels": [{
@@ -2794,7 +3443,8 @@ def main() -> int:
             "with_grouped_ms",
             "ptxas", "graph_replay_ms", "device_ms_by_kernel",
             "segment_flags_device_ms", "device_ms", "ms_back_to_back",
-            "library_device_ms", "library_ms_back_to_back")
+            "library_device_ms", "library_ms_back_to_back",
+            "at_slice_shapes")
            if k in timed[key]}}
         for key, name, source, replaces in (
             ("K1", "K1 ball_group", "ball_group.cu", "pallas_group.py:143"),

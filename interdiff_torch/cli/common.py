@@ -1,20 +1,31 @@
 """Shared set-up of the entry points (`interdiff_tpu/cli/common.py`):
 seeding, the `--synthetic` batches of both tracks and the stand-in body, the
-host-side batch iterator and stacker, and the loader of the port's own
-weight files.  The readers of orbax directories and of the
-reference's Lightning checkpoints are not ported: a checkpoint comes across
-once, through `utils/convert.py`, and is kept as a `torch.save`d state dict.
+host-side batch iterator and stacker, the loader of the port's own weight
+files and the loop of the two correction trainers.  The readers of orbax
+directories and of the reference's Lightning checkpoints are not ported: a
+checkpoint comes across once, through `utils/convert.py`, and is kept as a
+`torch.save`d state dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Iterator, Optional, Sequence, Tuple
+import os
+from typing import (
+    Callable,
+    Dict,
+    Iterable,
+    Iterator,
+    Optional,
+    Sequence,
+    Tuple,
+)
 
 import numpy as np
 import torch
 
 from interdiff_torch.smpl.model import SmplModel
 from interdiff_torch.utils.convert import load_state_dict
+from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
 
 
 def seed_everything(seed: int = 233) -> np.random.Generator:
@@ -138,6 +149,53 @@ def load_weights(module: torch.nn.Module, path: Optional[str]) -> None:
     if path:
         device = next(module.parameters()).device
         module.load_state_dict(load_state_dict(path, device), strict=True)
+
+
+def correction_train_loop(
+    projector: torch.nn.Module, state, step_for_epoch: Callable[[int],
+                                                                Callable],
+    epoch_batches: Callable[[], Iterable[Dict[str, np.ndarray]]],
+    keys: Sequence[str], *, results_dir: str, epochs: int, ckpt_every: int,
+    generator: Optional[torch.Generator] = None,
+    on_step: Optional[Callable] = None, log: Optional[Sequence[str]] = None
+) -> Tuple[object, Dict]:
+    """The loop of the correction trainers
+    (`interdiff_tpu/cli/train_correction_{smpl,skeleton}.py`): per epoch the
+    step ``step_for_epoch(epoch)`` over ``epoch_batches()`` (their ``keys``
+    placed on the projector's device), ``step(state, batch, generator,
+    epoch)``; every 10th step logs the metrics named in ``log`` (all of
+    them when None) and prints the loss; every ``ckpt_every`` epochs and after the last one the
+    projector's state dict (parameters and BatchNorm statistics) goes to
+    ``<results_dir>/ckpt/`` with the step's loss.  ``on_step(steps so far,
+    state, metrics)`` runs after every step, the metrics on the device.
+    Returns (state, {"steps", "loss": the last step's})."""
+    device = next(projector.parameters()).device
+    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
+    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
+    i, metrics = 0, None
+    for epoch in range(epochs):
+        step = step_for_epoch(epoch)
+        for batch in epoch_batches():
+            placed = {k: torch.as_tensor(batch[k], device=device)
+                      for k in keys}
+            state, metrics = step(state, placed, generator, float(epoch))
+            if i % 10 == 0:
+                logger.log(i, {k: metrics[k] for k in (log or metrics)},
+                           epoch=epoch)
+                print(f"step {i} loss {float(metrics['loss']):.4f}",
+                      flush=True)
+            i += 1
+            if on_step is not None:
+                on_step(i, state, metrics)
+        if metrics is not None and ((epoch + 1) % ckpt_every == 0
+                                    or epoch + 1 == epochs):
+            ckpt.save(i, projector.state_dict(),
+                      val_loss=float(metrics["loss"]))
+    ckpt.wait()
+    logger.close()
+    print("done:", i, "steps", flush=True)
+    return state, {"steps": i, "loss": None if metrics is None
+                   else float(metrics["loss"])}
 
 
 def synthetic_smpl_body(rng: np.random.Generator, *, num_verts: int = 128,

@@ -14,13 +14,15 @@ in frequency space.  Tensors are batch-first channels-last [B, T, V, C]; the
 marker choice is a masked `where` / `gather`, never boolean indexing, so
 shapes do not depend on the data.
 
-Inference mode only: the multinomial marker choice of training and the
-train-mode ST-GCNN layers are not ported yet.
+``train=True`` runs the ST-GCNN layers in train mode (batch statistics,
+the running ones moved by momentum; dropout from ``generator``) and, on the
+SMPL track, draws the marker multinomially instead of taking the first
+maximum.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -54,17 +56,18 @@ class _STStack(nn.Module):
     schedule, e.g. (9, 32, 16, 32, 9)."""
 
     def __init__(self, channels: Tuple[int, ...], time_dim: int,
-                 joints_dim: int, version: int):
+                 joints_dim: int, version: int, dropout: float = 0.0):
         super().__init__()
         self.depth = len(channels) - 1
         for i in range(self.depth):
             self.add_module(f"gcn{i}", STGCNNLayer(
                 channels[i], channels[i + 1], time_dim, joints_dim,
-                version=version))
+                version=version, dropout=dropout))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         for i in range(self.depth):
-            x = getattr(self, f"gcn{i}")(x)
+            x = getattr(self, f"gcn{i}")(x, train, generator)
         return x
 
 
@@ -78,7 +81,8 @@ class ObjProjectorCore(nn.Module):
 
     def __init__(self, num_nodes: int, n_pre: int, seq_len: int,
                  past_len: int,
-                 fusion_channels: Tuple[int, ...] = (9, 32, 16, 32, 9)):
+                 fusion_channels: Tuple[int, ...] = (9, 32, 16, 32, 9),
+                 dropout: float = 0.0):
         super().__init__()
         self.past_len = past_len
         dct, idct = dct_matrices(seq_len)
@@ -87,22 +91,23 @@ class ObjProjectorCore(nn.Module):
         self.register_buffer("idct", torch.from_numpy(idct[:, :n_pre].copy()),
                              persistent=False)  # [T, K]
         self.st_gcnns_relative = _STStack((9, 32, 16, 32, 9), n_pre,
-                                          num_nodes, version=0)
-        self.st_gcnns = _STStack((9, 32, 16, 32, 9), n_pre, 1, version=0)
+                                          num_nodes, 0, dropout)
+        self.st_gcnns = _STStack((9, 32, 16, 32, 9), n_pre, 1, 0, dropout)
         self.st_gcnns_all = _STStack(fusion_channels, n_pre, num_nodes + 1,
-                                     version=2)
+                                     2, dropout)
 
     def _fwd(self, x: torch.Tensor) -> torch.Tensor:
         return torch.einsum("kt,bt...->bk...", self.dct, x)
 
-    def forward(self, obj9: torch.Tensor, markers: torch.Tensor
-                ) -> torch.Tensor:
+    def forward(self, obj9: torch.Tensor, markers: torch.Tensor,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         # relative stream over P marker nodes
         rel_trans = obj9[:, :, None, 6:9] - markers  # [B,T,P,3]
         rot_rep = obj9[:, :, None, :6].expand(rel_trans.shape[:3] + (6,))
         rel = torch.cat([rot_rep, rel_trans], dim=-1)  # [B,T,P,9]
         rel = self._fwd(pad_future_with_last_past(rel, self.past_len))
-        rel = rel + self.st_gcnns_relative(rel)  # [B,K,P,9]
+        rel = rel + self.st_gcnns_relative(rel, train, generator)
 
         # relative -> absolute translation, in DCT space (linear, commutes);
         # the human markers are not future-padded (`:101-103`)
@@ -112,11 +117,11 @@ class ObjProjectorCore(nn.Module):
         # absolute single-node stream
         absn = self._fwd(
             pad_future_with_last_past(obj9, self.past_len))[:, :, None]
-        absn = absn + self.st_gcnns(absn)
+        absn = absn + self.st_gcnns(absn, train, generator)
 
         # fusion over P+1 nodes (spatio-temporal graph conv, version 2)
         fused = torch.cat([absn, multi], dim=2)  # [B,K,P+1,9]
-        fused = fused + self.st_gcnns_all(fused)
+        fused = fused + self.st_gcnns_all(fused, train, generator)
         return torch.einsum("tk,bk...->bt...", self.idct, fused)
 
 
@@ -128,42 +133,56 @@ class ObjProjectorSmpl(nn.Module):
     (xyz only), contact [B,P] the per-marker contact counts over the future
     frames (`:76`).  Marker choice: the mean over nodes when ``initialize``
     (early training epochs); otherwise the absolute node for samples
-    without contact and, for the rest, the first maximum of the contact
-    counts plus the 0.5 hand bias.
+    without contact and, for the rest, a marker by the weights ``contact +
+    0.5 hand bias``: their first maximum in eval mode, a multinomial draw
+    from ``generator`` in train mode (the JAX package draws
+    ``jax.random.categorical`` over their logarithms; a test passes that
+    draw as ``marker_idx``).
     """
 
     def __init__(self, num_markers: int = 67, n_pre: int = 10,
-                 past_len: int = 10, future_len: int = 25, device=None):
+                 past_len: int = 10, future_len: int = 25,
+                 dropout: float = 0.0, device=None):
         super().__init__()
+        self.past_len = past_len
         self.core = ObjProjectorCore(
             num_nodes=num_markers, n_pre=n_pre,
             seq_len=past_len + future_len, past_len=past_len,
-            fusion_channels=(9, 32, 16, 32, 9))
+            fusion_channels=(9, 32, 16, 32, 9), dropout=dropout)
         self.register_buffer(
             "hand_bias", torch.from_numpy(hand_bias_vector(num_markers)),
             persistent=False)
         self.to(resolve_device(device))
 
     def forward(self, obj9, markers, contact, *, initialize: bool = False,
-                train: bool = False):
+                train: bool = False, generator=None, marker_idx=None):
         return self.sample(obj9, markers, contact, initialize=initialize,
-                           train=train)
+                           train=train, generator=generator,
+                           marker_idx=marker_idx)
 
     def sample(self, obj9: torch.Tensor, markers: torch.Tensor,
                contact: torch.Tensor, *, initialize: bool = False,
-               train: bool = False) -> torch.Tensor:
-        """-> corrected [B, T, 9]."""
-        if train:
-            raise NotImplementedError(
-                "the multinomial marker choice of training comes with the "
-                "training slice of the port")
-        results = self.core(obj9, markers)  # [B,T,P+1,9]
+               train: bool = False,
+               generator: Optional[torch.Generator] = None,
+               marker_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """-> corrected [B, T, 9].  ``marker_idx`` [B] overrides the
+        marker choice (train or eval mode)."""
+        results = self.core(obj9, markers, train, generator)  # [B,T,P+1,9]
         if initialize:
             return results.mean(dim=2)
 
         has_contact = contact.sum(dim=-1) > 0  # [B]
         weights = contact.to(torch.float32) + self.hand_bias  # [B,P]
-        idx = torch.argmax(weights, dim=-1)  # first maximum on ties
+        if marker_idx is not None:
+            idx = marker_idx.to(torch.int64)
+        elif train:
+            # contact counts are never negative in real data; a random
+            # batch's are clamped, where the JAX package's log turns them
+            # into NaN logits
+            idx = torch.multinomial(weights.clamp(min=0.0), 1,
+                                    generator=generator)[:, 0]
+        else:
+            idx = torch.argmax(weights, dim=-1)  # first maximum on ties
         B, T = results.shape[:2]
         pick = (idx + 1)[:, None, None, None].expand(B, T, 1, 9)
         marker_pick = results.gather(2, pick)[:, :, 0]  # [B,T,9]
@@ -181,32 +200,32 @@ class ObjProjectorSkeleton(nn.Module):
     """
 
     def __init__(self, num_joints: int = 21, n_pre: int = 20,
-                 past_len: int = 10, future_len: int = 10, device=None):
+                 past_len: int = 10, future_len: int = 10,
+                 dropout: float = 0.0, device=None):
         super().__init__()
+        self.past_len = past_len
         seq_len = past_len + future_len
         self.core = ObjProjectorCore(
             num_nodes=num_joints,
             n_pre=min(n_pre, seq_len),  # no more DCT coefficients than frames
             seq_len=seq_len, past_len=past_len,
-            fusion_channels=(9, 64, 32, 64, 9))
+            fusion_channels=(9, 64, 32, 64, 9), dropout=dropout)
         self.to(resolve_device(device))
 
     def forward(self, obj_quat_xyzw, obj_trans, joints, *,
-                train: bool = False):
-        return self.sample(obj_quat_xyzw, obj_trans, joints, train=train)
+                train: bool = False, generator=None):
+        return self.sample(obj_quat_xyzw, obj_trans, joints, train=train,
+                           generator=generator)
 
     def sample(self, obj_quat_xyzw: torch.Tensor, obj_trans: torch.Tensor,
-               joints: torch.Tensor, *, train: bool = False
+               joints: torch.Tensor, *, train: bool = False,
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """quat [B,T,4] xyzw, trans [B,T,3], joints [B,T,J,3] ->
         (corrected quat xyzw [B,T,4], corrected trans [B,T,3])."""
-        if train:
-            raise NotImplementedError(
-                "train-mode ST-GCNN layers come with the correction-training "
-                "slice of the port")
         rot6d = matrix_to_rotation_6d(
             quaternion_to_matrix(quat_xyzw_to_wxyz(obj_quat_xyzw)))
         obj9 = torch.cat([rot6d, obj_trans], dim=-1)
-        results = self.core(obj9, joints)[:, :, 0]  # the absolute node
+        results = self.core(obj9, joints, train, generator)[:, :, 0]
         quat = matrix_to_quaternion(rotation_6d_to_matrix(results[..., :6]))
         return quat_wxyz_to_xyzw(quat), results[..., 6:9]

@@ -7,11 +7,14 @@ bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
 (flax ``kernel`` is the transposed ``weight``), ``TorchMHA`` keeps the
 packed ``in_proj_kernel`` [D, 3D] layout, QaN layers keep ``queries``
 [N, D] and ``wk`` [N, 1].  Every layer is post-norm, LayerNorm eps is 1e-5,
-GELU is the exact erf form.  Dropout is inference-only (rate 0 in every
-reference run), so it is not modelled.  ``BatchNormEval`` (the correction
-networks) runs on its running statistics; ``BatchNorm`` (the PointNet++
-encoder) also has flax's train mode and keeps its statistics as parameters,
-because the JAX package's default train step optimises them.
+GELU is the exact erf form.  Dropout in the transformer layers is
+inference-only (rate 0 in every reference run), so it is not modelled
+there; the ST-GCNN layers model it in train mode, from an explicit
+generator.  Both BatchNorms have flax's train mode: ``BatchNormState`` (the
+correction networks) keeps its running statistics as buffers, state that
+the correction trainers move by momentum and never optimise;
+``BatchNorm`` (the PointNet++ encoder) keeps them as parameters, because
+the JAX package's default diffusion train step optimises them.
 """
 
 from __future__ import annotations
@@ -245,33 +248,10 @@ def mdm_stack_kinds(num_layers: int, cross: bool) -> Tuple[str, ...]:
 # ---------------------------------------------------------------------------
 
 
-class BatchNormEval(nn.Module):
-    """BatchNorm over the last axis on running statistics (eps 1e-5), with
-    flax's arithmetic: (x - mean) * (scale * rsqrt(var + eps)) + bias."""
-
-    def __init__(self, channels: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
-
-
-class BatchNorm(BatchNormEval):
-    """``BatchNormEval`` whose running statistics are parameters, with a
-    train mode.
-
-    In the JAX package's default train step the encoder's ``batch_stats``
-    sit inside the optimised tree: the loss is differentiated with respect
-    to them and AdamW steps them.  So here ``running_mean`` and
-    ``running_var`` (same state-dict names) are parameters; a trainer that
-    wants them out of the optimiser (``bn_train_mode``) switches their
-    ``requires_grad`` off and calls ``forward(x, train=True)``.
+class BatchNormState(nn.Module):
+    """BatchNorm over the last axis with flax's arithmetic, eps 1e-5:
+    (x - mean) * (scale * rsqrt(var + eps)) + bias, the running statistics
+    held as buffers (``running_mean``, ``running_var``).
 
     ``train=True`` is flax's `nn.BatchNorm(use_running_average=False,
     momentum=0.9)`: statistics over every axis but the last, the variance
@@ -282,25 +262,47 @@ class BatchNorm(BatchNormEval):
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9):
-        super().__init__(channels, eps)
+        super().__init__()
+        self.eps = eps
         self.momentum = momentum
-        for name in ("running_mean", "running_var"):
-            value = self._buffers.pop(name)
-            self.register_parameter(name, nn.Parameter(value))
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x, train: bool = False):
         if not train:
-            return super().forward(x)
-        axes = tuple(range(x.ndim - 1))
-        mean = x.mean(dim=axes)
-        var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
-        with torch.no_grad():
-            for running, batch in ((self.running_mean, mean),
-                                   (self.running_var, var)):
-                running.mul_(self.momentum).add_(batch,
-                                                 alpha=1.0 - self.momentum)
+            mean, var = self.running_mean, self.running_var
+        else:
+            axes = tuple(range(x.ndim - 1))
+            mean = x.mean(dim=axes)
+            var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            with torch.no_grad():
+                for running, batch in ((self.running_mean, mean),
+                                       (self.running_var, var)):
+                    running.mul_(self.momentum).add_(
+                        batch, alpha=1.0 - self.momentum)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+
+class BatchNorm(BatchNormState):
+    """``BatchNormState`` whose running statistics are parameters.
+
+    In the JAX package's default train step the encoder's ``batch_stats``
+    sit inside the optimised tree: the loss is differentiated with respect
+    to them and AdamW steps them.  So here ``running_mean`` and
+    ``running_var`` (same state-dict names) are parameters; a trainer that
+    wants them out of the optimiser (``bn_train_mode``) switches their
+    ``requires_grad`` off and calls ``forward(x, train=True)``.
+    """
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
+        super().__init__(channels, eps, momentum)
+        for name in ("running_mean", "running_var"):
+            value = self._buffers.pop(name)
+            self.register_parameter(name, nn.Parameter(value))
 
 
 def _uniform(shape: Tuple[int, ...], bound: float) -> nn.Parameter:
@@ -342,23 +344,39 @@ class GraphConv(nn.Module):
 
 class STGCNNLayer(nn.Module):
     """`ST_GCNN_layer` (`layers.py:271-345`), channels-last [B, T, V, C]:
-    gcn -> 1x1 conv (Linear over C) -> BatchNorm, plus a residual (identity,
-    or 1x1 conv + BatchNorm when the channels change), then a PReLU with one
-    shared slope (the 0-d parameter ``prelu``).  Inference mode only."""
+    gcn -> 1x1 conv (Linear over C) -> BatchNorm -> dropout, plus a
+    residual (identity, or 1x1 conv + BatchNorm when the channels change),
+    then a PReLU with one shared slope (the 0-d parameter ``prelu``).
+
+    ``forward(x, train=True)`` normalises with batch statistics and moves
+    the running ones (`BatchNormState`), then drops out at ``dropout`` with
+    flax's inverted scaling, the mask drawn from ``generator``.  The
+    running statistics are buffers, so ``parameters()`` is exactly the
+    flax ``params`` tree that the JAX correction step differentiates."""
 
     def __init__(self, in_channels: int, out_channels: int, time_dim: int,
-                 joints_dim: int, version: int = 0):
+                 joints_dim: int, version: int = 0, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.has_res_conv = in_channels != out_channels
         if self.has_res_conv:
             self.res_conv = nn.Linear(in_channels, out_channels)
-            self.res_bn = BatchNormEval(out_channels)
+            self.res_bn = BatchNormState(out_channels)
         self.gcn = GraphConv(time_dim, joints_dim, version)
         self.tcn_conv = nn.Linear(in_channels, out_channels)
-        self.tcn_bn = BatchNormEval(out_channels)
+        self.tcn_bn = BatchNormState(out_channels)
         self.prelu = nn.Parameter(torch.tensor(0.25))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        res = self.res_bn(self.res_conv(x)) if self.has_res_conv else x
-        h = self.tcn_bn(self.tcn_conv(self.gcn(x))) + res
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        res = (self.res_bn(self.res_conv(x), train)
+               if self.has_res_conv else x)
+        h = self.tcn_bn(self.tcn_conv(self.gcn(x)), train)
+        if train and self.dropout > 0.0:
+            keep = 1.0 - self.dropout
+            mask = torch.rand(h.shape, generator=generator,
+                              device=h.device) < keep
+            h = torch.where(mask, h / keep, 0.0)
+        h = h + res
         return torch.where(h >= 0, h, self.prelu * h)

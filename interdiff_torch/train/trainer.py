@@ -1,13 +1,13 @@
-"""The diffusion train steps of both tracks (`interdiff_tpu/train/trainer.py`):
-AdamW, the timestep samplers, the EMA shadow and, on the SMPL track, the
-two BatchNorm modes of the PointNet++ encoder.
+"""The train steps of both tracks (`interdiff_tpu/train/trainer.py`): the
+diffusion steps with AdamW, the timestep samplers, the EMA shadow and, on
+the SMPL track, the two BatchNorm modes of the PointNet++ encoder; and the
+correction networks' steps with Adam.
 
 Where the JAX package threads an immutable `TrainState` through a jitted
 function, the port updates in place: the parameters live in the `MDMSmpl`
 module, ``state.params`` names them, the optimiser steps them, and a step
-returns the same state object with its counter advanced.  The correction
-steps and the data-parallel wrapper (`data_parallel_step`) are not ported
-yet.
+returns the same state object with its counter advanced.  The
+data-parallel wrapper (`data_parallel_step`) is not ported yet.
 
 BatchNorm modes.  Default: the encoder's BatchNorms normalise with their
 running statistics, which are parameters, are differentiated and are stepped
@@ -18,7 +18,9 @@ running statistics move by momentum and stay out of the optimiser;
 :func:`split_bn_state` takes them out.
 
 The denoisers run as they are built, in eval mode, as the JAX steps run
-them (``train=False``).
+them (``train=False``).  The correction projectors run in train mode: their
+BatchNorm running statistics are buffers, moved by momentum in the forward
+(flax's ``mutable=["batch_stats"]``), and Adam sees only the parameters.
 """
 
 from __future__ import annotations
@@ -34,6 +36,14 @@ from interdiff_torch.diffusion.resample import (
     LossSecondMomentResampler,
     UniformSampler,
 )
+from interdiff_torch.geometry.rotations import (
+    axis_angle_to_matrix,
+    matrix_to_rotation_6d,
+)
+from interdiff_torch.models.correction import (
+    ObjProjectorSkeleton,
+    ObjProjectorSmpl,
+)
 from interdiff_torch.models.mdm_skeleton import MDMSkeleton
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
 from interdiff_torch.train.losses import (
@@ -41,6 +51,11 @@ from interdiff_torch.train.losses import (
     SmplLossWeights,
     skeleton_diffusion_losses,
     smpl_diffusion_losses,
+)
+from interdiff_torch.train.losses_correction import (
+    CorrectionLossWeights,
+    correction_skeleton_losses,
+    correction_smpl_losses,
 )
 from interdiff_torch.utils.train_io import quartile_metrics
 
@@ -282,6 +297,138 @@ def make_smpl_train_step(
         if resampler is not None:
             state.sampler_state = resampler.update(state.sampler_state, t,
                                                    per_sample)
+        return state, metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# correction networks (BatchNorm running statistics are state)
+# ---------------------------------------------------------------------------
+
+
+def adam(lr: float = 3e-4) -> Callable[[Any], torch.optim.Optimizer]:
+    """`optax.adam(lr)` as ``tx(parameters) -> optimiser``: betas 0.9 and
+    0.999, eps 1e-8, no weight decay, the ``foreach`` implementation."""
+    def tx(parameters) -> torch.optim.Optimizer:
+        return torch.optim.Adam(parameters, lr=lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=0.0, foreach=True)
+    return tx
+
+
+@dataclass
+class CorrectionTrainState:
+    """Step counter, the projector's parameters by name (the flax
+    ``params`` tree), its BatchNorm running statistics by name (the flax
+    ``batch_stats``, buffers the forward moves in place) and Adam over the
+    parameters."""
+
+    step: int
+    params: Params
+    batch_stats: Params
+    optimizer: torch.optim.Optimizer
+
+    @classmethod
+    def create(cls, projector: torch.nn.Module, tx
+               ) -> "CorrectionTrainState":
+        params = dict(projector.named_parameters())
+        stats = {k: v for k, v in projector.state_dict(keep_vars=True).items()
+                 if k.rsplit(".", 1)[-1] in _BN_STATS}
+        return cls(step=0, params=params, batch_stats=stats,
+                   optimizer=tx(list(params.values())))
+
+    def apply_gradients(self) -> "CorrectionTrainState":
+        self.optimizer.step()
+        self.step += 1
+        return self
+
+
+def _no_tf32() -> None:
+    # parity with the JAX package, which pins Precision.HIGHEST
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def correction_smpl_inputs(batch: Dict[str, torch.Tensor], past_len: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(obj_gt [B,T,9] rot6d | trans, contact [B,P] the per-marker contact
+    counts over the future frames) of a correction batch."""
+    contact = batch["markers"][:, past_len:, :, 6].sum(dim=1)
+    rot6d = matrix_to_rotation_6d(axis_angle_to_matrix(batch["obj_angles"]))
+    return torch.cat([rot6d, batch["obj_trans"]], dim=-1), contact
+
+
+def make_correction_smpl_train_step(
+    projector: ObjProjectorSmpl, *,
+    weights: Optional[CorrectionLossWeights] = None,
+    initialize: bool = False,
+) -> Callable:
+    """`train_correction_smpl.py:187-189,263`: contact and penetration plus
+    the 8 pose terms.  ``initialize`` is the mean-marker mode of the first
+    10 epochs, a plain bool: build one step per phase.
+
+    Returns ``step(state, batch, generator=None, epoch=0, *,
+    marker_idx=None) -> (state, metrics)``.  ``batch`` holds tensors
+    ``obj_angles`` / ``obj_trans`` [B,T,3] (axis-angle), ``markers``
+    [B,T,67,7] (xyz | normal | contact), ``human_verts`` [B,T,V,7] and
+    ``obj_points`` [B,P,>=3].  The marker of each sample is drawn from
+    ``generator`` (and so is dropout) unless ``marker_idx`` [B] is given,
+    which is how a test hands this step the JAX step's draw.  ``metrics``:
+    ``loss`` and the 10 weighted terms, 0-d tensors on the device.
+    """
+    _no_tf32()
+    weights = weights or CorrectionLossWeights()
+
+    def step(state: CorrectionTrainState, batch, generator=None,
+             epoch: float = 0, *, marker_idx=None):
+        obj_gt, contact = correction_smpl_inputs(batch, projector.past_len)
+        obj_pred = projector.sample(
+            obj_gt, batch["markers"][..., :3], contact,
+            initialize=initialize, train=True, generator=generator,
+            marker_idx=marker_idx)
+        loss, terms = correction_smpl_losses(
+            obj_pred, obj_gt, past_len=projector.past_len,
+            obj_points=batch["obj_points"], human_verts=batch["human_verts"],
+            epoch=epoch, weights=weights)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics["loss"] = loss.detach()
+        return state, metrics
+
+    return step
+
+
+def make_correction_skeleton_train_step(
+    projector: ObjProjectorSkeleton, *,
+    weights: Optional[CorrectionLossWeights] = None,
+) -> Callable:
+    """`train_correction_skeleton.py:128-160`: the quaternion-space 8-term
+    loss.  Returns ``step(state, batch, generator=None, epoch=0) ->
+    (state, metrics)``; ``batch`` holds ``skeleton`` [B,T,21,3] and
+    ``poses`` [B,T,7] (trans | quat xyzw).  ``generator`` feeds dropout
+    only; ``epoch`` is accepted for the SMPL step's signature."""
+    _no_tf32()
+    weights = weights or CorrectionLossWeights()
+
+    def step(state: CorrectionTrainState, batch, generator=None,
+             epoch: float = 0):
+        poses = batch["poses"]
+        quat_gt, trans_gt = poses[..., 3:7], poses[..., :3]
+        quat_p, trans_p = projector.sample(quat_gt, trans_gt,
+                                           batch["skeleton"], train=True,
+                                           generator=generator)
+        # [quat | trans], so that [..., :-3] / [..., -3:] split as the ref
+        obj_pred = torch.cat([quat_p, trans_p], dim=-1)
+        obj_gt = torch.cat([quat_gt, trans_gt], dim=-1)
+        loss, terms = correction_skeleton_losses(
+            obj_pred, obj_gt, past_len=projector.past_len, weights=weights)
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.apply_gradients()
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics["loss"] = loss.detach()
         return state, metrics
 
     return step

@@ -14,6 +14,12 @@ only renames leaves and transposes dense kernels:
 The tree is nested dicts of numpy arrays (``jax.device_get`` of the flax
 variables); the bridge itself needs neither jax nor flax.
 
+``torch_to_flax_variables`` goes back, for a module whose state dict came
+this way: a 2-D ``weight`` is a dense kernel (transposed back), a 1-D one a
+``scale``, ``running_mean`` / ``running_var`` land in ``batch_stats``.  It
+lets a test hand both packages one training state, the projector's batch
+statistics included.
+
 ``save_state_dict`` / ``load_state_dict`` keep a bridged ``state_dict`` in the
 port's own checkpoint format, a plain `torch.save` of the dict, which the
 entry points read (`cli/eval_smpl_short.py --diffusion_ckpt`).
@@ -68,6 +74,33 @@ def flax_to_torch_state_dict(variables: Mapping) -> Dict[str, torch.Tensor]:
             if key in out:
                 raise ValueError(f"two flax leaves map to {key}")
             out[key] = torch.from_numpy(np.array(value, order="C"))
+    return out
+
+
+def torch_to_flax_variables(state: Mapping[str, torch.Tensor]
+                            ) -> Dict[str, Dict]:
+    """A state dict of :func:`flax_to_torch_state_dict`'s naming ->
+    ``{"params": ..., "batch_stats": ...}`` of nested dicts of numpy
+    arrays; the inverse of that function."""
+    stat_leaves = {v: k for k, v in _STAT_NAMES.items()}
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, tensor in state.items():
+        module, _, leaf = key.rpartition(".")
+        value = tensor.detach().cpu().numpy()
+        if leaf in stat_leaves:
+            collection, leaf = "batch_stats", stat_leaves[leaf]
+        elif leaf == "weight" and value.ndim in (1, 2):
+            collection = "params"
+            leaf = "kernel" if value.ndim == 2 else "scale"
+            value = value.T if value.ndim == 2 else value
+        elif leaf in _PARAM_COPIED:
+            collection = "params"
+        else:
+            raise ValueError(f"no flax leaf for {key}")
+        node = out[collection]
+        for part in module.split(".") if module else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(value, order="C")
     return out
 
 

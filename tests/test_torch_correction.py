@@ -165,9 +165,15 @@ def test_projector_marker_choice(projectors):
     w = torch.tensor([[1.0, 3.5, 3.5, 0.0]])
     assert int(torch.argmax(w, dim=-1)) == 1 == int(
         jnp.argmax(jnp.asarray(w.numpy()), axis=-1)[0])
-    with pytest.raises(NotImplementedError, match="training"):
-        tproj.sample(*map(torch.from_numpy, (obj9, markers, contact)),
-                     train=True)
+    # an explicit choice overrides the first maximum (the train-mode path
+    # takes the JAX package's draw this way)
+    with torch.no_grad():
+        forced = tproj.sample(*map(torch.from_numpy, (obj9, markers,
+                                                      contact)),
+                              marker_idx=torch.tensor([40, 0, 50]))
+    for row, node in ((0, 1 + 40), (1, 0), (2, 1 + 50)):
+        torch.testing.assert_close(forced[row], nodes[row, :, node],
+                                   atol=1e-4, rtol=0)
 
 
 def test_bridge_maps_every_projector_leaf_once_and_rejects_unknown(projectors):

@@ -11,6 +11,8 @@ coefficients, fusion channels 9-64-32-64-9) runs on a fresh flax tree with
 every leaf redrawn, moved over by the weight bridge; tolerance 1e-4 (module
 forwards, PARITY.md row 6)."""
 
+import copy
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -113,9 +115,18 @@ def test_projector_layout(projectors):
     assert core.st_gcnns_all.gcn0.tcn_conv.out_features == 64
     assert core.st_gcnns_all.gcn1.tcn_conv.out_features == 32
     assert tuple(core.st_gcnns_relative.gcn0.gcn.T.shape) == (20, 20)
-    with pytest.raises(NotImplementedError, match="train"):
-        tproj.sample(*(torch.zeros(B, T, *s) for s in ((4,), (3,), (J, 3))),
-                     train=True)
+    # the running statistics are buffers, which train mode moves; a copy,
+    # so that the module-scoped projector keeps its statistics
+    names = {n.rsplit(".", 1)[-1] for n, _ in tproj.named_parameters()}
+    assert not names & {"running_mean", "running_var"}
+    trained = copy.deepcopy(tproj)
+    quat = torch.zeros(B, T, 4)
+    quat[..., 3] = 1.0
+    with torch.no_grad():
+        trained.sample(quat, *(torch.zeros(B, T, *s) for s in ((3,), (J, 3))),
+                       train=True)
+    key = "core.st_gcnns_all.gcn0.tcn_bn.running_mean"
+    assert not torch.equal(trained.state_dict()[key], tproj.state_dict()[key])
 
 
 def test_projector_sample_matches_jax(projectors):

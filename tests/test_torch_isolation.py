@@ -34,14 +34,16 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 48
+    assert n_modules >= 53
     for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa",
                    "cli.train_diffusion_smpl", "train.trainer",
                    "train.losses", "diffusion.resample", "diffusion.nn",
                    "ops.gather", "utils.train_io", "cli.eval_skeleton",
                    "cli.train_diffusion_skeleton", "eval.skeleton",
                    "models.mdm_skeleton", "data.skeleton",
-                   "geometry.rotations_np"):
+                   "geometry.rotations_np", "train.losses_correction",
+                   "eval.optimization", "cli.train_correction_smpl",
+                   "cli.train_correction_skeleton", "cli.optimization"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -180,3 +182,54 @@ def test_skeleton_entry_points_stop_without_a_card(monkeypatch, tmp_path):
                                "--batch_size", "2", "--respacing", "2",
                                "--mode", "no_correction"])
     assert n == 1
+
+
+_RUN_CORRECTION = r"""
+import sys, tempfile
+from interdiff_torch.cli import optimization, train_correction_smpl
+with tempfile.TemporaryDirectory() as results:
+    _, summary = train_correction_smpl.main([
+        "--device", "cpu", "--synthetic", "1", "--batch_size", "2",
+        "--past_len", "3", "--future_len", "3", "--dct", "4",
+        "--synthetic_verts", "16", "--synthetic_points", "16",
+        "--results_dir", results])
+    refined = optimization.main([
+        "--device", "cpu", "--synthetic", "1", "--diffusion_ckpt", "",
+        "--batch_size", "1", "--respacing", "2", "--iters", "2",
+        "--past_len", "3", "--future_len", "3", "--out_dir", results])
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                 "interdiff_tpu")]
+assert summary["steps"] == 1 and refined["batches"] == 1 and not banned, (
+    summary, refined, banned)
+"""
+
+
+def test_correction_and_refine_entry_points_run_without_jax():
+    out = subprocess.run([sys.executable, "-c", _RUN_CORRECTION], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "done: 1 steps" in out.stdout
+
+
+def test_correction_and_refine_entry_points_stop_without_a_card(
+        monkeypatch, tmp_path):
+    """The two correction trainers and the refiner, asked for the default
+    device with no CUDA device present, raise before any step."""
+    from interdiff_torch.cli import (
+        optimization,
+        train_correction_skeleton,
+        train_correction_smpl,
+    )
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    results = str(tmp_path / "results")
+    for main, argv in (
+            (train_correction_smpl.main, ["--results_dir", results]),
+            (train_correction_skeleton.main, ["--results_dir", results]),
+            (optimization.main, ["--out_dir", results]),
+            (optimization.main, ["--out_dir", results,
+                                 "--diffusion_ckpt", ""])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            main(["--synthetic", "1", "--batch_size", "2"] + argv)
+    assert not os.path.exists(results)
