@@ -159,18 +159,49 @@ Phases, each printing JSON lines (any failure exits non-zero):
    the refiner's shapes, K4 beside `torch.cdist`'s time; the refiner's gradient through K3 with respect to
    the queries, the surface and its normals against autograd through the
    plain versions.
+14. behave_cpu_vs_gpu: a small corpus of `write_behave_corpus` (one train
+   and one test sequence of 120 frames, 512 points) with the 128-vertex
+   stand-in body read back from its SMPL-H pkl on each device: the
+   load-time vertices within LOAD_TOL, the normals within NORMALS_TOL (and
+   within LOAD_TOL of the CPU's normals of the card's vertices), each
+   device with its own normals cache; the clips' start frames and the arrays that do not go
+   through FK identical, the translations within LOAD_TOL; `evaluate` of 2
+   light test clips at "5" respacing with correction, the same batch and
+   noise on both: every metric within 1e-4.
+15. behave: the dataset routes at full width on a written corpus (2 train
+   and 2 test sequences of 1,408 frames, 2048 points; the V=6890 stand-in
+   body as SMPLH_{male,female}.pkl, read back through the loader): the load
+   (seconds per sequence of FK + normals and of the files), seconds per
+   clip of canonicalization with light and full fields; `evaluate` on 32
+   test clips, 4 diverse samples, correction, "100" respacing (launches K1
+   2, K2 4, K4 4, K3 2); 20 steps of the diffusion trainer on the train
+   split with a validation on the first test batch (K1 42); 20 steps of
+   the correction trainer on 16 clips with every field, the host's data
+   seconds apart (K3 = K4 = 20); the refiner's dataset route on 8 test
+   clips, 200 iterations (K2 2, K3 = K4 = 200).
+16. long_eval: `cli/eval_smpl_long.py` at its CLI's defaults (8 test
+   clips, 4 rollouts, 1000 DDPM steps, ``--mode correction``) on that
+   corpus through ``--model_path``: `setup` from the parsed flags, the
+   serving weights of `full_width_models`, `evaluate_long` on one batch:
+   seconds per chunk, sequences per second, launches per batch K1 10 (5
+   encodes), K2 55, K4 55, K3 0, the rollout [8, 135, 144] finite, the
+   drift of each window; then that batch at "100" respacing from one seed
+   through the kernels and through their plain versions
+   (`_plain_kernels`): the trajectories within PLAIN_TRAJECTORY_TOL.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
-its own, beside the skeleton paths' zeros, the correction trainers' and
-the refiner's; K6's of its opt-in routes, K5's of the backward with
+its own, beside the skeleton paths' zeros, the correction trainers',
+the refiner's, the dataset routes' and the long-term eval's; K6's of its
+opt-in routes, K5's of the backward with
 respect to the cloud; K3 and K4 also at this slice's shapes), and the
 device line.  Weights and data come from numpy seeds;
 no file outside this repository and no network is needed.  The run uses one
 card: it sees only device 0 unless CUDA_VISIBLE_DEVICES says otherwise, and
 stops if that shows more than one.  A few minutes on an H100.  Depth cut to
 fit: the full-sweep sampler path runs 100 respaced steps, the fused-route
-sampler call 100, the validations inside the train phases 25.
+sampler call 100, the validations inside the train phases 25, the
+dataset-mode eval 100, the long-term eval one batch of its three.
 """
 
 from __future__ import annotations
@@ -1724,6 +1755,140 @@ def rest_pose_mdm(future_len: int = FUTURE):
             layer.weight.mul_(0.05)
             layer.bias.copy_(torch.tensor(bias))
     return model
+
+
+BEHAVE_CATEGORIES = ("backpack", "chairwood", "boxlarge", "yogaball")
+
+
+@contextlib.contextmanager
+def _chumpy_stub():
+    """Modules `chumpy` and `chumpy.ch` with a class `Ch` holding its array
+    as ``x``, so that a pickle names the class as the SMPL-H model files
+    do; the previous entries of `sys.modules` come back afterwards."""
+    import types
+
+    saved = {m: sys.modules.get(m) for m in ("chumpy", "chumpy.ch")}
+
+    class Ch:
+        def __init__(self, x):
+            self.x = np.asarray(x)
+
+    Ch.__module__, Ch.__qualname__ = "chumpy.ch", "Ch"
+    chumpy, ch = types.ModuleType("chumpy"), types.ModuleType("chumpy.ch")
+    ch.Ch = chumpy.Ch = Ch
+    chumpy.ch = ch
+    sys.modules.update({"chumpy": chumpy, "chumpy.ch": ch})
+    try:
+        yield Ch
+    finally:
+        for m, mod in saved.items():
+            if mod is None:
+                sys.modules.pop(m, None)
+            else:
+                sys.modules[m] = mod
+
+
+def write_smplh_pkl(path: str, body) -> None:
+    """``body`` (the port's `SmplModel`) as an SMPL-H model pkl in the
+    official layout: chumpy arrays, a scipy-sparse `J_regressor`,
+    `kintree_table` with the root's parent 2**32-1, faces `f` as uint32."""
+    import pickle
+
+    import scipy.sparse
+
+    def host(name):
+        return getattr(body, name).cpu().numpy().astype(np.float64)
+
+    parents = body.parents.astype(np.int64)
+    parents[0] = 2 ** 32 - 1
+    with _chumpy_stub() as Ch:
+        data = {
+            "v_template": Ch(host("v_template")),
+            "shapedirs": Ch(host("shapedirs")),
+            "posedirs": Ch(host("posedirs")),
+            "J_regressor": scipy.sparse.csc_matrix(host("j_regressor")),
+            "weights": Ch(host("weights")),
+            "kintree_table": np.stack(
+                [parents, np.arange(len(parents), dtype=np.int64)]),
+            "f": body.faces.astype(np.uint32),
+            "bs_style": "lbs",
+        }
+        with open(path, "wb") as f:
+            pickle.dump(data, f, protocol=2)
+
+
+def _smooth_walk(rng, frames: int, dims: int, step: float,
+                 keep: float = 0.99) -> np.ndarray:
+    """[frames, dims] mean-reverting random walk, then a 9-frame moving
+    average: smooth motion about 0 with a spread of about
+    step / sqrt(1 - keep**2)."""
+    noise = rng.standard_normal((frames, dims)) * step
+    x = np.zeros((frames, dims))
+    for t in range(1, frames):
+        x[t] = keep * x[t - 1] + noise[t]
+    pad = np.concatenate([np.repeat(x[:1], 4, 0), x, np.repeat(x[-1:], 4, 0)])
+    return np.stack([pad[t:t + frames] for t in range(9)]).mean(0)
+
+
+def write_behave_corpus(root: str, body, rng, *, sequences: int = 2,
+                        frames: int = 1408, points: int = 2048):
+    """A BEHAVE-format corpus on disk, as `data/behave.py` reads it:
+    ``sequences`` train (Date01_*) and as many test (Date03_*) sequences of
+    ``frames`` frames under ``<root>/sequence/<name>/`` (smpl_fit_all.npz
+    poses [N,156], betas, trans; object_fit_all.npz angles, trans;
+    contact.npz with the object's template points and normals [P,6], the
+    per-frame contact index lists of the object and the body and the
+    foot-contact joint label; info.json gender and category), and ``body``
+    as ``<root>/models/SMPLH_{male,female}.pkl`` (`write_smplh_pkl`).  The
+    motion is a smooth seeded walk of the pose (the yaw wider than the
+    rest) and of the translation, the object walks along beside the body;
+    genders alternate.  Returns (motion_path, model_path)."""
+    motion_path = os.path.join(root, "sequence")
+    model_path = os.path.join(root, "models")
+    os.makedirs(model_path, exist_ok=True)
+    for gender in ("male", "female"):
+        write_smplh_pkl(os.path.join(model_path, f"SMPLH_{gender}.pkl"), body)
+    V = body.num_verts
+    for date, sub in (("Date01", "Sub01"), ("Date03", "Sub03")):
+        for k in range(sequences):
+            cat = BEHAVE_CATEGORIES[k % len(BEHAVE_CATEGORIES)]
+            seq_dir = os.path.join(motion_path, f"{date}_{sub}_{cat}_{k}")
+            os.makedirs(seq_dir, exist_ok=True)
+            pose = np.concatenate([
+                _smooth_walk(rng, frames, 3, 0.01) * [0.3, 3.0, 0.3],
+                _smooth_walk(rng, frames, 63, 0.02),
+                _smooth_walk(rng, frames, 90, 0.01)], axis=1)
+            trans = (_smooth_walk(rng, frames, 3, 0.01, keep=0.999)
+                     * [1.0, 0.05, 1.0] + [0.0, 0.9, 0.0])
+            betas = np.broadcast_to(rng.standard_normal(10) * 0.5,
+                                    (frames, 10))
+            obj_angles = _smooth_walk(rng, frames, 3, 0.02)
+            obj_trans = trans + [0.3, -0.2, 0.1] \
+                + _smooth_walk(rng, frames, 3, 0.003)
+            np.savez(os.path.join(seq_dir, "smpl_fit_all.npz"),
+                     poses=pose.astype(np.float32),
+                     betas=betas.astype(np.float32),
+                     trans=trans.astype(np.float32))
+            np.savez(os.path.join(seq_dir, "object_fit_all.npz"),
+                     angles=obj_angles.astype(np.float32),
+                     trans=obj_trans.astype(np.float32))
+            contact = {
+                "object_points": object_cloud(rng, 1, points)[0],
+                "object_contact_vertex_label": [
+                    np.sort(rng.choice(points, rng.integers(0, 40),
+                                       replace=False))
+                    for _ in range(frames)],
+                "human_contact_vertex_label": [
+                    np.sort(rng.choice(V, rng.integers(0, min(V, 40)),
+                                       replace=False))
+                    for _ in range(frames)],
+                "foot_contact_joint_label": rng.integers(10, 12, frames),
+            }
+            np.savez(os.path.join(seq_dir, "contact.npz"), contact)
+            with open(os.path.join(seq_dir, "info.json"), "w") as f:
+                json.dump({"gender": ("male", "female")[k % 2], "cat": cat},
+                          f)
+    return motion_path, model_path
 
 
 def _reset_launches(group, nn, sa) -> None:
@@ -3374,6 +3539,516 @@ def phase_refine(group, nn, sa, body, gpu: str) -> tuple:
     return launched, records
 
 
+# the BEHAVE phases: 2 train and 2 test sequences of 1,408 frames (the
+# length of BEHAVE's Date01_Sub01_backpack_back), 2048 points a template
+BEHAVE_SEQUENCES, BEHAVE_FRAMES = 2, 1408
+BEHAVE_EVAL_RESPACING, BEHAVE_DIVERSE = "100", 4
+BEHAVE_TRAIN_STEPS, BEHAVE_CORR_CLIPS = 20, 16
+BEHAVE_REFINE_CLIPS, BEHAVE_CANON_CLIPS = 8, 16
+# the long-term eval at its CLI's defaults
+LONG_CLIPS, LONG_ROLLOUTS, LONG_CHECK_RESPACING = 8, 4, "100"
+LONG_HORIZON = 10 + (1 + LONG_ROLLOUTS) * FUTURE
+# card against CPU: load-time FK and normals, the small dataset-mode eval
+LOAD_TOL = 1e-5
+LOAD_TOL_REASON = ("summation order of the card's FK and normals against "
+                   "the CPU's, full f32 (no TF32)")
+# the normals of the card's load against the CPU's: a normal is the
+# normalized sum of its faces' cross products, and on the 128-vertex
+# stand-in body the smallest sums turn vertices 1e-6 apart into normals
+# 1.3e-5 apart (measured on the CPU by perturbing the vertices)
+NORMALS_TOL = 1e-4
+NORMALS_TOL_REASON = ("vertices within LOAD_TOL, amplified about 13x by "
+                      "the normalization of the smallest sums of face "
+                      "normals; the normals of the card's vertices are held "
+                      "to the CPU's of the same vertices within LOAD_TOL")
+PLAIN_TRAJECTORY_TOL = 1e-5
+PLAIN_TRAJECTORY_TOL_REASON = (
+    "every kernel is bitwise equal to its plain version (phase kernels), so "
+    "the trajectories should be equal; only a run-to-run difference of the "
+    "library calls around the kernels could move them")
+
+
+def _timed_iter(batches, seconds: list):
+    """``batches`` with the host seconds of each ``next`` appended to
+    ``seconds`` (reading the clips: windows, canonicalization, collate)."""
+    it = iter(batches)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            return
+        seconds.append(time.perf_counter() - t0)
+        yield batch
+
+
+def _behave_loads(motion_path: str, models: dict, mode: str) -> tuple:
+    """(sequences, their normals caches removed first, so that the forward
+    runs) of one split."""
+    from interdiff_torch.data.behave import load_behave_sequences, split_names
+
+    for name in split_names(motion_path, mode):
+        cache = os.path.join(motion_path, name, "human_normal.npz")
+        if os.path.exists(cache):
+            os.remove(cache)
+    timings = {}
+    seqs = load_behave_sequences(motion_path, smpl_models=models, mode=mode,
+                                 timings=timings)
+    return seqs, timings
+
+
+def phase_behave_cpu_vs_gpu(gpu: str) -> None:
+    """The data path on the card against the CPU on a small corpus
+    (`write_behave_corpus`: one train and one test sequence of 120 frames,
+    512 points) and the 128-vertex stand-in body read back from its pkl:
+    the load-time vertices within LOAD_TOL, the normals within NORMALS_TOL
+    and within LOAD_TOL of the CPU's normals of the card's vertices, each
+    device with its own normals cache; the clips' start frames and the
+    arrays that do not go through FK (poses, object angles) identical, the
+    translations (the FK pelvis is their centroid) within LOAD_TOL; then
+    `evaluate` of
+    2 light clips of the test split, with correction, at "5" respacing,
+    the same batch and noise on both: every metric within 1e-4."""
+    import tempfile
+
+    from interdiff_torch.cli.common import synthetic_smpl_body
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.config import (
+        CorrectionConfig,
+        DiffusionConfig,
+        SmplTrackConfig,
+    )
+    from interdiff_torch.data.behave import BehaveDataset, collate
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+    from interdiff_torch.geometry.normals import vertex_normals
+    from interdiff_torch.smpl.loader import smpl_model_from_pkl
+
+    rng = np.random.default_rng(SEED + 60)
+    body = synthetic_smpl_body(np.random.default_rng(SEED + 61),
+                               device="cpu")
+    state = seeded_state(SmplTrackConfig(**SMALL).build_model("cpu"),
+                         SEED + 62)
+    projector_state = seeded_state(
+        CorrectionConfig(num_nodes=40, dct=4).build_model("cpu"), SEED + 63)
+    noises = [(torch.from_numpy(rng.standard_normal(
+        (4, FRAMES, 144)).astype(np.float32)), torch.from_numpy(
+            rng.standard_normal((5, 4, FRAMES, 144)).astype(np.float32)))]
+    line = {"phase": "behave_cpu_vs_gpu", "gpu": gpu, "frames": 120,
+            "points": 512, "verts": body.num_verts,
+            "load_tolerance": LOAD_TOL, "load_tolerance_reason":
+            LOAD_TOL_REASON}
+    with tempfile.TemporaryDirectory() as root:
+        motion_path, model_path = write_behave_corpus(
+            root, body, rng, sequences=1, frames=120, points=512)
+        loaded, clips, metrics = {}, {}, {}
+        for dev in ("cpu", DEV):
+            bodies = {g: smpl_model_from_pkl(
+                os.path.join(model_path, f"SMPLH_{g}.pkl"), device=dev)
+                for g in ("male", "female")}
+            seqs = {m: _behave_loads(motion_path, bodies, m)[0]
+                    for m in ("train", "test")}
+            loaded[dev] = seqs
+            ds = BehaveDataset(seqs["test"], rng=np.random.default_rng(5),
+                               fields="light")
+            clips[dev] = collate([ds[i] for i in range(len(ds))])
+            track = SmplTrackConfig(**SMALL, diffusion=DiffusionConfig(
+                timestep_respacing="5"))
+            model = track.build_model(dev)
+            model.load_state_dict(state, strict=True)
+            projector = CorrectionConfig(num_nodes=40,
+                                         dct=4).build_model(dev)
+            projector.load_state_dict(projector_state, strict=True)
+            batch = {k: v[:2] for k, v in clips["cpu"].items()}
+            totals, _ = evaluate(
+                SmplEvalConfig(correction_t_max=4, correction_every=2),
+                model, track.diffusion.build(dev), bodies["male"], [batch],
+                projector=projector, diverse_samples=2, diverse_fold=2,
+                markers_idx=SMALL_MARKERS,
+                noises=iter([tuple(t.to(dev) for t in pair)
+                             for pair in noises]),
+                report=lambda nb, means: None)
+            metrics[dev] = totals
+    load_err = {}
+    for mode in ("train", "test"):
+        for a, b in zip(loaded["cpu"][mode], loaded[DEV][mode]):
+            verts = torch.from_numpy(b.human_verts[..., :3].copy())
+            parts = {"verts": (a.human_verts[..., :3], b.human_verts[..., :3]),
+                     "normals": (a.human_verts[..., 3:], b.human_verts[..., 3:]),
+                     # the card's normals against the CPU's of the card's
+                     # vertices: the normals' own arithmetic
+                     "normals_of_card_verts": (vertex_normals(
+                         verts, body.faces_idx, body.incident).numpy(),
+                         b.human_verts[..., 3:])}
+            parts.update({k: (a.__dict__[k], b.__dict__[k]) for k in (
+                "pelvis", "left_foot", "right_foot")})
+            for key, (x, y) in parts.items():
+                err = float(np.abs(x - y).max())
+                load_err[key] = max(load_err.get(key, 0.0), err)
+    exact = ("body_pose", "obj_angles", "start_frame", "gender",
+             "obj_points", "ground_joint_label")
+    clip_equal = {k: bool(np.array_equal(clips["cpu"][k], clips[DEV][k]))
+                  for k in exact}
+    clip_err = {k: float(np.abs(clips["cpu"][k] - clips[DEV][k]).max())
+                for k in ("body_trans", "pelvis", "obj_trans")}
+    metric_err = {k: abs(metrics["cpu"][k] - metrics[DEV][k])
+                  for k in metrics["cpu"]}
+    line.update(load_max_abs_err=load_err, normals_tolerance=NORMALS_TOL,
+                normals_tolerance_reason=NORMALS_TOL_REASON,
+                clips=len(clips["cpu"]["start_frame"]),
+                start_frames=clips[DEV]["start_frame"].tolist(),
+        clip_arrays_identical=clip_equal, clip_max_abs_err=clip_err,
+        evaluate_metrics_cuda=metrics[DEV], evaluate_max_abs_err=metric_err,
+        evaluate_tolerance=1e-4, evaluate_tolerance_reason=(
+            CORRECTED_TOL_REASON + "; one penetrating point that flips "
+            "between devices moves penetrate by 3.9e-5 here"))
+    emit(line)
+    if not (load_err.pop("normals") <= NORMALS_TOL
+            and max(load_err.values()) <= LOAD_TOL
+            and all(clip_equal.values())
+            and max(clip_err.values()) <= LOAD_TOL
+            and max(metric_err.values()) <= 1e-4):
+        raise AssertionError(f"behave_cpu_vs_gpu: {line}")
+
+
+def _behave_corpus(root: str, body) -> tuple:
+    """The full-size corpus of the BEHAVE phases under ``root`` and the
+    bodies read back from its pkls on the card: (motion_path, model_path,
+    bodies, seconds to write)."""
+    from argparse import Namespace
+
+    from interdiff_torch.cli.common import load_smpl_models
+
+    t0 = time.perf_counter()
+    motion_path, model_path = write_behave_corpus(
+        root, body, np.random.default_rng(SEED + 64),
+        sequences=BEHAVE_SEQUENCES, frames=BEHAVE_FRAMES, points=POINTS)
+    written = time.perf_counter() - t0
+    bodies = load_smpl_models(Namespace(model_path=model_path,
+                                        synthetic_body=False), DEV)
+    return motion_path, model_path, bodies, written
+
+
+def phase_behave(group, nn, sa, models, gpu: str) -> dict:
+    """The dataset routes of the four SMPL entry points at full width on a
+    written corpus (`write_behave_corpus`: BEHAVE_SEQUENCES train and test
+    sequences of BEHAVE_FRAMES frames, 2048 points; the V=6890 stand-in
+    body read back from its SMPL-H pkl): the load (seconds per sequence of
+    FK + normals on the card, and of reading the files), canonicalization
+    seconds per clip with light and with full fields; the eval entry
+    point's `evaluate` on one batch of 32 test clips, 4 diverse samples,
+    correction, "100" respacing; `train(...)` of the diffusion trainer for
+    BEHAVE_TRAIN_STEPS steps on the train split with a validation on the
+    first test batch at "25"; `train(...)` of the correction trainer, 16
+    clips with every field, BEHAVE_TRAIN_STEPS steps (half in the
+    initialize phase), the host's data seconds apart; the refiner's
+    dataset route on 8 test clips, 200 iterations.  Each path's launches
+    are asserted.  Returns the launches by path."""
+    import tempfile
+
+    from interdiff_torch.cli.common import batch_iterator
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.cli.optimization import refine_dataset
+    from interdiff_torch.cli.train_correction_smpl import (
+        train as train_correction,
+    )
+    from interdiff_torch.cli.train_diffusion_smpl import train
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.data.behave import BehaveDataset, collate
+    from interdiff_torch.eval.optimization import OptimConfig
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+
+    mdm, projector, body = models
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        motion_path, _, bodies, write_s = _behave_corpus(root, body)
+        train_seqs, train_t = _behave_loads(motion_path, bodies, "train")
+        test_seqs, test_t = _behave_loads(motion_path, bodies, "test")
+        n_seq = train_t["sequences"] + test_t["sequences"]
+        load = {"sequences": n_seq, "frames": BEHAVE_FRAMES,
+                "write_corpus_s": write_s,
+                "forward_s_per_sequence": (train_t["forward"]
+                                           + test_t["forward"]) / n_seq,
+                "read_s_per_sequence": (train_t["read"] + test_t["read"])
+                / n_seq}
+        canon = {}
+        for fields in ("light", "full"):
+            ds = BehaveDataset(train_seqs, rng=np.random.default_rng(SEED),
+                               fields=fields)
+            t0 = time.perf_counter()
+            for i in range(BEHAVE_CANON_CLIPS):
+                ds[i]
+            canon[fields] = (time.perf_counter() - t0) / BEHAVE_CANON_CLIPS
+        load["canonicalize_s_per_clip"] = canon
+        emit({"phase": "behave", "part": "load", "gpu": gpu, **load})
+
+        # the eval entry point, one batch of 32 test clips
+        rng = np.random.default_rng(SEED + 65)
+        test_light = BehaveDataset(test_seqs, rng=rng, fields="light")
+        batch = next(iter(batch_iterator(test_light, collate,
+                                         batch_size=CLIPS, rng=rng,
+                                         shuffle=False)))
+        diffusion = DiffusionConfig(
+            timestep_respacing=BEHAVE_EVAL_RESPACING).build(DEV)
+        timings = {}
+        torch.cuda.synchronize()
+        _reset_launches(group, nn, sa)
+        t0 = time.perf_counter()
+        totals, nb = evaluate(
+            SmplEvalConfig(), mdm, diffusion, bodies["male"], [batch],
+            projector=projector, diverse_samples=BEHAVE_DIVERSE,
+            diverse_fold=FOLD,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            report=lambda n, means: None, timings=timings)
+        wall = time.perf_counter() - t0
+        launched = _read_launches(group, nn, sa)
+        calls = BEHAVE_DIVERSE // FOLD
+        # "100" respacing: the gate fires at the respaced t = 50 and 0
+        want = {**NO_LAUNCHES, "K1": 2, "K2": 2 * calls, "K4": 2 * calls,
+                "K3": calls}
+        by_path["behave_eval"] = launched
+        line = {"phase": "behave", "part": "eval", "gpu": gpu,
+                "clips": CLIPS, "diverse_samples": BEHAVE_DIVERSE,
+                "respacing": BEHAVE_EVAL_RESPACING, "metrics": totals,
+                "batches": nb, "wall_s": wall, "part_s": timings,
+                "sequences_per_s": CLIPS * BEHAVE_DIVERSE / wall,
+                "launches": launched}
+        emit(line)
+        if launched != want or not all(np.isfinite(v)
+                                       for v in totals.values()):
+            raise AssertionError(f"behave eval: {line}")
+
+        # the diffusion trainer on the train split
+        train_light = BehaveDataset(train_seqs, rng=rng, fields="light")
+        val_batch = next(iter(batch_iterator(test_light, collate,
+                                             batch_size=CLIPS, rng=rng,
+                                             shuffle=False)))
+        per_epoch = len(train_light) // CLIPS
+        data_s = []
+        model = _train_model()
+        with tempfile.TemporaryDirectory() as results:
+            rec = _timed_train(lambda on_step: train(
+                model, DiffusionConfig().build(DEV),
+                lambda: _timed_iter(batch_iterator(
+                    train_light, collate, batch_size=CLIPS, rng=rng),
+                    data_s),
+                results_dir=results,
+                epochs=BEHAVE_TRAIN_STEPS // per_epoch,
+                val_every=BEHAVE_TRAIN_STEPS // per_epoch,
+                val_diffusion=DiffusionConfig(
+                    timestep_respacing="25").build(DEV),
+                val_batch=val_batch,
+                generator=torch.Generator(device=DEV).manual_seed(SEED),
+                on_step=on_step), group, nn, sa)
+        steps = rec["summary"]["steps"]
+        want = {**NO_LAUNCHES, "K1": 2 * steps + 2}  # + the validation
+        by_path["behave_train"] = rec["launches"]
+        line = {"phase": "behave", "part": "train", "gpu": gpu,
+                "clips": CLIPS, "steps": steps,
+                "ms_per_step_median": statistics.median(rec["step_ms"][1:]),
+                "data_s_per_step": sum(data_s) / len(data_s),
+                "losses_first_last": [rec["losses"][0], rec["losses"][-1]],
+                "val_loss": rec["summary"]["val_loss"],
+                "wall_s": rec["wall_s"], "launches": rec["launches"],
+                "peak_mem_gb": rec["peak_mem_gb"]}
+        emit(line)
+        if steps != BEHAVE_TRAIN_STEPS or rec["launches"] != want or \
+                not np.isfinite(rec["losses"]).all():
+            raise AssertionError(f"behave train: {line}")
+
+        # the correction trainer, every field of a clip
+        train_full = BehaveDataset(train_seqs, rng=rng)
+        per_epoch = len(train_full) // BEHAVE_CORR_CLIPS
+        data_s = []
+        corr = _correction_projectors(DEV, small=False)[0]
+        with tempfile.TemporaryDirectory() as results:
+            rec = _timed_train(lambda on_step: train_correction(
+                corr, lambda: _timed_iter(batch_iterator(
+                    train_full, collate, batch_size=BEHAVE_CORR_CLIPS,
+                    rng=rng), data_s),
+                results_dir=results,
+                epochs=BEHAVE_TRAIN_STEPS // per_epoch,
+                initialize_epochs=BEHAVE_TRAIN_STEPS // per_epoch // 2,
+                generator=torch.Generator(device=DEV).manual_seed(SEED),
+                on_step=on_step), group, nn, sa)
+        steps = rec["summary"]["steps"]
+        want = {**NO_LAUNCHES, "K3": steps, "K4": steps}
+        by_path["behave_correction_train"] = rec["launches"]
+        step_ms = statistics.median(rec["step_ms"][1:])
+        line = {"phase": "behave", "part": "correction_train", "gpu": gpu,
+                "clips": BEHAVE_CORR_CLIPS, "steps": steps,
+                "ms_per_step_median": step_ms,
+                "data_s_per_step": sum(data_s) / len(data_s),
+                "device_and_dispatch_ms_per_step":
+                    step_ms - 1e3 * statistics.median(data_s),
+                "losses_first_last": [rec["losses"][0], rec["losses"][-1]],
+                "wall_s": rec["wall_s"], "launches": rec["launches"],
+                "peak_mem_gb": rec["peak_mem_gb"]}
+        emit(line)
+        if steps != BEHAVE_TRAIN_STEPS or rec["launches"] != want or \
+                not np.isfinite(rec["losses"]).all():
+            raise AssertionError(f"behave correction_train: {line}")
+
+        # the refiner's dataset route, 8 ground-truth test clips
+        refine_ds = BehaveDataset(test_seqs, past_len=REFINE_PAST,
+                                  future_len=REFINE_FUTURE, fields="light")
+        timings = {}
+        torch.cuda.synchronize()
+        _reset_launches(group, nn, sa)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out_dir:
+            summary = refine_dataset(
+                bodies, refine_ds, OptimConfig(
+                    iters=REFINE_ITERS, keep_after=min(150,
+                                                       REFINE_ITERS - 2)),
+                past_len=REFINE_PAST, out_dir=out_dir,
+                batch_size=BEHAVE_REFINE_CLIPS, limit=BEHAVE_REFINE_CLIPS,
+                timings=timings)
+            written = len(os.listdir(out_dir))
+        wall = time.perf_counter() - t0
+        launched = _read_launches(group, nn, sa)
+        want = {**NO_LAUNCHES, "K2": 2, "K3": REFINE_ITERS,
+                "K4": REFINE_ITERS}
+        by_path["behave_refine"] = launched
+        line = {"phase": "behave", "part": "refine", "gpu": gpu,
+                "clips": BEHAVE_REFINE_CLIPS, "iters": REFINE_ITERS,
+                "summary": summary, "wall_s": wall, "part_s": timings,
+                "ms_per_refine_iteration": timings["refine"] * 1e3
+                / REFINE_ITERS, "launches": launched}
+        emit(line)
+        if launched != want or written != BEHAVE_REFINE_CLIPS + 1 or \
+                not all(np.isfinite(summary[k]) for k in (
+                    "penetrate_before", "penetrate_after", "depth_before",
+                    "depth_after")):
+            raise AssertionError(f"behave refine: {line}")
+    return by_path
+
+
+@contextlib.contextmanager
+def _plain_kernels(group, nn, frames: int = 16):
+    """Every kernel wrapper of the sampler's path (K1, K2, K3, K4) runs its
+    plain version on the card inside the block, ``frames`` frames at a time
+    for the sweeps (a whole [280, 2048, 6890] score tensor is 16 GB)."""
+    saved = (group.group_cuda, nn.signed_nearest_pruned_cuda,
+             nn.signed_nearest_cuda, nn.nearest_neighbor_cuda)
+
+    def chunked(plain):
+        def run(a, *rest):
+            parts = [plain(a[s:s + frames], *(r[s:s + frames]
+                                              if torch.is_tensor(r) else r
+                                              for r in rest))
+                     for s in range(0, a.shape[0], frames)]
+            return tuple(torch.cat(p) for p in zip(*parts))
+        return run
+
+    group.group_cuda = group.group_plain
+    nn.signed_nearest_pruned_cuda = chunked(nn.signed_nearest_pruned_plain)
+    nn.signed_nearest_cuda = chunked(nn.signed_nearest_plain)
+    nn.nearest_neighbor_cuda = chunked(nn.nearest_neighbor_plain)
+    try:
+        yield
+    finally:
+        (group.group_cuda, nn.signed_nearest_pruned_cuda,
+         nn.signed_nearest_cuda, nn.nearest_neighbor_cuda) = saved
+
+
+def phase_long_eval(group, nn, sa, models, gpu: str) -> dict:
+    """The long-term eval entry point at its CLI's defaults (8 test clips,
+    4 rollouts, 1000 DDPM steps, ``--mode correction``) on a written
+    corpus read through ``--model_path``: `cli/eval_smpl_long.py::setup`
+    from the parsed flags, with the serving weights of `full_width_models`
+    in place of the seeded ones, then `evaluate_long` on its first batch:
+    seconds per chunk, sequences per second, launches (per batch 5 encodes'
+    K1, 55 K2, 55 K4, 0 K3), the rollout [8, 135, 144] finite, the drift of
+    each window.  Then the same batch at "100" respacing twice from one
+    seed, through the kernels and through their plain versions
+    (`_plain_kernels`): the trajectories within PLAIN_TRAJECTORY_TOL.
+    Returns the launches of the main run."""
+    import tempfile
+
+    from interdiff_torch.cli.eval_smpl_long import (
+        build_parser,
+        evaluate_long,
+        setup,
+    )
+    from interdiff_torch.config import DiffusionConfig
+
+    mdm, projector, body = models
+    with tempfile.TemporaryDirectory() as root:
+        motion_path, model_path, _, _ = _behave_corpus(root, body)
+        out_dir = os.path.join(root, "out")
+        args = build_parser().parse_args([
+            "--motion_path", motion_path, "--model_path", model_path,
+            "--mode", "correction", "--out_dir", out_dir])
+        t0 = time.perf_counter()
+        parts = setup(args, DEV)
+        setup_s = time.perf_counter() - t0
+        parts.update(model=mdm, projector=projector)
+        batch = next(iter(parts.pop("batches")))
+        timings, outputs = {}, []
+        torch.cuda.synchronize()
+        _reset_launches(group, nn, sa)
+        summary = evaluate_long(**parts, batches=[batch], max_batches=1,
+                                timings=timings, outputs=outputs)
+        launched = _read_launches(group, nn, sa)
+        calls = 1 + LONG_ROLLOUTS
+        firings = 11 * calls
+        want = {**NO_LAUNCHES, "K1": 2 * calls, "K2": firings,
+                "K4": firings}
+        full = outputs[0]
+        written = sorted(os.listdir(out_dir))
+        steps = parts["diffusion"].num_timesteps
+        line = {"phase": "long_eval", "gpu": gpu, "clips": LONG_CLIPS,
+                "rollouts": LONG_ROLLOUTS, "steps": steps,
+                "horizon": LONG_HORIZON, "setup_s": setup_s,
+                "part_s": timings,
+                "s_per_chunk": timings["rollout"] / timings["chunks"],
+                "ms_per_ddpm_step": timings["rollout"] * 1e3
+                / (timings["chunks"] * steps),
+                "sequences_per_s": LONG_CLIPS / timings["rollout"],
+                "launches": launched, "launches_want": want,
+                "rollout_shape": list(full.shape),
+                "rollout_finite": bool(torch.isfinite(full).all()),
+                "drift_per_window": summary, "written": written}
+        emit(line)
+        if launched != want or tuple(full.shape) != (
+                LONG_CLIPS, LONG_HORIZON, 144) or not line[
+                "rollout_finite"] or written != [
+                "drift_metrics.json", "rollout_0.npy"] or len(summary) != \
+                calls or not all(np.isfinite(v) for w in summary
+                                 for v in w.values()):
+            raise AssertionError(f"long_eval: {line}")
+
+        # kernels against their plain versions on the whole path
+        parts["diffusion"] = DiffusionConfig(
+            timestep_respacing=LONG_CHECK_RESPACING).build(DEV)
+        runs = {}
+        for route in ("kernels", "plain"):
+            outs = []
+            parts["generator"] = torch.Generator(device=DEV).manual_seed(
+                SEED)
+            before = _read_launches(group, nn, sa)
+            with (_plain_kernels(group, nn) if route == "plain"
+                  else contextlib.nullcontext()):
+                evaluate_long(**{**parts, "out_dir": out_dir + route},
+                              batches=[batch], max_batches=1, outputs=outs)
+            after = _read_launches(group, nn, sa)
+            runs[route] = (outs[0], {k: after[k] - before[k]
+                                     for k in after})
+        err = float((runs["kernels"][0] - runs["plain"][0]).abs().max())
+        line = {"phase": "long_eval", "part": "kernels_vs_plain", "gpu": gpu,
+                "respacing": LONG_CHECK_RESPACING,
+                "launches_kernels": runs["kernels"][1],
+                "launches_plain": runs["plain"][1],
+                "trajectory_max_abs_diff": err,
+                "tolerance": PLAIN_TRAJECTORY_TOL,
+                "tolerance_reason": PLAIN_TRAJECTORY_TOL_REASON}
+        emit(line)
+        if any(runs["plain"][1].values()) or not err <= \
+                PLAIN_TRAJECTORY_TOL or runs["kernels"][1]["K2"] != 2 * calls:
+            raise AssertionError(f"long_eval kernels_vs_plain: {line}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3408,6 +4083,9 @@ def main() -> int:
     correction_launches, at_train = phase_correction_train(
         group, nn, sa, models[2], gpu)
     refine_launches, at_refine = phase_refine(group, nn, sa, models[2], gpu)
+    phase_behave_cpu_vs_gpu(gpu)
+    behave_launches = phase_behave(group, nn, sa, models, gpu)
+    long_launches = phase_long_eval(group, nn, sa, models, gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
@@ -3416,7 +4094,8 @@ def main() -> int:
     by_path = {"eval": eval_launches,
                "train": {"K2": 0, "K3": 0, "K4": 0, **train_launches},
                **skeleton_launches, **correction_launches,
-               "refine": refine_launches}
+               "refine": refine_launches, **behave_launches,
+               "long_eval": long_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:

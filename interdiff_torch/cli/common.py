@@ -1,7 +1,10 @@
 """Shared set-up of the entry points (`interdiff_tpu/cli/common.py`):
 seeding, the `--synthetic` batches of both tracks and the stand-in body, the
 host-side batch iterator and stacker, the loader of the port's own weight
-files and the loop of the two correction trainers.  The readers of orbax
+files, the loop of the two correction trainers, and the data route of the
+SMPL entry points: the flags ``--motion_path``, ``--model_path``,
+``--config`` and ``--synthetic_body``, the SMPL-H bodies and the BEHAVE
+splits.  The readers of orbax
 directories and of the reference's Lightning checkpoints are not ported: a
 checkpoint comes across once, through `utils/convert.py`, and is kept as a
 `torch.save`d state dict.
@@ -10,11 +13,13 @@ checkpoint comes across once, through `utils/convert.py`, and is kept as a
 from __future__ import annotations
 
 import os
+from argparse import ArgumentParser, Namespace
 from typing import (
     Callable,
     Dict,
     Iterable,
     Iterator,
+    List,
     Optional,
     Sequence,
     Tuple,
@@ -23,6 +28,9 @@ from typing import (
 import numpy as np
 import torch
 
+from interdiff_torch.data.behave import BehaveSequence, load_behave_sequences
+from interdiff_torch.data.paths import load_paths
+from interdiff_torch.smpl.loader import smpl_model_from_pkl
 from interdiff_torch.smpl.model import SmplModel
 from interdiff_torch.utils.convert import load_state_dict
 from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
@@ -250,3 +258,74 @@ def synthetic_smpl_body(rng: np.random.Generator, *, num_verts: int = 128,
         posedirs=rng.standard_normal((V, 3, 9 * (J - 1))) * 0.001,
         j_regressor=jr, weights=w, parents=parents, faces=faces,
         device=device)
+
+
+def add_data_args(parser: ArgumentParser) -> None:
+    """The data-route flags of the SMPL entry points."""
+    parser.add_argument("--motion_path", default=None,
+                        help="folder of BEHAVE sequences (<name>/"
+                             "{smpl_fit_all,object_fit_all,contact}.npz, "
+                             "info.json); Date03* sequences are the test "
+                             "split")
+    parser.add_argument("--model_path", default=None,
+                        help="folder of SMPLH_{male,female}.pkl")
+    parser.add_argument("--config", default=None,
+                        help="YAML path config (BEHAVE.yml/HOI.yml style; "
+                             "needs PyYAML)")
+    parser.add_argument("--synthetic_body", action="store_true",
+                        help="the sequences of --motion_path on the "
+                             "6890-vertex stand-in body instead of the "
+                             "SMPL-H pkls")
+
+
+def check_data_args(parser: ArgumentParser, args: Namespace) -> None:
+    """Choose the data route: ``--synthetic N`` alone, or ``--motion_path``
+    with ``--model_path`` or ``--synthetic_body`` (either path may come
+    from ``--config``); stops through ``parser.error`` otherwise."""
+    dataset = [f"--{n}" for n in ("motion_path", "model_path", "config")
+               if getattr(args, n)]
+    dataset += ["--synthetic_body"] if args.synthetic_body else []
+    if args.synthetic and dataset:
+        parser.error(f"--synthetic N and {', '.join(dataset)} are two data "
+                     "routes: give one")
+    if args.config:
+        paths = load_paths(args.config)
+        args.motion_path = args.motion_path or paths.motion_path
+        args.model_path = args.model_path or paths.model_path
+    if not args.synthetic and not (
+            args.motion_path and (args.model_path or args.synthetic_body)):
+        parser.error("--motion_path and --model_path are required (or "
+                     "--synthetic N, or --motion_path with "
+                     "--synthetic_body)")
+
+
+def load_smpl_models(args: Namespace, device) -> Dict[str, SmplModel]:
+    """The bodies of the dataset route, by gender, on ``device``: the
+    SMPLH_{male,female}.pkl of ``--model_path``, or with
+    ``--synthetic_body`` the 6890-vertex stand-in body from seed 0 for
+    both (`interdiff_tpu/cli/common.py::load_smpl_models`)."""
+    if args.synthetic_body:
+        body = synthetic_smpl_body(np.random.default_rng(0), num_verts=6890,
+                                   device=device)
+        return {"male": body, "female": body}
+    return {g: smpl_model_from_pkl(
+        os.path.join(args.model_path, f"SMPLH_{g}.pkl"), device=device)
+        for g in ("male", "female")}
+
+
+def load_eval_sequences(motion_path: str,
+                        smpl_models: Dict[str, SmplModel],
+                        mode: str = "test",
+                        timings: Optional[Dict[str, float]] = None
+                        ) -> List[BehaveSequence]:
+    """The ``mode`` split of ``motion_path``, falling back to the train
+    split when a partial corpus has no Date03* sequence; the forward runs on
+    the bodies' device."""
+    seqs = load_behave_sequences(motion_path, smpl_models=smpl_models,
+                                 mode=mode, timings=timings)
+    if not seqs and mode == "test":
+        print("no Date03* test sequences under", motion_path,
+              "- falling back to the train split", flush=True)
+        seqs = load_behave_sequences(motion_path, smpl_models=smpl_models,
+                                     mode="train", timings=timings)
+    return seqs

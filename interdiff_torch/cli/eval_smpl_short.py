@@ -4,17 +4,22 @@ metrics, with the physics-informed correction in the sampling loop unless
 ``--mode no_correction``.
 
 Usage:
-  python -m interdiff_torch.cli.eval_smpl_short --synthetic N \\
-      [--mode correction] [--diverse_samples 10] [--sampler ddpm] \\
-      [--diffusion_ckpt model.pt] [--correction_ckpt projector.pt] \\
-      [--device cpu]
+  python -m interdiff_torch.cli.eval_smpl_short --motion_path DIR \\
+      --model_path <SMPLH pkl dir> [--mode correction] \\
+      [--diverse_samples 10] [--sampler ddpm] [--diffusion_ckpt model.pt] \\
+      [--correction_ckpt projector.pt] [--device cpu]
+  python -m interdiff_torch.cli.eval_smpl_short --synthetic N ...
 
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
-device and without ``--device`` it stops.  The checkpoints are state dicts
-written by `utils/convert.py::save_state_dict`; without them the weights are
-the modules' seeded initial ones.  Real BEHAVE sequences (``--motion_path``),
-several devices (``--mesh_devices``) and rendering (``--render_dir``) are not
-ported yet, and the parser does not know those flags.
+device and without ``--device`` it stops.  The dataset route reads the test
+split of ``--motion_path`` (the train split when it has no Date03*
+sequence; ``--config`` may name both paths, ``--synthetic_body`` stands in
+for the pkls) and scores every clip on the male body, as the JAX CLI does.
+The checkpoints are state dicts written by
+`utils/convert.py::save_state_dict`; without them the weights are the
+modules' seeded initial ones.  Rendering (``--render_dir``, ``--obj_mesh``)
+is not ported yet and stops with an error; several devices
+(``--mesh_devices``) are not ported, and the parser does not know the flag.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any body, models and iterator of batches.
@@ -31,6 +36,12 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    add_data_args,
+    batch_iterator,
+    check_data_args,
+    fit_batch_size,
+    load_eval_sequences,
+    load_smpl_models,
     load_weights,
     seed_everything,
     synthetic_smpl_batches,
@@ -41,6 +52,7 @@ from interdiff_torch.config import (
     DiffusionConfig,
     SmplTrackConfig,
 )
+from interdiff_torch.data.behave import BehaveDataset, collate
 from interdiff_torch.data.constants import MARKERSET_SSM67_SMPLH
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.eval.metrics import smpl_metrics
@@ -206,6 +218,9 @@ def build_parser() -> ArgumentParser:
                              "metric's sweep; 0 keeps the reference's full "
                              "sweep (pruning is faster and closer to the "
                              "geometric truth but changes the number)")
+    add_data_args(parser)
+    parser.add_argument("--render_dir", default=None, help="not ported yet")
+    parser.add_argument("--obj_mesh", default=None, help="not ported yet")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -220,9 +235,11 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         parser.error("--diverse_fold must be a positive integer")
     if args.diverse_samples % args.diverse_fold:
         parser.error("--diverse_fold must divide --diverse_samples")
-    if not args.synthetic:
-        parser.error("--synthetic N is required: real sequences "
-                     "(--motion_path) are not ported yet")
+    unported = [f"--{n}" for n in ("render_dir", "obj_mesh")
+                if getattr(args, n) is not None]
+    if unported:
+        parser.error(f"{', '.join(unported)}: rendering is not ported yet")
+    check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -246,13 +263,26 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
 
     # the body first, then the batches, from the one generator: the order
     # of the JAX package's CLI
-    smpl = synthetic_smpl_body(rng, device=device)
+    if args.synthetic:
+        smpl = synthetic_smpl_body(rng, device=device)
+        batches = synthetic_smpl_batches(
+            rng, batch_size=args.batch_size, seq_len=cfg.seq_len,
+            num_points=512, steps=args.synthetic)
+    else:
+        smpl_models = load_smpl_models(args, device)
+        smpl = smpl_models["male"]  # one body for every clip, as in JAX
+        # light fields: the loop reads the pose streams and the template
+        # cloud only (contacts are recomputed in the loop)
+        ds = BehaveDataset(load_eval_sequences(args.motion_path, smpl_models),
+                           past_len=args.past_len,
+                           future_len=args.future_len, rng=rng,
+                           fields="light")
+        batches = batch_iterator(
+            ds, collate, batch_size=fit_batch_size(len(ds), args.batch_size),
+            rng=rng, shuffle=False)
     # the stand-in body has fewer vertices than the marker set's largest
     # index; the JAX package's gather clamps such indices, so do the same
     markers_idx = np.minimum(MARKERSET_SSM67_SMPLH, smpl.num_verts - 1)
-    batches = synthetic_smpl_batches(
-        rng, batch_size=args.batch_size, seq_len=cfg.seq_len, num_points=512,
-        steps=args.synthetic)
     generator = torch.Generator(device=device).manual_seed(args.seed)
     return evaluate(
         cfg, model, diffusion, smpl, batches, projector=projector,

@@ -2,18 +2,29 @@
 (`interdiff_tpu/cli/optimization.py`, the reference's
 `interdiff/optimization.py` ``__main__``): 200 Adam iterations per clip.
 
-Two modes, both on the stand-in body:
+Four modes:
 
-* ``--synthetic N`` refines N random clips one by one (`optimize_clip`);
-* ``--synthetic N --diffusion_ckpt FILE`` is the generate-then-refine
-  pipeline: the SMPL sampler without correction samples the futures of N
-  random batches (past-frame inpainting), every sampled clip of a batch is
+* ``--motion_path DIR --model_path <SMPLH pkl dir>`` refines the
+  ground-truth clips of the test split (the train split when there is no
+  Date03* sequence; ``--config`` may name both paths, ``--synthetic_body``
+  stands in for the pkls), ``--batch_size`` clips of one gender at a time
+  on that gender's body (`refine_batch`; each clip descends as if alone),
+  and reports the penetration of the future frames before and after in
+  ``<out_dir>/summary.json``, each clip's result in ``clip_<i>.npz``;
+* ``--synthetic N`` refines N random clips one by one (`optimize_clip`) on
+  the 128-vertex stand-in body;
+* either with ``--diffusion_ckpt FILE`` is the generate-then-refine
+  pipeline: the SMPL sampler without correction samples the futures of the
+  batches (past-frame inpainting; dataset clips on the male body, or N
+  random batches on the stand-in body), every sampled clip of a batch is
   refined at once (`refine_batch`), and the penetration of the future
   frames is reported before and after in ``<out_dir>/summary.json``.
   ``FILE`` is a state dict of `MDMSmpl` (`utils/convert.py::save_state_dict`);
   an empty string keeps the model's seeded initial weights.
 
 Usage:
+  python -m interdiff_torch.cli.optimization --motion_path DIR \\
+      --model_path <SMPLH pkl dir> [--limit N] [--iters 200]
   python -m interdiff_torch.cli.optimization --synthetic 2 [--iters 200]
   python -m interdiff_torch.cli.optimization --synthetic 1 \\
       --diffusion_ckpt model.pt [--batch_size 8] [--respacing 100] \\
@@ -21,13 +32,10 @@ Usage:
       [--device cpu]
 
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
-device and without ``--device`` it stops.  ``--dispatch_chunk`` is accepted
-and has no effect: the JAX package splits its refinement into bounded
-dispatches to stay under a remote TPU worker's watchdog, and the port's
-descent is a Python loop of single iterations anyway.  The modes that read
-BEHAVE sequences or SMPL-H files (``--motion_path``, ``--model_path``,
-``--config``, ``--synthetic_body``) are not ported yet and stop with an
-error.
+device and without ``--device`` it stops.  ``--dispatch_chunk`` is refused:
+the JAX package splits its refinement into bounded dispatches to stay under
+a remote TPU worker's watchdog, and the port's descent has no counterpart
+(it is a Python loop of single iterations already).
 """
 
 from __future__ import annotations
@@ -43,12 +51,19 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    add_data_args,
+    batch_iterator,
+    check_data_args,
+    fit_batch_size,
+    load_eval_sequences,
+    load_smpl_models,
     load_weights,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
 )
 from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
+from interdiff_torch.data.behave import BehaveDataset, collate
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.eval.optimization import (
     OptimConfig,
@@ -71,7 +86,6 @@ from interdiff_torch.smpl.model import SmplModel, smpl_forward
 
 PENETRATION_KEYS = ("penetrate_before", "penetrate_after", "depth_before",
                     "depth_after")
-UNPORTED = ("motion_path", "model_path", "config")
 
 
 def make_penetration_fn(smpl: SmplModel, past_len: int) -> Callable:
@@ -205,6 +219,105 @@ def generate_and_refine(
     return summary
 
 
+def refine_dataset(smpl_models: Dict[str, SmplModel], dataset,
+                   ocfg: OptimConfig, *, past_len: int, out_dir: str,
+                   batch_size: int = 8, limit: int = 0,
+                   timings: Optional[Dict[str, float]] = None
+                   ) -> Dict[str, float]:
+    """Refine ground-truth clips (`interdiff_tpu/cli/optimization.py::
+    _run_dataset`, the reference's own regime) and report the penetration
+    of their future frames before and after.
+
+    ``dataset[i]`` are clips with light fields (`data/behave.py`), taken in
+    order, at most ``limit`` (0: all).  Consecutive clips of one gender
+    make a batch of up to ``batch_size``, refined at once on that gender's
+    body by `refine_batch` (the loss is the sum over clips, so each clip
+    descends as if alone, as `optimize_clip` would take it); the
+    penetration before and after is one K2 sweep each per batch.  Each
+    clip's result goes to ``clip_<i>.npz`` under ``out_dir``.  ``timings``
+    collects the wall seconds of ``penetration`` and ``refine`` (a device
+    synchronisation around each).  Returns the summary, the means over the clips of the four
+    penetration numbers plus ``clips``, ``iters`` and ``mode``, also written
+    to ``<out_dir>/summary.json``."""
+    n = len(dataset) if not limit else min(limit, len(dataset))
+    if n == 0:
+        raise SystemExit("no clip windows to refine")
+    os.makedirs(out_dir, exist_ok=True)
+    pen_fns: Dict[str, Callable] = {}
+
+    def timed(part: str, device, fn, *args, **kwargs):
+        if timings is None:
+            return fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
+        return out
+
+    def refine(ids, clips, gender):
+        smpl = smpl_models[gender]
+        device = smpl.v_template.device
+        if gender not in pen_fns:
+            pen_fns[gender] = make_penetration_fn(smpl, past_len)
+        penetration = pen_fns[gender]
+
+        def stack(key, cols=slice(None)):
+            return torch.as_tensor(np.stack([c[key][..., cols]
+                                             for c in clips]), device=device)
+
+        body_pose, hand_pose = stack("body_pose", slice(0, 66)), \
+            stack("body_pose", slice(66, None))
+        trans, betas = stack("body_trans"), stack("body_betas")
+        obj_aa, obj_tr = stack("obj_angles"), stack("obj_trans")
+        obj_pts = stack("obj_points", slice(0, 3))
+        frac_b, depth_b = timed(
+            "penetration", device, penetration,
+            torch.cat([body_pose, hand_pose], dim=-1), trans, betas, obj_aa,
+            obj_tr, obj_pts)
+        out = timed("refine", device, refine_batch, smpl,
+                    body_pose=body_pose, hand_pose=hand_pose,
+                    body_trans=trans, betas=betas, obj_angles=obj_aa,
+                    obj_trans=obj_tr, obj_points=obj_pts, cfg=ocfg)
+        frac_a, depth_a = timed(
+            "penetration", device, penetration, out["pose"], out["trans"],
+            betas, out["obj_angles"], out["obj_trans"], obj_pts)
+        # one read of the device per batch
+        rows = torch.stack([frac_b, frac_a, depth_b, depth_a,
+                            out["best_loss"]]).tolist()
+        for k, values in zip(PENETRATION_KEYS, rows):
+            tot[k] += sum(values)
+        host = {k: v.cpu().numpy() for k, v in out.items()}
+        for j, i in enumerate(ids):
+            np.savez(os.path.join(out_dir, f"clip_{i}.npz"),
+                     **{k: v[j] for k, v in host.items()})
+        done = ids[-1] + 1
+        print(done, {k: round(v / done, 5) for k, v in tot.items()},
+              {"best_loss": [round(v, 5) for v in rows[4]]}, flush=True)
+
+    tot = dict.fromkeys(PENETRATION_KEYS, 0.0)
+    ids, clips, gender = [], [], None
+    for i in range(n):
+        clip = dataset[i]
+        g = "male" if clip["gender"] == 0 else "female"
+        if clips and (g != gender or len(clips) == batch_size):
+            refine(ids, clips, gender)
+            ids, clips = [], []
+        ids.append(i)
+        clips.append(clip)
+        gender = g
+    refine(ids, clips, gender)
+
+    summary = {k: v / n for k, v in tot.items()}
+    summary.update(clips=n, iters=ocfg.iters, mode="dataset")
+    with open(os.path.join(out_dir, "summary.json"), "w") as f:
+        json.dump(summary, f)
+    print(json.dumps(summary), flush=True)
+    return summary
+
+
 def run_synthetic(n: int, ocfg: OptimConfig, *, past_len: int,
                   future_len: int, out_dir: str, device
                   ) -> List[Dict[str, torch.Tensor]]:
@@ -260,17 +373,14 @@ def build_parser() -> ArgumentParser:
                         help="stop the body's gradient in the penetration "
                              "term, so that only the object is pushed out")
     parser.add_argument("--dispatch_chunk", type=int, default=0,
-                        help="accepted for the JAX package's command line; "
-                             "no effect here")
+                        help="the JAX package's bounded dispatches of the "
+                             "descent; refused (no counterpart here)")
     parser.add_argument("--limit", type=int, default=0)
     parser.add_argument("--out_dir", default="./results/optimization")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="refine N synthetic clips (or, with "
                              "--diffusion_ckpt, N synthetic batches)")
-    for name in UNPORTED:
-        parser.add_argument(f"--{name}", default=None, help="not ported yet")
-    parser.add_argument("--synthetic_body", action="store_true",
-                        help="not ported yet")
+    add_data_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -280,35 +390,52 @@ def build_parser() -> ArgumentParser:
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    given = [f"--{n}" for n in UNPORTED if getattr(args, n) is not None]
-    given += ["--synthetic_body"] if args.synthetic_body else []
-    if given:
-        parser.error(f"{', '.join(given)}: reading BEHAVE sequences and "
-                     "SMPL-H files is not ported yet; use --synthetic N")
-    if not args.synthetic:
-        parser.error("--synthetic N is required: dataset clips are not "
-                     "ported yet")
+    if args.dispatch_chunk:
+        parser.error("--dispatch_chunk: the port's descent is a Python loop "
+                     "of single iterations and has no bounded dispatches "
+                     "to split it into")
+    check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
     # keep_after below iters - 1, or the best-iterate tracker never fires
     ocfg = OptimConfig(iters=args.iters, keep_after=min(150, args.iters - 2),
                        ratio_denom=args.ratio_denom,
                        pen_fix_body=args.pen_fix_body)
-    if args.diffusion_ckpt is None:
+    if args.diffusion_ckpt is None and args.synthetic:
         return run_synthetic(args.synthetic, ocfg, past_len=args.past_len,
                              future_len=args.future_len,
                              out_dir=args.out_dir, device=device)
 
     rng = seed_everything(args.seed)
+    smpl_models = None if args.synthetic else load_smpl_models(args, device)
+    if args.diffusion_ckpt is None:
+        # the clips' own jitter generator, as in the JAX package
+        ds = BehaveDataset(load_eval_sequences(args.motion_path, smpl_models),
+                           past_len=args.past_len,
+                           future_len=args.future_len, fields="light")
+        return refine_dataset(smpl_models, ds, ocfg, past_len=args.past_len,
+                              out_dir=args.out_dir,
+                              batch_size=args.batch_size, limit=args.limit)
+
     cfg = SmplEvalConfig(past_len=args.past_len, future_len=args.future_len)
     track = SmplTrackConfig(
         past_len=args.past_len, future_len=args.future_len,
         diffusion=DiffusionConfig(timestep_respacing=args.respacing))
     model = track.build_model(device)
     load_weights(model, args.diffusion_ckpt)
-    smpl = synthetic_smpl_body(rng, device=device)
-    batches = synthetic_smpl_batches(
-        rng, batch_size=args.batch_size, seq_len=cfg.seq_len,
-        num_points=256, steps=args.synthetic)
+    if args.synthetic:
+        smpl = synthetic_smpl_body(rng, device=device)
+        batches = synthetic_smpl_batches(
+            rng, batch_size=args.batch_size, seq_len=cfg.seq_len,
+            num_points=256, steps=args.synthetic)
+    else:
+        smpl = smpl_models["male"]
+        ds = BehaveDataset(load_eval_sequences(args.motion_path, smpl_models),
+                           past_len=args.past_len,
+                           future_len=args.future_len, rng=rng,
+                           fields="light")
+        batches = batch_iterator(
+            ds, collate, batch_size=fit_batch_size(len(ds), args.batch_size),
+            rng=rng, shuffle=False)
     return generate_and_refine(
         cfg, model, track.diffusion.build(device), smpl, batches, ocfg,
         out_dir=args.out_dir, limit=args.limit,

@@ -5,18 +5,23 @@ plus contact and penetration with epoch annealing, and the mean-marker
 ``initialize`` phase for the first 10 epochs.
 
 Usage:
-  python -m interdiff_torch.cli.train_correction_smpl --synthetic N_steps \\
-      [--batch_size 16] [--lr 3e-4] [--w_contact 1.0] \\
-      [--w_penetration 0.1] [--results_dir DIR] [--device cpu]
+  python -m interdiff_torch.cli.train_correction_smpl --motion_path DIR \\
+      --model_path <SMPLH pkl dir> [--epochs 500] [--batch_size 16] \\
+      [--lr 3e-4] [--w_contact 1.0] [--w_penetration 0.1] \\
+      [--results_dir DIR] [--device cpu]
+  python -m interdiff_torch.cli.train_correction_smpl --synthetic N_steps ...
 
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
-device and without ``--device`` it stops.  ``--synthetic N`` trains on N
-random batches (``--synthetic_verts`` body vertices, ``--synthetic_points``
-object points), one epoch in the main phase, as the JAX package's
-``--synthetic`` does.  The modes that read BEHAVE sequences or SMPL-H
-files (``--motion_path``, ``--model_path``, ``--config``,
-``--synthetic_body``) and the validation renders (``--render_interval``)
-are not ported yet and stop with an error.
+device and without ``--device`` it stops.  The dataset route trains on the
+train split of ``--motion_path`` with every field of a clip (markers, body
+vertices, the object's points), the corpus read once and its clips
+shuffled and jittered anew every epoch; the first 10 epochs take the
+mean-marker phase (``--config`` may name both paths, ``--synthetic_body``
+stands in for the pkls).  ``--synthetic N`` trains on N random batches
+(``--synthetic_verts`` body vertices, ``--synthetic_points`` object
+points), one epoch in the main phase, as the JAX package's ``--synthetic``
+does.  The validation renders (``--render_interval``) are not ported yet
+and stop with an error.
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
 any projector and any source of batches.  It writes ``<results_dir>/ckpt/``
@@ -34,9 +39,19 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    add_data_args,
+    batch_iterator,
+    check_data_args,
     correction_train_loop,
+    fit_batch_size,
+    load_smpl_models,
     seed_everything,
     synthetic_smpl_batches,
+)
+from interdiff_torch.data.behave import (
+    BehaveDataset,
+    collate,
+    load_behave_sequences,
 )
 from interdiff_torch.models.correction import ObjProjectorSmpl
 from interdiff_torch.train.losses_correction import CorrectionLossWeights
@@ -48,7 +63,7 @@ from interdiff_torch.train.trainer import (
 
 KEYS = ("obj_angles", "obj_trans", "markers", "human_verts", "obj_points")
 Batch = Dict[str, np.ndarray]
-UNPORTED = ("motion_path", "model_path", "config", "render_interval")
+UNPORTED = ("render_interval",)
 
 
 def train(projector: ObjProjectorSmpl,
@@ -101,8 +116,7 @@ def build_parser() -> ArgumentParser:
                              "reference's 0.1)")
     for name in UNPORTED:
         parser.add_argument(f"--{name}", default=None, help="not ported yet")
-    parser.add_argument("--synthetic_body", action="store_true",
-                        help="not ported yet")
+    add_data_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -113,14 +127,10 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
     given = [f"--{n}" for n in UNPORTED if getattr(args, n) is not None]
-    given += ["--synthetic_body"] if args.synthetic_body else []
     if given:
-        parser.error(f"{', '.join(given)}: reading BEHAVE sequences and "
-                     "SMPL-H files is not ported yet; train with "
-                     "--synthetic N")
-    if not args.synthetic:
-        parser.error("--synthetic N is required: real sequences are not "
+        parser.error(f"{', '.join(given)}: validation renders are not "
                      "ported yet")
+    check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -134,15 +144,30 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
         penetration=defaults.penetration if args.w_penetration is None
         else args.w_penetration)
 
-    def epoch_batches():
-        return synthetic_smpl_batches(
-            rng, batch_size=args.batch_size, seq_len=T,
-            num_points=args.synthetic_points,
-            num_verts=args.synthetic_verts, steps=args.synthetic)
+    if args.synthetic:
+        def epoch_batches():
+            return synthetic_smpl_batches(
+                rng, batch_size=args.batch_size, seq_len=T,
+                num_points=args.synthetic_points,
+                num_verts=args.synthetic_verts, steps=args.synthetic)
+    else:
+        # the corpus is read once; the window jitter is drawn per clip, so
+        # one dataset serves every epoch
+        ds = BehaveDataset(load_behave_sequences(
+            args.motion_path, smpl_models=load_smpl_models(args, device),
+            mode="train"), past_len=args.past_len,
+            future_len=args.future_len, rng=rng)
+        batch_size = fit_batch_size(len(ds), args.batch_size)
+
+        def epoch_batches():
+            return batch_iterator(ds, collate, batch_size=batch_size,
+                                  rng=rng)
 
     # a synthetic run is one epoch of the main phase, whatever --epochs
     return train(projector, epoch_batches, results_dir=args.results_dir,
-                 epochs=1, lr=args.lr, weights=weights, initialize_epochs=0,
+                 epochs=1 if args.synthetic else args.epochs, lr=args.lr,
+                 weights=weights,
+                 initialize_epochs=0 if args.synthetic else 10,
                  generator=torch.Generator(device=device).manual_seed(
                      args.seed))
 

@@ -2,21 +2,26 @@
 reference's `interdiff/train_diffusion_smpl.py`).
 
 Usage:
-  python -m interdiff_torch.cli.train_diffusion_smpl --synthetic N_steps \\
-      [--batch_size 32] [--lr 3e-4] [--schedule_sampler uniform] \\
-      [--ema_decay 0.9999] [--bn_train_mode 1] [--steps_per_dispatch K] \\
+  python -m interdiff_torch.cli.train_diffusion_smpl --motion_path DIR \\
+      --model_path <SMPLH pkl dir> [--epochs 1000] [--batch_size 32] \\
+      [--lr 3e-4] [--schedule_sampler uniform] [--ema_decay 0.9999] \\
+      [--bn_train_mode 1] [--steps_per_dispatch K] [--val_every 50] \\
       [--val_respacing 25] [--val_diverse N] [--resume_checkpoint model.pt] \\
       [--results_dir DIR] [--device cpu]
+  python -m interdiff_torch.cli.train_diffusion_smpl --synthetic N_steps ...
 
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
-device and without ``--device`` it stops.  ``--synthetic N`` (N random
-batches, one epoch, one validation) is the only data route so far: real
-BEHAVE clips (``--motion_path``, ``--model_path``, ``--config``,
-``--synthetic_body``), validation renders (``--render_interval``), the
-Linear object encoder (``--use_pointnet2 0``) and the profiler flags are not
-ported, and the parser does not know them.  ``--resume_checkpoint`` takes a
-state-dict file of the port (`utils/convert.py::save_state_dict`, as
-``ckpt/step_<n>.pt`` here).
+device and without ``--device`` it stops.  The dataset route trains on the
+train split of ``--motion_path`` (the clips shuffled every epoch, the
+window jitter drawn anew) and validates every ``--val_every`` epochs on the
+first batch of the test split, or on the epoch's last train batch when the
+corpus has no Date03* sequence (``--config`` may name both paths,
+``--synthetic_body`` stands in for the pkls).  ``--synthetic N`` trains on
+N random batches, one epoch and one validation.  Validation renders
+(``--render_interval``), the Linear object encoder (``--use_pointnet2 0``)
+and the profiler flags are not ported, and the parser does not know them.
+``--resume_checkpoint`` takes a state-dict file of the port
+(`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here).
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
 any model and any source of batches.  It writes ``<results_dir>/ckpt/``
@@ -38,12 +43,21 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    add_data_args,
+    batch_iterator,
+    check_data_args,
+    load_smpl_models,
     load_weights,
     seed_everything,
     stack_batches,
     synthetic_smpl_batches,
 )
 from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
+from interdiff_torch.data.behave import (
+    BehaveDataset,
+    collate,
+    load_behave_sequences,
+)
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.diffusion.resample import LossSecondMomentResampler
 from interdiff_torch.eval.smpl_short import (
@@ -258,18 +272,46 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--val_respacing", default="",
                         help="timestep respacing of the validation sampler "
                              "('' = the full schedule; e.g. '25')")
+    add_data_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
     return parser
 
 
+def dataset_batches(args, smpl_models, rng: np.random.Generator
+                    ) -> Tuple[Callable[[], Iterable[Batch]],
+                               Optional[Batch]]:
+    """(``epoch_batches`` over the train split of ``args.motion_path``,
+    shuffled by ``rng``; the validation batch, the first of the test split
+    in order, or None when the corpus has none) with light fields: the
+    trainer reads the pose streams and the template cloud only."""
+    ds = BehaveDataset(load_behave_sequences(
+        args.motion_path, smpl_models=smpl_models, mode="train"),
+        past_len=args.past_len, future_len=args.future_len, rng=rng,
+        fields="light")
+    test_ds = BehaveDataset(load_behave_sequences(
+        args.motion_path, smpl_models=smpl_models, mode="test"),
+        past_len=args.past_len, future_len=args.future_len, rng=rng,
+        fields="light")
+    val_batch = next(iter(batch_iterator(
+        test_ds, collate, batch_size=args.batch_size, rng=rng,
+        shuffle=False)), None)
+    if val_batch is None:
+        print("no full test batch: validation falls back to the last train "
+              "batch", flush=True)
+
+    def epoch_batches():
+        return batch_iterator(ds, collate, batch_size=args.batch_size,
+                              rng=rng)
+
+    return epoch_batches, val_batch
+
+
 def main(argv=None) -> Tuple[TrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not args.synthetic:
-        parser.error("--synthetic N is required: real sequences "
-                     "(--motion_path) are not ported yet")
+    check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -286,21 +328,28 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         val_diffusion = DiffusionConfig(
             timestep_respacing=args.val_respacing).build(device)
 
-    def epoch_batches():
-        return synthetic_smpl_batches(
-            rng, batch_size=args.batch_size,
-            seq_len=args.past_len + args.future_len,
-            num_points=args.synthetic_points, steps=args.synthetic)
+    val_batch = None
+    if args.synthetic:
+        def epoch_batches():
+            return synthetic_smpl_batches(
+                rng, batch_size=args.batch_size,
+                seq_len=args.past_len + args.future_len,
+                num_points=args.synthetic_points, steps=args.synthetic)
+    else:
+        epoch_batches, val_batch = dataset_batches(
+            args, load_smpl_models(args, device), rng)
 
     # a synthetic run is one epoch with one validation, whatever --epochs
     return train(
         model, track.diffusion.build(device), epoch_batches,
-        results_dir=args.results_dir, epochs=1, lr=args.lr,
+        results_dir=args.results_dir,
+        epochs=1 if args.synthetic else args.epochs, lr=args.lr,
         schedule_sampler=args.schedule_sampler, ema_decay=args.ema_decay,
         steps_per_dispatch=args.steps_per_dispatch,
         bn_train_mode=bool(args.bn_train_mode), val_every=args.val_every,
-        validate_every_epoch=True, val_diverse=args.val_diverse,
-        val_diffusion=val_diffusion,
+        validate_every_epoch=bool(args.synthetic),
+        val_diverse=args.val_diverse, val_diffusion=val_diffusion,
+        val_batch=val_batch,
         generator=torch.Generator(device=device).manual_seed(args.seed))
 
 

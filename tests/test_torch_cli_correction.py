@@ -110,8 +110,7 @@ def test_unported_modes_stop_with_an_error(module, argv, capsys):
 def test_refine_cli_synthetic_clips(tmp_path):
     outs = cli_opt.main(["--device", "cpu", "--synthetic", "2", "--iters",
                          "4", "--past_len", "3", "--future_len", "3",
-                         "--dispatch_chunk", "2", "--out_dir",
-                         str(tmp_path)])
+                         "--out_dir", str(tmp_path)])
     assert len(outs) == 2
     for out in outs:
         assert np.isfinite(float(out["best_loss"]))  # keep_after = iters-2

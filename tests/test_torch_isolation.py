@@ -1,6 +1,7 @@
 """`interdiff_torch` stands alone: importing every module of it loads
-neither jax, flax, optax, orbax nor `interdiff_tpu`, nor does a run of its
-eval or training entry point, nor does `chip_smoke.py` import any of them,
+neither jax, flax, optax, orbax nor `interdiff_tpu` (nor PyYAML, which only
+reading a path config needs), nor does a run of its eval or training entry
+point, nor does `chip_smoke.py` import any of them,
 and an entry point asked for the default device with no CUDA device present
 raises instead of running on the CPU."""
 
@@ -23,7 +24,7 @@ for name in names:
     importlib.import_module(name)
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu")]
+                                 "interdiff_tpu", "yaml")]
 print(len(names), banned)
 assert not banned, banned
 """
@@ -34,7 +35,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 53
+    assert n_modules >= 60
     for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa",
                    "cli.train_diffusion_smpl", "train.trainer",
                    "train.losses", "diffusion.resample", "diffusion.nn",
@@ -43,7 +44,10 @@ def test_port_imports_no_jax():
                    "models.mdm_skeleton", "data.skeleton",
                    "geometry.rotations_np", "train.losses_correction",
                    "eval.optimization", "cli.train_correction_smpl",
-                   "cli.train_correction_skeleton", "cli.optimization"):
+                   "cli.train_correction_skeleton", "cli.optimization",
+                   "smpl.loader", "data.behave", "data.paths",
+                   "eval.smpl_long", "cli.eval_smpl_long",
+                   "geometry.mesh_losses"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -233,3 +237,36 @@ def test_correction_and_refine_entry_points_stop_without_a_card(
         with pytest.raises(RuntimeError, match="no CUDA device"):
             main(["--synthetic", "1", "--batch_size", "2"] + argv)
     assert not os.path.exists(results)
+
+
+_RUN_LONG = r"""
+import sys, tempfile
+from interdiff_torch.cli import eval_smpl_long
+from interdiff_torch.data.paths import load_paths
+assert "yaml" not in sys.modules
+with tempfile.TemporaryDirectory() as out:
+    assert eval_smpl_long.main([
+        "--device", "cpu", "--synthetic", "1", "--batch_size", "1",
+        "--rollouts", "1", "--respacing", "2", "--out_dir", out]) is None
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                 "interdiff_tpu")]
+assert not banned, banned
+"""
+
+
+def test_long_eval_entry_point_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", _RUN_LONG], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "rollout drift summary" in out.stdout
+
+
+def test_long_eval_entry_point_stops_without_a_card(monkeypatch, tmp_path):
+    from interdiff_torch.cli import eval_smpl_long
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_smpl_long.main(["--synthetic", "1", "--batch_size", "1",
+                             "--out_dir", str(tmp_path / "out")])
+    assert not os.path.exists(tmp_path / "out")

@@ -145,13 +145,16 @@ def test_loss_aware_sampler_and_resume(tmp_path, capsys):
 
 
 def test_flags_of_unported_routes_are_unknown(tmp_path):
-    for flag in (["--motion_path", "x"], ["--model_path", "x"],
-                 ["--config", "x"], ["--synthetic_body"],
-                 ["--render_interval", "1"], ["--use_pointnet2", "0"]):
+    for flag in (["--render_interval", "1"], ["--use_pointnet2", "0"]):
         with pytest.raises(SystemExit):
             cli.build_parser().parse_args(flag)
-    with pytest.raises(SystemExit):  # no data route but --synthetic
-        cli.main(["--device", "cpu", "--results_dir", str(tmp_path)])
+    # the dataset route's flags are known; an incomplete route stops
+    for argv in ([], ["--motion_path", "x"], ["--model_path", "x"],
+                 ["--synthetic_body"], ["--synthetic", "1", "--config", "x"]):
+        with pytest.raises(SystemExit):
+            cli.main(["--device", "cpu", "--results_dir", str(tmp_path)]
+                     + argv)
+    assert not os.path.exists(tmp_path / "ckpt")
 
 
 def test_checkpoint_manager_keeps_the_best(tmp_path):
