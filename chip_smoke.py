@@ -78,7 +78,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
    three train steps of the small model on both devices from the same
    weights, batches, timesteps and noise, on the default route and with
    INTERDIFF_FUSED_SA=1: loss within 1e-5, parameters within the tolerance
-   in the line.
+   in the line.  Then the denoiser's options on the small model, card
+   against CPU within 1e-5: the linear object encoder, and dropout 0.1 with
+   cond_mask_prob 0.1 in eval mode (no mask drawn).
 5. sampler: the sampler at full width: `MDMSmpl` defaults, 32 clips of 35
    frames with 2048 object points,
    one `encode` (K1 launches twice), 2-fold diverse tiling to 64 rows, one
@@ -114,7 +116,14 @@ Phases, each printing JSON lines (any failure exits non-zero):
    noise before and after (it must fall), ms per step by CUDA events and by
    wall, steps/s and sequences/s, the split encode / denoiser forward /
    backward / optimiser, peak memory; the two routes' gradients after the
-   first step against each other.
+   first step against each other.  Then 5 steps each of the trainer's
+   options: ``--profiler trace`` (the Chrome trace written, naming K1's
+   kernel) and the linear object encoder (``--use_pointnet2 0``: K1 = K6 =
+   0, asserted); then `train(...)` of a model from a track config with
+   dropout 0.1 and cond_mask_prob 0.1 is refused before any launch (the
+   train step runs the denoiser in eval mode, as JAX's does), while the
+   module's train-mode forward on the card draws its masks and differs
+   from eval mode.
 8. profile: a 10-step respaced corrected sampler call at full width (two
    firings) and five full-width train steps under torch.profiler: device
    busy time against wall time.
@@ -175,7 +184,11 @@ Phases, each printing JSON lines (any failure exits non-zero):
    clip of canonicalization with light and full fields; `evaluate` on 32
    test clips, 4 diverse samples, correction, "100" respacing (launches K1
    2, K2 4, K4 4, K3 2); 20 steps of the diffusion trainer on the train
-   split with a validation on the first test batch (K1 42); 20 steps of
+   split with a validation on the first test batch (K1 42), its batches
+   built inline and, in turns, by two prefetch threads, without a profiler
+   and under ``--profiler simple`` (``batch_place``, ``train_step``), the
+   same losses on every run, beside the bare iterator's seconds a batch;
+   20 steps of
    the correction trainer on 16 clips with every field, the host's data
    seconds apart (K3 = K4 = 20); the refiner's dataset route on 8 test
    clips, 200 iterations (K2 2, K3 = K4 = 200).
@@ -188,11 +201,20 @@ Phases, each printing JSON lines (any failure exits non-zero):
    drift of each window; then that batch at "100" respacing from one seed
    through the kernels and through their plain versions
    (`_plain_kernels`): the trajectories within PLAIN_TRAJECTORY_TOL.
+17. ckpt: `.ckpt` files in the reference's Lightning layout
+   (`write_lightning_ckpt`) of the serving models and of the full-width
+   skeleton models; `cli/convert_checkpoint.py` of each (state dicts
+   bitwise the modules'); `evaluate` of both eval entry points at "100"
+   respacing from the `.ckpt` files (`cli/common.py::load_mdm`,
+   `load_correction_variables`) and from the converted state-dict files,
+   one seed: metrics bitwise equal, launches equal (SMPL: K1 2, K2 4, K4 4,
+   K3 2; skeleton: none).
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
 its own, beside the skeleton paths' zeros, the correction trainers',
-the refiner's, the dataset routes' and the long-term eval's; K6's of its
+the refiner's, the dataset routes', the long-term eval's, the train
+options' (none on the linear encoder's) and the checkpoint route's; K6's of its
 opt-in routes, K5's of the backward with
 respect to the cloud; K3 and K4 also at this slice's shapes), and the
 device line.  Weights and data come from numpy seeds;
@@ -1565,6 +1587,49 @@ def phase_slice_cpu_vs_gpu(gpu: str) -> None:
                              f"{err} > {tol}")
 
 
+def phase_slice_options_cpu_vs_gpu(gpu: str) -> None:
+    """The train-time options of the denoiser on the card against the CPU,
+    small model (3 layers, d=32), seeded weights: the linear object encoder
+    (``use_pointnet2=False``), and a model with dropout 0.1 and
+    cond_mask_prob 0.1 in eval mode (no mask drawn: the generator's state
+    unchanged), encode + denoise within 1e-5."""
+    from interdiff_torch.config import SmplTrackConfig
+
+    rng = np.random.default_rng(36)
+    B, T, P = 2, 35, 64
+    gt = (rng.standard_normal((B, T, 144)) * 0.5).astype(np.float32)
+    pts = rng.uniform(-0.12, 0.12, (B, P, 6)).astype(np.float32)
+    ts = np.array([500, 17], np.int64)
+    tol = 1e-5
+    for case, opts in (("linear object encoder", {"use_pointnet2": False}),
+                       ("dropout 0.1, cond_mask_prob 0.1, eval mode",
+                        {"dropout": 0.1, "cond_mask_prob": 0.1})):
+        state = seeded_state(SmplTrackConfig(**SMALL, **opts).build_model(
+            "cpu"), SEED + 8)
+        outs, drew = [], []
+        for device in ("cpu", DEV):
+            model = SmplTrackConfig(**SMALL, **opts).build_model(device)
+            model.load_state_dict(state, strict=True)
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            before = gen.get_state()
+            g, p, t = (torch.from_numpy(a).to(device) for a in (gt, pts, ts))
+            with torch.no_grad():
+                x = model.denoise(g, t, model.encode(g, p, generator=gen),
+                                  generator=gen)
+            outs.append(x.cpu())
+            drew.append(not torch.equal(gen.get_state(), before))
+        err = float((outs[0] - outs[1]).abs().max())
+        line = {"phase": "slice_cpu_vs_gpu", "part": "model_options",
+                "gpu": gpu, "case": case, "max_abs_err": err,
+                "tolerance": tol, "eval_mode_drew": any(drew),
+                "tolerance_reason": "summation order of the card's kernels,"
+                                    " full f32 (no TF32)"}
+        emit(line)
+        if not (err <= tol and not any(drew)
+                and bool(torch.isfinite(outs[1]).all())):
+            raise AssertionError(f"model options card vs CPU: {line}")
+
+
 def _small_evaluate(device, sampler: str, state, projector_state, batch,
                     noises):
     """The small `evaluate` on ``device``: 2 clips, fold 2, 2 diverse
@@ -1718,10 +1783,10 @@ def _main_path_inputs(rng, B, T, P, device):
     return gt, b["obj_points"], b["body_pose"][..., 66:], b["body_betas"]
 
 
-def full_width_models():
+def full_width_models(device=None):
     """The main path's objects at the sizes a user runs: `MDMSmpl` and
     `ObjProjectorSmpl` defaults with seeded weights, the V=6890 stand-in
-    body.
+    body, on ``device`` (the card unless given).
 
     An untrained denoiser puts the object metres from the body, where the
     gate's sweep skips every segment.  A trained one keeps it within reach.
@@ -1732,20 +1797,20 @@ def full_width_models():
     labels and the projector's marker choice all have work to do."""
     from interdiff_torch.config import CorrectionConfig, build_smpl_body
 
-    projector = CorrectionConfig().build_model()
+    projector = CorrectionConfig().build_model(device)
     projector.load_state_dict(seeded_state(projector, SEED + 7), strict=True)
-    return (rest_pose_mdm(), projector,
-            build_smpl_body(seed=SEED, num_verts=VERTS))
+    return (rest_pose_mdm(device=device), projector,
+            build_smpl_body(seed=SEED, num_verts=VERTS, device=device))
 
 
-def rest_pose_mdm(future_len: int = FUTURE):
+def rest_pose_mdm(future_len: int = FUTURE, device=None):
     """`MDMSmpl` defaults (``future_len`` future frames) with seeded
     weights, its two output layers scaled to a twentieth and biased to the
     rest pose with the object 0.25 m to the side of the body's centre (see
-    `full_width_models`)."""
+    `full_width_models`), on ``device`` (the card unless given)."""
     from interdiff_torch.config import SmplTrackConfig
 
-    model = SmplTrackConfig(future_len=future_len).build_model()
+    model = SmplTrackConfig(future_len=future_len).build_model(device)
     model.load_state_dict(seeded_state(model, SEED + 1), strict=True)
     identity6d = [1.0, 0.0, 0.0, 0.0, 1.0, 0.0]
     with torch.no_grad():
@@ -1755,6 +1820,126 @@ def rest_pose_mdm(future_len: int = FUTURE):
             layer.weight.mul_(0.05)
             layer.bias.copy_(torch.tensor(bias))
     return model
+
+
+LIGHTNING_KINDS = ("mdm_smpl", "mdm_skeleton", "correction_smpl",
+                   "correction_skeleton")
+
+
+def lightning_state_dict(variables, kind: str, *, extras: bool = True
+                         ) -> dict:
+    """A flax-layout variable tree (nested dicts of numpy arrays, as
+    `utils/convert.py::torch_to_flax_variables` gives) -> the state dict of
+    the reference's Lightning checkpoint of ``kind``, under ``model.``: the
+    inverse of the key maps of `interdiff_tpu/utils/checkpoint.py`, written
+    from the reference's module layout (`interdiff/model/layers.py`,
+    `diffusion_{smpl,skeleton}.py`, pointnet2_ops' `build_shared_mlp`).
+    ``extras`` adds what a real checkpoint also holds and a conversion must
+    leave: a positional table, BatchNorm step counters and the reference's
+    unused ``finalLinear``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {}
+
+    def put(key, value):
+        sd["model." + key] = np.ascontiguousarray(value, dtype=np.float32)
+
+    def linear(key, p):
+        put(f"{key}.weight", np.asarray(p["kernel"]).T)
+        put(f"{key}.bias", p["bias"])
+
+    def mha(key, p):
+        put(f"{key}.in_proj_weight", np.asarray(p["in_proj_kernel"]).T)
+        put(f"{key}.in_proj_bias", p["in_proj_bias"])
+        linear(f"{key}.out_proj", p["out_proj"])
+
+    def bn(key, p, s):
+        put(f"{key}.weight", p["scale"])
+        put(f"{key}.bias", p["bias"])
+        put(f"{key}.running_mean", s["mean"])
+        put(f"{key}.running_var", s["var"])
+        if extras:
+            sd[f"model.{key}.num_batches_tracked"] = np.asarray(7)
+
+    def conv1x1(key, kernel):
+        put(key, np.asarray(kernel).T[:, :, None, None])
+
+    if kind.startswith("correction"):
+        for stack, layers in params["core"].items():
+            for name, p in layers.items():
+                s = stats["core"][stack][name]
+                i = int(name[len("gcn"):])
+                key = f"{stack}.{i}"
+                for g, v in p["gcn"].items():
+                    put(f"{key}.gcn.{g}", v)
+                conv1x1(f"{key}.tcn.0.weight", p["tcn_conv"]["kernel"])
+                put(f"{key}.tcn.0.bias", p["tcn_conv"]["bias"])
+                bn(f"{key}.tcn.1", p["tcn_bn"], s["tcn_bn"])
+                if "res_conv" in p:
+                    conv1x1(f"{key}.residual.0.weight",
+                            p["res_conv"]["kernel"])
+                    put(f"{key}.residual.0.bias", p["res_conv"]["bias"])
+                    bn(f"{key}.residual.1", p["res_bn"], s["res_bn"])
+                put(f"{key}.prelu.weight", np.reshape(p["prelu"], (1,)))
+        return sd
+
+    names = ["bodyEmbedding", "objEmbedding", "bodyFinalLinear",
+             "objFinalLinear"]
+    if kind == "mdm_skeleton":
+        names.append("shapeEmbedding")
+    for name in names:
+        linear(name, params[name])
+    linear("embedTimeStep.time_embed.0", params["embedTimeStep"]["fc1"])
+    linear("embedTimeStep.time_embed.2", params["embedTimeStep"]["fc2"])
+    for stack in ("encoder", "decoder"):
+        for name, p in params[stack].items():
+            key = f"{stack}.layers.{int(name[len('layer_'):])}"
+            for norm in ("norm1", "norm2", "norm3"):
+                if norm in p:
+                    put(f"{key}.{norm}.weight", p[norm]["scale"])
+                    put(f"{key}.{norm}.bias", p[norm]["bias"])
+            linear(f"{key}.linear1", p["ff"]["linear1"])
+            linear(f"{key}.linear2", p["ff"]["linear2"])
+            for attn in ("self_attn", "multihead_attn"):
+                if attn in p:
+                    mha(f"{key}.{attn}", p[attn])
+            if "queries" in p:
+                put(f"{key}.queries", p["queries"])
+                put(f"{key}.wk", p["wk"])
+    if kind == "mdm_smpl":
+        pc = params["pcEmbedding"]
+        if "kernel" in pc:  # the linear object encoder
+            linear("pcEmbedding", pc)
+        else:
+            for sa, mlps in pc.items():
+                if sa == "Linear":
+                    continue
+                for mlp, layers in mlps.items():
+                    seq = (f"pcEmbedding.SA_modules.{int(sa[2:])}.mlps."
+                           f"{int(mlp[3:])}")
+                    for k in range(sum(n.startswith("conv") for n in layers)):
+                        conv1x1(f"{seq}.{3 * k}.weight",
+                                layers[f"conv{k}"]["kernel"])
+                        bn(f"{seq}.{3 * k + 1}", layers[f"bn{k}"],
+                           stats["pcEmbedding"][sa][mlp][f"bn{k}"])
+            linear("pcEmbedding.Linear", pc["Linear"])
+    if extras:
+        E = np.asarray(params["bodyEmbedding"]["kernel"]).shape[1]
+        put("sequence_pos_encoder.pe", np.zeros((16, 1, E)))
+        put("finalLinear.weight", np.zeros((3, E)))
+        put("finalLinear.bias", np.zeros(3))
+    return sd
+
+
+def write_lightning_ckpt(path: str, variables, kind: str,
+                         hparams: dict) -> None:
+    """A Lightning-layout checkpoint of ``kind`` (:func:`
+    lightning_state_dict`) with ``hparams`` as its hyper_parameters."""
+    torch.save({"state_dict": {k: torch.from_numpy(np.array(v))
+                               for k, v in lightning_state_dict(
+                                   variables, kind).items()},
+                "hyper_parameters": dict(hparams), "epoch": 0,
+                "global_step": 0}, path)
 
 
 BEHAVE_CATEGORIES = ("backpack", "chairwood", "boxlarge", "yogaball")
@@ -2325,11 +2510,19 @@ def phase_train(group, nn, sa, gather, gpu: str) -> dict:
     INTERDIFF_FUSED_SA=1, each followed by one validation at "25"
     respacing; 5 steps with bn_train_mode; one forward and backward that
     also asks for the gradient with respect to the object cloud (K1's
-    backward replays through K5).  Returns the kernels' launches."""
+    backward replays through K5).  Then the options of this slice, 5 steps
+    each: under ``--profiler trace`` (the trace written and naming K1's
+    kernel) and with the linear object encoder (``--use_pointnet2 0``: K1 =
+    K6 = 0).  A model from a track config with dropout 0.1 and
+    cond_mask_prob 0.1 is refused by the train step, which runs the
+    denoiser in eval mode as JAX's does; its train-mode forward on the card
+    draws its masks.  Returns (the kernels' launches, the launches by path
+    of the option runs)."""
     import tempfile
 
+    from interdiff_torch.cli.common import TrainProfiler
     from interdiff_torch.cli.train_diffusion_smpl import train
-    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
     from interdiff_torch.train import trainer
 
     rng = np.random.default_rng(SEED + 20)
@@ -2344,9 +2537,10 @@ def phase_train(group, nn, sa, gather, gpu: str) -> dict:
         return {"K1": group.launches, "K5": gather.launches,
                 "K6": sa.launches}
 
-    def run(route: str, steps: int, check_fall: bool = True, **kwargs):
+    def run(route: str, steps: int, check_fall: bool = True, model=None,
+            **kwargs):
         """One `train(...)` call -> (state, model, record)."""
-        model = _train_model()
+        model = _train_model() if model is None else model
         before = _fixed_draw_loss(model, diffusion, on_card)
         rec = {"loss": [], "events": [], "walls": [], "launches": [],
                "grads": None}
@@ -2497,9 +2691,78 @@ def phase_train(group, nn, sa, gather, gpu: str) -> dict:
     emit({**common, "path": "encode forward and backward with respect to "
           "the object cloud", "launches": cloud,
           "largest_cloud_gradient": float(pts.grad.abs().max())})
+
+    # -- this slice's options, 5 steps each, no validation
+    options = {}
+    no_val = dict(check_fall=False, val_every=10 ** 9)
+    with tempfile.TemporaryDirectory() as trace_root:
+        profiler = TrainProfiler(trace_root, "trace")
+        _, _, traced = run("default, --profiler trace", 5,
+                                      profiler=profiler, **no_val)
+        trace_file = os.path.join(profiler.trace_dir, "trace.json")
+        with open(trace_file) as f:
+            text = f.read()
+        line = traced["line"]
+        line.update(trace_bytes=len(text),
+                    trace_names_k1="ball_group_kernel" in text)
+        emit(line)
+        if not line["trace_names_k1"] or \
+                line["launches_per_step"]["K1"] != 2:
+            raise AssertionError(f"--profiler trace: {line}")
+    options["train_trace"] = {**NO_LAUNCHES,
+                              **traced["line"]["launches_total"]}
+
+    def seeded(**opts):
+        model = SmplTrackConfig(**opts).build_model()
+        model.load_state_dict(seeded_state(model, SEED + 1), strict=True)
+        return model
+
+    _, _, linear = run("--use_pointnet2 0", 5,
+                       model=seeded(use_pointnet2=False), **no_val)
+    line = linear["line"]
+    emit(line)
+    if line["launches_total"] != {"K1": 0, "K5": 0, "K6": 0}:
+        raise AssertionError(f"linear encoder: K1 or K6 ran: {line}")
+    options["train_linear_encoder"] = {**NO_LAUNCHES,
+                                       **line["launches_total"]}
+
+    # dropout and the condition mask: the train step runs the denoiser in
+    # eval mode, as JAX's does, so it refuses a model built with either
+    # rate above 0 (no launch); the rates act in the module's train mode,
+    # drawn from the call's generator on the card
+    model = seeded(dropout=0.1, cond_mask_prob=0.1)
+    _reset_launches(group, nn, sa)
+    with tempfile.TemporaryDirectory() as results:
+        try:
+            train(model, diffusion, lambda: iter([batch]),
+                  results_dir=results, val_every=10 ** 9,
+                  generator=torch.Generator(device=DEV).manual_seed(SEED))
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+    refused_launches = launches_now()
+    gt, pts = trainer.smpl_cond_inputs(on_card)
+    t = torch.full((CLIPS,), 500, device=DEV)
+    with torch.no_grad():
+        memory = model.encode(gt, pts)
+        gen = torch.Generator(device=DEV).manual_seed(SEED)
+        train_mode = model.denoise(gt, t, memory, train=True, generator=gen)
+        eval_mode = model.denoise(gt, t, memory)
+    torch.cuda.synchronize()
+    line = {**common, "path": "train(...) of a model with dropout 0.1 and "
+            "cond_mask_prob 0.1", "refused": refused,
+            "launches": refused_launches,
+            "module_train_mode_forward_vs_eval_max_abs_diff": float(
+                (train_mode - eval_mode).abs().max())}
+    emit(line)
+    if refused is None or "eval mode" not in refused or \
+            any(refused_launches.values()) or \
+            not bool(torch.isfinite(train_mode).all()) or \
+            not line["module_train_mode_forward_vs_eval_max_abs_diff"] > 0:
+        raise AssertionError(f"dropout route: {line}")
     return {"K1": default["line"]["launches_total"]["K1"],
             "K5": cloud["K5"],
-            "K6": fused["line"]["launches_total"]["K6"]}
+            "K6": fused["line"]["launches_total"]["K6"]}, options
 
 
 def _device_events(prof):
@@ -3545,6 +3808,7 @@ BEHAVE_SEQUENCES, BEHAVE_FRAMES = 2, 1408
 BEHAVE_EVAL_RESPACING, BEHAVE_DIVERSE = "100", 4
 BEHAVE_TRAIN_STEPS, BEHAVE_CORR_CLIPS = 20, 16
 BEHAVE_REFINE_CLIPS, BEHAVE_CANON_CLIPS = 8, 16
+BEHAVE_BARE_BATCHES = 5
 # the long-term eval at its CLI's defaults
 LONG_CLIPS, LONG_ROLLOUTS, LONG_CHECK_RESPACING = 8, 4, "100"
 LONG_HORIZON = 10 + (1 + LONG_ROLLOUTS) * FUTURE
@@ -3738,14 +4002,22 @@ def phase_behave(group, nn, sa, models, gpu: str) -> dict:
     point's `evaluate` on one batch of 32 test clips, 4 diverse samples,
     correction, "100" respacing; `train(...)` of the diffusion trainer for
     BEHAVE_TRAIN_STEPS steps on the train split with a validation on the
-    first test batch at "25"; `train(...)` of the correction trainer, 16
+    first test batch at "25", its batches built inline as the trainer
+    builds them and, in turns, by JAX's two prefetch threads
+    (`threaded_batches`), without a profiler and once each under
+    ``--profiler simple`` (sections ``batch_place`` and ``train_step``),
+    all six runs on the same clips with the same losses, beside the seconds
+    a batch of the bare iterator alone (BEHAVE_BARE_BATCHES batches, no
+    training); `train(...)` of the correction trainer, 16
     clips with every field, BEHAVE_TRAIN_STEPS steps (half in the
     initialize phase), the host's data seconds apart; the refiner's
     dataset route on 8 test clips, 200 iterations.  Each path's launches
     are asserted.  Returns the launches by path."""
     import tempfile
 
-    from interdiff_torch.cli.common import batch_iterator
+    import itertools
+
+    from interdiff_torch.cli.common import TrainProfiler, batch_iterator
     from interdiff_torch.cli.eval_smpl_short import evaluate
     from interdiff_torch.cli.optimization import refine_dataset
     from interdiff_torch.cli.train_correction_smpl import (
@@ -3756,6 +4028,7 @@ def phase_behave(group, nn, sa, models, gpu: str) -> dict:
     from interdiff_torch.data.behave import BehaveDataset, collate
     from interdiff_torch.eval.optimization import OptimConfig
     from interdiff_torch.eval.smpl_short import SmplEvalConfig
+    from interdiff_torch.utils.prefetch import threaded_batches
 
     mdm, projector, body = models
     by_path = {}
@@ -3817,43 +4090,101 @@ def phase_behave(group, nn, sa, models, gpu: str) -> dict:
                                        for v in totals.values()):
             raise AssertionError(f"behave eval: {line}")
 
-        # the diffusion trainer on the train split
+        # the diffusion trainer on the train split; first the bare iterator
+        # alone
         train_light = BehaveDataset(train_seqs, rng=rng, fields="light")
         val_batch = next(iter(batch_iterator(test_light, collate,
                                              batch_size=CLIPS, rng=rng,
                                              shuffle=False)))
         per_epoch = len(train_light) // CLIPS
-        data_s = []
-        model = _train_model()
-        with tempfile.TemporaryDirectory() as results:
-            rec = _timed_train(lambda on_step: train(
-                model, DiffusionConfig().build(DEV),
-                lambda: _timed_iter(batch_iterator(
-                    train_light, collate, batch_size=CLIPS, rng=rng),
-                    data_s),
-                results_dir=results,
-                epochs=BEHAVE_TRAIN_STEPS // per_epoch,
-                val_every=BEHAVE_TRAIN_STEPS // per_epoch,
-                val_diffusion=DiffusionConfig(
-                    timestep_respacing="25").build(DEV),
-                val_batch=val_batch,
-                generator=torch.Generator(device=DEV).manual_seed(SEED),
-                on_step=on_step), group, nn, sa)
-        steps = rec["summary"]["steps"]
-        want = {**NO_LAUNCHES, "K1": 2 * steps + 2}  # + the validation
-        by_path["behave_train"] = rec["launches"]
-        line = {"phase": "behave", "part": "train", "gpu": gpu,
-                "clips": CLIPS, "steps": steps,
-                "ms_per_step_median": statistics.median(rec["step_ms"][1:]),
-                "data_s_per_step": sum(data_s) / len(data_s),
-                "losses_first_last": [rec["losses"][0], rec["losses"][-1]],
-                "val_loss": rec["summary"]["val_loss"],
-                "wall_s": rec["wall_s"], "launches": rec["launches"],
-                "peak_mem_gb": rec["peak_mem_gb"]}
+        bare_s = []
+        epochs_of_batches = itertools.chain.from_iterable(
+            batch_iterator(train_light, collate, batch_size=CLIPS, rng=rng)
+            for _ in itertools.count())
+        for _ in _timed_iter(itertools.islice(epochs_of_batches,
+                                              BEHAVE_BARE_BATCHES), bare_s):
+            pass
+        # the trainer as it runs (batches built inline, between steps) and
+        # fed by JAX's two prefetch threads (`threaded_batches` over the
+        # same source), in turns, as users run it (no profiler) and then
+        # once each under --profiler simple for the sections; every run
+        # draws its clips from a fresh generator of one seed, so all six
+        # see the same batches and must give the same losses
+        runs = []
+        for route, profiled in (("inline", False), ("threads", False),
+                                ("threads", False), ("inline", False),
+                                ("inline", True), ("threads", True)):
+            data_s = []
+            run_rng = np.random.default_rng(SEED + 66)
+            clips = BehaveDataset(train_seqs, rng=run_rng, fields="light")
+
+            def source(clips=clips, run_rng=run_rng, data_s=data_s):
+                return _timed_iter(batch_iterator(
+                    clips, collate, batch_size=CLIPS, rng=run_rng), data_s)
+
+            batches = source if route == "inline" else (
+                lambda source=source: threaded_batches(source,
+                                                       num_workers=2))
+            model = _train_model()
+            with tempfile.TemporaryDirectory() as results:
+                profiler = (TrainProfiler(results, "simple", device=DEV)
+                            if profiled else None)
+                rec = _timed_train(lambda on_step: train(
+                    model, DiffusionConfig().build(DEV), batches,
+                    results_dir=results,
+                    epochs=BEHAVE_TRAIN_STEPS // per_epoch,
+                    val_every=BEHAVE_TRAIN_STEPS // per_epoch,
+                    val_diffusion=DiffusionConfig(
+                        timestep_respacing="25").build(DEV),
+                    val_batch=val_batch,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED),
+                    on_step=on_step, profiler=profiler), group, nn, sa)
+            steps = rec["summary"]["steps"]
+            want = {**NO_LAUNCHES, "K1": 2 * steps + 2}  # + the validation
+            sections = profiler.timer.stats() if profiled else {}
+            line = {"phase": "behave", "part": "train", "gpu": gpu,
+                    "route": route, "profiler": "simple" if profiled
+                    else None, "clips": CLIPS, "steps": steps,
+                    # the steps after the first, end to end: the mean is
+                    # the rate; the median hides alternating step lengths
+                    "ms_per_step_mean": statistics.fmean(rec["step_ms"][1:]),
+                    "ms_per_step_median": statistics.median(
+                        rec["step_ms"][1:]),
+                    "step_ms": rec["step_ms"],
+                    "sections_ms_median": {k: v["median_ms"]
+                                           for k, v in sections.items()},
+                    "sections": sections,
+                    "bare_iterator_s_per_batch": statistics.median(bare_s),
+                    "bare_iterator_batches": len(bare_s),
+                    "data_s_per_step": statistics.median(data_s),
+                    "losses_first_last": [rec["losses"][0],
+                                          rec["losses"][-1]],
+                    "val_loss": rec["summary"]["val_loss"],
+                    "wall_s": rec["wall_s"], "launches": rec["launches"],
+                    "peak_mem_gb": rec["peak_mem_gb"]}
+            emit(line)
+            want_sections = ({"batch_place": steps, "train_step": steps}
+                             if profiled else {})
+            if steps != BEHAVE_TRAIN_STEPS or rec["launches"] != want or \
+                    not np.isfinite(rec["losses"]).all() or {
+                        k: v["calls"] for k, v in sections.items()} != \
+                    want_sections:
+                raise AssertionError(f"behave train: {line}")
+            runs.append((line, rec["losses"]))
+        by_path["behave_train"] = runs[0][0]["launches"]
+        same = all(losses == runs[0][1] for _, losses in runs)
+        line = {"phase": "behave", "part": "train_inline_vs_threads",
+                "gpu": gpu, "bare_iterator_s_per_batch":
+                    statistics.median(bare_s),
+                "runs": [{k: ln[k] for k in (
+                    "route", "profiler", "ms_per_step_mean",
+                    "ms_per_step_median", "sections_ms_median")}
+                    for ln, _ in runs],
+                "losses_equal_across_runs": same}
         emit(line)
-        if steps != BEHAVE_TRAIN_STEPS or rec["launches"] != want or \
-                not np.isfinite(rec["losses"]).all():
-            raise AssertionError(f"behave train: {line}")
+        if not same:
+            raise AssertionError(f"behave train: the prefetch threads or "
+                                 f"the profiler changed the losses: {line}")
 
         # the correction trainer, every field of a clip
         train_full = BehaveDataset(train_seqs, rng=rng)
@@ -4049,6 +4380,140 @@ def phase_long_eval(group, nn, sa, models, gpu: str) -> dict:
     return launched
 
 
+CKPT_RESPACING = "100"
+
+
+def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
+    """The reference's Lightning checkpoints on the card: `.ckpt` files in
+    the reference's layout (`write_lightning_ckpt`) of the serving models of
+    `full_width_models` and of the full-width skeleton models;
+    `cli/convert_checkpoint.py::convert` of each, its state dict bitwise the
+    module's; then the eval entry points' `evaluate` at "100" respacing
+    (SMPL: 32 clips, 4 diverse samples, correction; skeleton: 32 clips,
+    correction) once with the modules `cli/common.py::load_mdm` and
+    `load_correction_variables` make of the `.ckpt` files and once with the
+    modules they make of the converted state-dict files (the MDM rebuilt
+    from the ``hparams.json`` beside it, exact FPS as a `.ckpt` pins it),
+    each given the module as the entry point builds it (grouped FPS), from
+    one seed: the metrics bitwise equal, the launches equal.  Returns the
+    launches by path."""
+    import tempfile
+
+    from interdiff_torch.cli import eval_skeleton, eval_smpl_short
+    from interdiff_torch.cli.common import load_correction_variables, load_mdm
+    from interdiff_torch.cli.convert_checkpoint import STATE_FILE, convert
+    from interdiff_torch.config import (
+        CorrectionConfig,
+        DiffusionConfig,
+        SkeletonTrackConfig,
+        SmplTrackConfig,
+    )
+    from interdiff_torch.eval.skeleton import SkeletonEvalConfig
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+    from interdiff_torch.utils.convert import torch_to_flax_variables
+
+    mdm, projector, body = models
+    skel, skel_projector = _skeleton_models(DEV, small=False)
+    hp_smpl = dict(embedding_dim=256, num_heads=4, ff_size=1024,
+                   num_layers=8, past_len=10, future_len=FUTURE)
+    hp_skel = dict(embedding_dim=256, num_heads=4, ff_size=256, num_layers=8,
+                   past_len=SKEL_PAST, future_len=SKEL_FRAMES - SKEL_PAST)
+    modules = {"mdm_smpl": (mdm, hp_smpl), "correction_smpl": (projector, {}),
+               "mdm_skeleton": (skel, hp_skel),
+               "correction_skeleton": (skel_projector, {})}
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        files = {}
+        t0 = time.perf_counter()
+        for kind, (module, hp) in modules.items():
+            path = os.path.join(root, f"{kind}.ckpt")
+            write_lightning_ckpt(path, torch_to_flax_variables(
+                module.state_dict()), kind, hp)
+            convert(path, kind, os.path.join(root, kind))
+            state = torch.load(os.path.join(root, kind, STATE_FILE),
+                               weights_only=True)
+            own = module.state_dict()
+            same = set(state) == set(own) and all(
+                torch.equal(state[k], own[k].cpu()) for k in own)
+            if not same:
+                raise AssertionError(f"convert_checkpoint {kind}: the state "
+                                     "dict is not the module's")
+            files[kind] = (path, os.path.join(root, kind, STATE_FILE))
+        convert_s = time.perf_counter() - t0
+
+        rng = np.random.default_rng(SEED + 90)
+        smpl_batch = _main_path_batch(rng, CLIPS, FRAMES, POINTS)
+        skel_batch = _skeleton_batch(rng, SKEL_CLIPS)
+        runs = {}
+        for route, pick in (("ckpt", 0), ("state_dict", 1)):
+            # the module as the eval entry point builds it (grouped FPS);
+            # load_mdm rebuilds it from the .ckpt or the hparams.json
+            smpl_model = load_mdm(
+                files["mdm_smpl"][pick], "smpl",
+                SmplTrackConfig().build_model(DEV), past_len=10,
+                future_len=FUTURE)
+            smpl_proj = CorrectionConfig().build_model(DEV)
+            load_correction_variables(smpl_proj, files["correction_smpl"][
+                pick])
+            torch.cuda.synchronize()
+            _reset_launches(group, nn, sa)
+            t0 = time.perf_counter()
+            totals, _ = eval_smpl_short.evaluate(
+                SmplEvalConfig(), smpl_model, DiffusionConfig(
+                    timestep_respacing=CKPT_RESPACING).build(DEV), body,
+                [smpl_batch], projector=smpl_proj,
+                diverse_samples=BEHAVE_DIVERSE, diverse_fold=FOLD,
+                generator=torch.Generator(device=DEV).manual_seed(SEED),
+                report=lambda n, means: None)
+            torch.cuda.synchronize()
+            smpl_s = time.perf_counter() - t0
+            smpl_launched = _read_launches(group, nn, sa)
+
+            skel_model = load_mdm(
+                files["mdm_skeleton"][pick], "skeleton",
+                SkeletonTrackConfig(future_len=SKEL_FRAMES - SKEL_PAST)
+                .build_model(DEV), past_len=SKEL_PAST,
+                future_len=SKEL_FRAMES - SKEL_PAST)
+            skel_proj = CorrectionConfig(
+                track="skeleton", num_nodes=21,
+                future_len=SKEL_FRAMES - SKEL_PAST).build_model(DEV)
+            load_correction_variables(skel_proj, files[
+                "correction_skeleton"][pick], "skeleton")
+            _reset_launches(group, nn, sa)
+            skel_totals, _ = eval_skeleton.evaluate(
+                SkeletonEvalConfig(past_len=SKEL_PAST,
+                                   future_len=SKEL_FRAMES - SKEL_PAST),
+                skel_model, DiffusionConfig(
+                    timestep_respacing=CKPT_RESPACING).build(DEV),
+                [skel_batch], projector=skel_proj,
+                generator=torch.Generator(device=DEV).manual_seed(SEED),
+                report=lambda n, means: None)
+            skel_launched = _read_launches(group, nn, sa)
+            runs[route] = dict(
+                smpl=totals, smpl_launches=smpl_launched, smpl_s=smpl_s,
+                skeleton=skel_totals, skeleton_launches=skel_launched,
+                fps_groups=smpl_model.pcEmbedding.sa0.fps_groups)
+    a, b = runs["ckpt"], runs["state_dict"]
+    line = {"phase": "ckpt", "gpu": gpu, "respacing": CKPT_RESPACING,
+            "clips": CLIPS, "skeleton_clips": SKEL_CLIPS,
+            "convert_s_four_files": convert_s, "runs": runs,
+            "smpl_metrics_equal": a["smpl"] == b["smpl"],
+            "skeleton_metrics_equal": a["skeleton"] == b["skeleton"]}
+    emit(line)
+    calls = BEHAVE_DIVERSE // FOLD
+    want = {**NO_LAUNCHES, "K1": 2, "K2": 2 * calls, "K4": 2 * calls,
+            "K3": calls}
+    if not (line["smpl_metrics_equal"] and line["skeleton_metrics_equal"]
+            and a["smpl_launches"] == b["smpl_launches"] == want
+            and a["skeleton_launches"] == b["skeleton_launches"]
+            == NO_LAUNCHES and a["fps_groups"] == b["fps_groups"] == 1
+            and all(np.isfinite(v) for v in a["smpl"].values())):
+        raise AssertionError(f"ckpt: {line}")
+    by_path["ckpt_eval"] = a["smpl_launches"]
+    by_path["ckpt_eval_state_dict"] = b["smpl_launches"]
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4072,10 +4537,11 @@ def main() -> int:
     phase_slice_cpu_vs_gpu(gpu)
     phase_slice_eval_cpu_vs_gpu(gpu)
     phase_slice_train_cpu_vs_gpu(group, sa, gpu)
+    phase_slice_options_cpu_vs_gpu(gpu)
     phase_skeleton_cpu_vs_gpu(group, nn, sa, gpu)
     phase_sampler(group, nn, sa, models, gpu)
     eval_launches = phase_eval(group, nn, sa, models, gpu)
-    train_launches = phase_train(group, nn, sa, gather, gpu)
+    train_launches, option_launches = phase_train(group, nn, sa, gather, gpu)
     phase_profile(models, gpu)
     phase_profile_train(gpu)
     skeleton_launches = phase_skeleton(group, nn, sa, gpu)
@@ -4086,6 +4552,7 @@ def main() -> int:
     phase_behave_cpu_vs_gpu(gpu)
     behave_launches = phase_behave(group, nn, sa, models, gpu)
     long_launches = phase_long_eval(group, nn, sa, models, gpu)
+    ckpt_launches = phase_ckpt(group, nn, sa, models, gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
@@ -4095,11 +4562,15 @@ def main() -> int:
                "train": {"K2": 0, "K3": 0, "K4": 0, **train_launches},
                **skeleton_launches, **correction_launches,
                "refine": refine_launches, **behave_launches,
-               "long_eval": long_launches}
+               "long_eval": long_launches, **option_launches,
+               **ckpt_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel never ran on a main path: {by_path}")
+    if any(by_path["train_linear_encoder"][k] for k in ("K1", "K6")):
+        raise AssertionError(f"K1 or K6 ran on the linear encoder's path: "
+                             f"{by_path}")
     no_kernel = list(skeleton_launches) + ["correction_train_skeleton"]
     if any(by_path[p] != NO_LAUNCHES for p in no_kernel):
         raise AssertionError(f"a kernel ran on a skeleton path: {by_path}")

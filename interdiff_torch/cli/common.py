@@ -1,17 +1,17 @@
 """Shared set-up of the entry points (`interdiff_tpu/cli/common.py`):
 seeding, the `--synthetic` batches of both tracks and the stand-in body, the
-host-side batch iterator and stacker, the loader of the port's own weight
-files, the loop of the two correction trainers, and the data route of the
-SMPL entry points: the flags ``--motion_path``, ``--model_path``,
-``--config`` and ``--synthetic_body``, the SMPL-H bodies and the BEHAVE
-splits.  The readers of orbax
-directories and of the reference's Lightning checkpoints are not ported: a
-checkpoint comes across once, through `utils/convert.py`, and is kept as a
-`torch.save`d state dict.
+host-side batch iterator and stacker, the loaders of weights (the port's
+own state-dict files and the reference's Lightning ``.ckpt`` files), the
+trainers' profiler flags, the loop of the two correction trainers, and the
+data route of the SMPL entry points: the flags ``--motion_path``,
+``--model_path``, ``--config`` and ``--synthetic_body``, the SMPL-H bodies
+and the BEHAVE splits.  An orbax directory of the JAX package is refused:
+`scripts/torch_convert_orbax.py` writes it as a state-dict file once.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 from argparse import ArgumentParser, Namespace
 from typing import (
@@ -32,7 +32,21 @@ from interdiff_torch.data.behave import BehaveSequence, load_behave_sequences
 from interdiff_torch.data.paths import load_paths
 from interdiff_torch.smpl.loader import smpl_model_from_pkl
 from interdiff_torch.smpl.model import SmplModel
+from interdiff_torch.utils.checkpoint import (
+    converted_hparams,
+    correction_state_dict,
+    mdm_skeleton_from_checkpoint,
+    mdm_skeleton_from_hparams,
+    mdm_smpl_from_checkpoint,
+    mdm_smpl_from_hparams,
+)
 from interdiff_torch.utils.convert import load_state_dict
+from interdiff_torch.utils.prefetch import place_batch
+from interdiff_torch.utils.profiling import (
+    StepTimer,
+    enable_anomaly_detection,
+    trace,
+)
 from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
 
 
@@ -109,24 +123,26 @@ def batch_iterator(dataset, collate_fn, *, batch_size: int,
 
 
 def stack_batches(batches: Iterable[Dict[str, np.ndarray]], spd: int,
-                  device, keys: Sequence[str]
+                  device, keys: Sequence[str],
+                  section: Callable[[str], contextlib.AbstractContextManager]
+                  = lambda name: contextlib.nullcontext()
                   ) -> Iterator[Tuple[Dict[str, np.ndarray],
                                       Dict[str, torch.Tensor]]]:
     """(last raw batch, its ``keys`` as tensors on ``device``) per dispatch
     of a trainer: one batch, or ``spd`` batches stacked on a new leading
-    axis (`train/trainer.py::chain_steps`).  A trailing partial stack is
-    dropped with a warning; with no full stack at all the run stops."""
+    axis (`train/trainer.py::chain_steps`), placed by
+    `utils/prefetch.py::place_batch` inside ``section("batch_place")``.  A
+    trailing partial stack is dropped with a warning; with no full stack at
+    all the run stops."""
     buf, yielded = [], 0
     for b in batches:
         buf.append(b)
         if len(buf) < spd:
             continue
-        if spd == 1:
-            placed = {k: torch.as_tensor(buf[0][k], device=device)
-                      for k in keys}
-        else:
-            placed = {k: torch.as_tensor(np.stack([x[k] for x in buf]),
-                                         device=device) for k in keys}
+        with section("batch_place"):
+            stacked = buf[0] if spd == 1 else {
+                k: np.stack([x[k] for x in buf]) for k in keys}
+            placed = place_batch(stacked, device, keys)
         yield buf[-1], placed
         yielded += 1
         buf = []
@@ -151,12 +167,160 @@ def fit_batch_size(num_clips: int, batch_size: int) -> int:
     return batch_size
 
 
+def _refuse_orbax(path: str) -> None:
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (an orbax save of the JAX package?): "
+            "the port reads state-dict files; write one with "
+            "scripts/torch_convert_orbax.py")
+
+
+def _is_lightning(path: Optional[str]) -> bool:
+    return bool(path) and path.endswith(".ckpt") and os.path.isfile(path)
+
+
 def load_weights(module: torch.nn.Module, path: Optional[str]) -> None:
     """Load a `utils/convert.py::save_state_dict` file into ``module``, every
     key matched; without a path the module keeps its initial weights."""
     if path:
+        _refuse_orbax(path)
         device = next(module.parameters()).device
         module.load_state_dict(load_state_dict(path, device), strict=True)
+
+
+def load_mdm(diffusion_ckpt: Optional[str], track: str,
+             model: torch.nn.Module, *, past_len: int, future_len: int
+             ) -> torch.nn.Module:
+    """One load path for every eval entry point's ``--diffusion_ckpt``
+    (`interdiff_tpu/cli/common.py::load_mdm`): a reference Lightning
+    ``.ckpt`` file replaces ``model`` by the module its hyper_parameters
+    describe (`utils/checkpoint.py::mdm_{smpl,skeleton}_from_checkpoint`, on
+    ``model``'s device), and so does a state-dict file that
+    `cli/convert_checkpoint.py` wrote with its ``hparams.json`` beside it
+    (the same module, exact FPS included, then the state dict); any other
+    state-dict file of the port is loaded into ``model``; without a path
+    ``model`` keeps its weights.  Returns the module to run.
+
+    The rebuilt routes check the embedded window sizes against
+    ``past_len``/``future_len``: the data windows and inpainting masks are
+    built from the flags, and a silent mismatch would run to completion with
+    meaningless metrics."""
+    device = next(model.parameters()).device
+    if _is_lightning(diffusion_ckpt):
+        loader = (mdm_smpl_from_checkpoint if track == "smpl"
+                  else mdm_skeleton_from_checkpoint)
+        model, hp = loader(diffusion_ckpt, device)
+    else:
+        hp = converted_hparams(diffusion_ckpt)
+        if hp is None:
+            load_weights(model, diffusion_ckpt)
+            return model
+        if hp["kind"] != f"mdm_{track}":
+            raise ValueError(
+                f"--diffusion_ckpt {diffusion_ckpt} was converted from a "
+                f"{hp['kind']} checkpoint; the {track} track needs mdm_{track}")
+        model = (mdm_smpl_from_hparams(hp, use_pointnet2=hp["use_pointnet2"],
+                                       device=device) if track == "smpl"
+                 else mdm_skeleton_from_hparams(hp, device))
+        load_weights(model, diffusion_ckpt)
+    # MDMSkeleton has no future_len: the embedded hyper_parameters decide
+    ckpt_future = int(hp.get("future_len",
+                             getattr(model, "future_len", future_len)))
+    if model.past_len != past_len or ckpt_future != future_len:
+        raise ValueError(
+            f"--diffusion_ckpt {diffusion_ckpt} embeds past_len="
+            f"{model.past_len}, future_len={ckpt_future}, but the CLI runs "
+            f"with --past_len {past_len} --future_len {future_len}; pass "
+            "matching window flags (dataset windows and inpaint masks are "
+            "built from them)")
+    return model
+
+
+def load_correction_variables(projector: torch.nn.Module,
+                              path: Optional[str], kind: str = "smpl"
+                              ) -> None:
+    """Load ``--correction_ckpt`` into ``projector``
+    (`interdiff_tpu/cli/common.py::load_correction_variables`): a reference
+    Lightning ``.ckpt`` file through `utils/checkpoint.py` (``kind`` 'smpl'
+    or 'skeleton'), or a state-dict file of the port; without a path the
+    projector keeps its weights."""
+    if not _is_lightning(path):
+        load_weights(projector, path)
+        return
+    device = next(projector.parameters()).device
+    projector.load_state_dict(
+        {k: v.to(device) for k, v in correction_state_dict(
+            path, kind).items()}, strict=True)
+
+
+def add_profiler_args(parser: ArgumentParser) -> None:
+    """``--profiler`` and ``--debug_nan`` of every trainer (the reference's
+    Simple/AdvancedProfiler flag, `train_diffusion_smpl.py:585,641`, and its
+    always-on `set_detect_anomaly`, `:608`, here opt-in)."""
+    parser.add_argument("--profiler", default=None,
+                        choices=["simple", "trace"],
+                        help="'simple' = per-section wall-clock summary; "
+                             "'trace' = torch.profiler trace (CPU and CUDA) "
+                             "into <results_dir>/trace")
+    parser.add_argument("--debug_nan", action="store_true",
+                        help="torch anomaly detection with NaN checks (the "
+                             "reference runs detect_anomaly always; here it "
+                             "is opt-in)")
+
+
+class TrainProfiler:
+    """The profiling state of one trainer run: with ``mode`` 'simple' a
+    `StepTimer` by section, with 'trace' a `torch.profiler` trace into
+    ``<results_dir>/trace``; ``debug_nan`` turns anomaly detection on until
+    :meth:`finish`.  Without a mode the sections time nothing.
+
+    Under 'simple' each section ends with a synchronize of a CUDA
+    ``device``, so that a section's time holds the device work it queued."""
+
+    def __init__(self, results_dir: str, mode: Optional[str] = None, *,
+                 debug_nan: bool = False, device=None):
+        self.debug_nan = debug_nan
+        if debug_nan:
+            enable_anomaly_detection(True)
+        self.mode = mode
+        self.timer = StepTimer()
+        self.trace_dir = os.path.join(results_dir, "trace")
+        device = torch.device(device) if device is not None else None
+        self._sync = device if device is not None and \
+            device.type == "cuda" else None
+        self._trace = None
+        if self.mode == "trace":
+            self._trace = contextlib.ExitStack()
+            self._trace.enter_context(trace(self.trace_dir))
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        with self.timer(name):
+            yield
+            if self._sync is not None:
+                torch.cuda.synchronize(self._sync)
+
+    def section(self, name: str) -> contextlib.AbstractContextManager:
+        if self.mode == "simple":
+            return self._timed(name)
+        return contextlib.nullcontext()
+
+    @classmethod
+    def from_args(cls, args: Namespace, results_dir: str, device=None
+                  ) -> "TrainProfiler":
+        """From the flags of :func:`add_profiler_args`."""
+        return cls(results_dir, args.profiler, debug_nan=args.debug_nan,
+                   device=device)
+
+    def finish(self) -> None:
+        if self.debug_nan:
+            enable_anomaly_detection(False)
+        if self._trace is not None:
+            self._trace.close()
+            self._trace = None
+            print("profiler trace written to", self.trace_dir, flush=True)
+        if self.mode == "simple":
+            print(self.timer.summary(), flush=True)
 
 
 def correction_train_loop(
@@ -165,7 +329,8 @@ def correction_train_loop(
     epoch_batches: Callable[[], Iterable[Dict[str, np.ndarray]]],
     keys: Sequence[str], *, results_dir: str, epochs: int, ckpt_every: int,
     generator: Optional[torch.Generator] = None,
-    on_step: Optional[Callable] = None, log: Optional[Sequence[str]] = None
+    on_step: Optional[Callable] = None, log: Optional[Sequence[str]] = None,
+    profiler: Optional["TrainProfiler"] = None
 ) -> Tuple[object, Dict]:
     """The loop of the correction trainers
     (`interdiff_tpu/cli/train_correction_{smpl,skeleton}.py`): per epoch the
@@ -176,29 +341,37 @@ def correction_train_loop(
     projector's state dict (parameters and BatchNorm statistics) goes to
     ``<results_dir>/ckpt/`` with the step's loss.  ``on_step(steps so far,
     state, metrics)`` runs after every step, the metrics on the device.
+    ``profiler`` times the sections ``batch_place`` and ``train_step`` (no
+    prefetch: the JAX correction trainers have none).
     Returns (state, {"steps", "loss": the last step's})."""
     device = next(projector.parameters()).device
+    prof = profiler if profiler is not None else TrainProfiler(results_dir)
     ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
     logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
     i, metrics = 0, None
-    for epoch in range(epochs):
-        step = step_for_epoch(epoch)
-        for batch in epoch_batches():
-            placed = {k: torch.as_tensor(batch[k], device=device)
-                      for k in keys}
-            state, metrics = step(state, placed, generator, float(epoch))
-            if i % 10 == 0:
-                logger.log(i, {k: metrics[k] for k in (log or metrics)},
-                           epoch=epoch)
-                print(f"step {i} loss {float(metrics['loss']):.4f}",
-                      flush=True)
-            i += 1
-            if on_step is not None:
-                on_step(i, state, metrics)
-        if metrics is not None and ((epoch + 1) % ckpt_every == 0
-                                    or epoch + 1 == epochs):
-            ckpt.save(i, projector.state_dict(),
-                      val_loss=float(metrics["loss"]))
+    try:
+        for epoch in range(epochs):
+            step = step_for_epoch(epoch)
+            for batch in epoch_batches():
+                with prof.section("batch_place"):
+                    placed = place_batch(batch, device, keys)
+                with prof.section("train_step"):
+                    state, metrics = step(state, placed, generator,
+                                          float(epoch))
+                if i % 10 == 0:
+                    logger.log(i, {k: metrics[k] for k in (log or metrics)},
+                               epoch=epoch)
+                    print(f"step {i} loss {float(metrics['loss']):.4f}",
+                          flush=True)
+                i += 1
+                if on_step is not None:
+                    on_step(i, state, metrics)
+            if metrics is not None and ((epoch + 1) % ckpt_every == 0
+                                        or epoch + 1 == epochs):
+                ckpt.save(i, projector.state_dict(),
+                          val_loss=float(metrics["loss"]))
+    finally:
+        prof.finish()
     ckpt.wait()
     logger.close()
     print("done:", i, "steps", flush=True)

@@ -14,10 +14,12 @@ device and without ``--device`` it stops.  ``--motion_path`` reads the
 HO-GCN sequence pickles (`data/skeleton.py`) and evaluates the seen and the
 unseen test splits; ``--synthetic N`` evaluates N random batches instead.
 The checkpoints are state dicts written by
-`utils/convert.py::save_state_dict`; without them the weights are the
-modules' seeded initial ones.  Rendering (``--render_dir``), YAML path
-configs (``--config``) and several devices (``--mesh_devices``) are not
-ported yet, and the parser does not know those flags.
+`utils/convert.py::save_state_dict` or the reference's Lightning ``.ckpt``
+files (the denoiser then built from the file's hyper_parameters); without
+them the weights are the modules' seeded initial ones.  ``--config`` may
+name the motion path in a YAML path config (PyYAML is imported only then).
+Rendering (``--render_dir``) and several devices (``--mesh_devices``) are
+not ported yet, and the parser does not know those flags.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any models and iterator of batches.
@@ -35,7 +37,8 @@ import torch
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
     batch_iterator,
-    load_weights,
+    load_correction_variables,
+    load_mdm,
     seed_everything,
     synthetic_skeleton_batches,
 )
@@ -46,6 +49,7 @@ from interdiff_torch.config import (
 )
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.eval.metrics import skeleton_metrics
+from interdiff_torch.data.paths import load_paths
 from interdiff_torch.eval.skeleton import (
     SkeletonEvalConfig,
     make_skeleton_sampler,
@@ -163,9 +167,14 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--mode", default="correction",
                         choices=["correction", "no_correction"])
     parser.add_argument("--diffusion_ckpt", default=None,
-                        help="state dict of MDMSkeleton (save_state_dict)")
+                        help="state dict of MDMSkeleton (save_state_dict), "
+                             "or a reference Lightning .ckpt")
     parser.add_argument("--correction_ckpt", default=None,
-                        help="state dict of ObjProjectorSkeleton")
+                        help="state dict of ObjProjectorSkeleton, or a "
+                             "reference Lightning .ckpt")
+    parser.add_argument("--config", default=None,
+                        help="YAML path config (BEHAVE.yml/HOI.yml style; "
+                             "needs PyYAML): its motion path")
     parser.add_argument("--batch_size", type=int, default=32)
     parser.add_argument("--past_len", type=int, default=10)
     parser.add_argument("--future_len", type=int, default=10)
@@ -187,6 +196,9 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> Tuple[Dict[str, float], int]:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.config:
+        args.motion_path = args.motion_path or load_paths(
+            args.config).motion_path
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -197,8 +209,9 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
     track = SkeletonTrackConfig(
         past_len=args.past_len, future_len=args.future_len,
         diffusion=DiffusionConfig(timestep_respacing=args.respacing))
-    model = track.build_model(device)
-    load_weights(model, args.diffusion_ckpt)
+    model = load_mdm(args.diffusion_ckpt, "skeleton",
+                     track.build_model(device), past_len=args.past_len,
+                     future_len=args.future_len)
     diffusion = track.diffusion.build(device)
     projector = None
     if args.mode == "correction":
@@ -206,7 +219,8 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
             track="skeleton", num_nodes=cfg.num_joints,
             past_len=args.past_len,
             future_len=args.future_len).build_model(device)
-        load_weights(projector, args.correction_ckpt)
+        load_correction_variables(projector, args.correction_ckpt,
+                                  "skeleton")
 
     def batches():
         if args.synthetic:

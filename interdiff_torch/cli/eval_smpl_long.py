@@ -18,7 +18,8 @@ horizon, ``past + (1 + rollouts) * future`` frames, so that every window can
 be scored; the sampler conditions on the first one only.  At most three
 batches are rolled out, each written to ``<out_dir>/rollout_<i>.npy``, and
 the per-window means to ``<out_dir>/drift_metrics.json``.  The checkpoints
-are state dicts (`utils/convert.py::save_state_dict`); without them the
+are state dicts (`utils/convert.py::save_state_dict`) or the reference's
+Lightning ``.ckpt`` files (`cli/common.py::load_mdm`); without them the
 weights are the modules' seeded initial ones.  Rendering (``--render_dir``,
 ``--obj_mesh``) is not ported yet and stops with an error.
 
@@ -45,7 +46,8 @@ from interdiff_torch.cli.common import (
     fit_batch_size,
     load_eval_sequences,
     load_smpl_models,
-    load_weights,
+    load_correction_variables,
+    load_mdm,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -264,14 +266,14 @@ def setup(args: Namespace, device) -> Dict:
     track = SmplTrackConfig(
         past_len=args.past_len, future_len=args.future_len,
         diffusion=DiffusionConfig(timestep_respacing=args.respacing))
-    model = track.build_model(device)
-    load_weights(model, args.diffusion_ckpt)
+    model = load_mdm(args.diffusion_ckpt, "smpl", track.build_model(device),
+                     past_len=args.past_len, future_len=args.future_len)
     projector = None
     if args.mode == "correction":
         projector = CorrectionConfig(
             past_len=args.past_len,
             future_len=args.future_len).build_model(device)
-        load_weights(projector, args.correction_ckpt)
+        load_correction_variables(projector, args.correction_ckpt)
 
     horizon = args.past_len + (1 + args.rollouts) * args.future_len
     if args.synthetic:

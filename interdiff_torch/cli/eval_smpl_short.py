@@ -16,7 +16,9 @@ split of ``--motion_path`` (the train split when it has no Date03*
 sequence; ``--config`` may name both paths, ``--synthetic_body`` stands in
 for the pkls) and scores every clip on the male body, as the JAX CLI does.
 The checkpoints are state dicts written by
-`utils/convert.py::save_state_dict`; without them the weights are the
+`utils/convert.py::save_state_dict` or the reference's Lightning ``.ckpt``
+files (the denoiser then built from the file's hyper_parameters, with
+exact FPS: `cli/common.py::load_mdm`); without them the weights are the
 modules' seeded initial ones.  Rendering (``--render_dir``, ``--obj_mesh``)
 is not ported yet and stops with an error; several devices
 (``--mesh_devices``) are not ported, and the parser does not know the flag.
@@ -42,7 +44,8 @@ from interdiff_torch.cli.common import (
     fit_batch_size,
     load_eval_sequences,
     load_smpl_models,
-    load_weights,
+    load_correction_variables,
+    load_mdm,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -188,9 +191,11 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diffusion_ckpt", default=None,
-                        help="state dict of MDMSmpl (save_state_dict)")
+                        help="state dict of MDMSmpl (save_state_dict), or "
+                             "a reference Lightning .ckpt")
     parser.add_argument("--correction_ckpt", default=None,
-                        help="state dict of ObjProjectorSmpl")
+                        help="state dict of ObjProjectorSmpl, or a "
+                             "reference Lightning .ckpt")
     parser.add_argument("--mode", default="correction",
                         choices=["correction", "no_correction"])
     parser.add_argument("--batch_size", type=int, default=32)
@@ -250,8 +255,8 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
     track = SmplTrackConfig(
         past_len=args.past_len, future_len=args.future_len,
         diffusion=DiffusionConfig(timestep_respacing=args.respacing))
-    model = track.build_model(device)
-    load_weights(model, args.diffusion_ckpt)
+    model = load_mdm(args.diffusion_ckpt, "smpl", track.build_model(device),
+                     past_len=args.past_len, future_len=args.future_len)
     diffusion = track.diffusion.build(device)
 
     projector = None
@@ -259,7 +264,7 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         projector = CorrectionConfig(
             past_len=args.past_len,
             future_len=args.future_len).build_model(device)
-        load_weights(projector, args.correction_ckpt)
+        load_correction_variables(projector, args.correction_ckpt)
 
     # the body first, then the batches, from the one generator: the order
     # of the JAX package's CLI

@@ -19,8 +19,9 @@ Four modes:
   random batches on the stand-in body), every sampled clip of a batch is
   refined at once (`refine_batch`), and the penetration of the future
   frames is reported before and after in ``<out_dir>/summary.json``.
-  ``FILE`` is a state dict of `MDMSmpl` (`utils/convert.py::save_state_dict`);
-  an empty string keeps the model's seeded initial weights.
+  ``FILE`` is a state dict of `MDMSmpl` (`utils/convert.py::save_state_dict`)
+  or a reference Lightning ``.ckpt`` (`cli/common.py::load_mdm`); an empty
+  string keeps the model's seeded initial weights.
 
 Usage:
   python -m interdiff_torch.cli.optimization --motion_path DIR \\
@@ -56,8 +57,8 @@ from interdiff_torch.cli.common import (
     check_data_args,
     fit_batch_size,
     load_eval_sequences,
+    load_mdm,
     load_smpl_models,
-    load_weights,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -420,8 +421,8 @@ def main(argv=None):
     track = SmplTrackConfig(
         past_len=args.past_len, future_len=args.future_len,
         diffusion=DiffusionConfig(timestep_respacing=args.respacing))
-    model = track.build_model(device)
-    load_weights(model, args.diffusion_ckpt)
+    model = load_mdm(args.diffusion_ckpt, "smpl", track.build_model(device),
+                     past_len=args.past_len, future_len=args.future_len)
     if args.synthetic:
         smpl = synthetic_smpl_body(rng, device=device)
         batches = synthetic_smpl_batches(

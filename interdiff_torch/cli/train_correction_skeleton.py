@@ -12,8 +12,10 @@ Usage:
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
 device and without ``--device`` it stops.  ``--motion_path`` reads the
 HO-GCN sequence pickles (`data/skeleton.py`) and trains on the train split;
-``--synthetic N`` trains on N random batches, one epoch.  YAML path configs
-(``--config``) are not ported and stop with an error.
+``--synthetic N`` trains on N random batches, one epoch.  ``--config`` may
+name the motion path in a YAML path config (PyYAML is imported only then).
+``--profiler simple|trace`` and ``--debug_nan`` as in the SMPL correction
+trainer.
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself.
 It writes ``<results_dir>/ckpt/`` (the projector's state dict, BatchNorm
@@ -32,10 +34,13 @@ import torch
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
     batch_iterator,
+    TrainProfiler,
+    add_profiler_args,
     correction_train_loop,
     seed_everything,
     synthetic_skeleton_batches,
 )
+from interdiff_torch.data.paths import load_paths
 from interdiff_torch.models.correction import ObjProjectorSkeleton
 from interdiff_torch.train.trainer import (
     CorrectionTrainState,
@@ -51,7 +56,8 @@ def train(projector: ObjProjectorSkeleton,
           epoch_batches: Callable[[], Iterable[Batch]], *, results_dir: str,
           epochs: int = 1, lr: float = 3e-4,
           generator: Optional[torch.Generator] = None,
-          on_step: Optional[Callable] = None
+          on_step: Optional[Callable] = None,
+          profiler: Optional[TrainProfiler] = None
           ) -> Tuple[CorrectionTrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_correction_skeleton.py:
     96-118`) on the projector's device over ``epoch_batches()`` (raw
@@ -62,7 +68,8 @@ def train(projector: ObjProjectorSkeleton,
     return correction_train_loop(
         projector, state, lambda epoch: step, epoch_batches, KEYS,
         results_dir=results_dir, epochs=epochs, ckpt_every=40,
-        generator=generator, on_step=on_step, log=("loss",))
+        generator=generator, on_step=on_step, log=("loss",),
+        profiler=profiler)
 
 
 def build_parser() -> ArgumentParser:
@@ -79,7 +86,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--seed", type=int, default=233)
     parser.add_argument("--synthetic", type=int, default=0,
                         help="train on N synthetic batches (no dataset)")
-    parser.add_argument("--config", default=None, help="not ported yet")
+    parser.add_argument("--config", default=None,
+                        help="YAML path config (BEHAVE.yml/HOI.yml style; "
+                             "needs PyYAML): its motion path")
+    add_profiler_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -89,9 +99,9 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    if args.config is not None:
-        parser.error("--config: YAML path configs are not ported yet; pass "
-                     "--motion_path or --synthetic N")
+    if args.config:
+        args.motion_path = args.motion_path or load_paths(
+            args.config).motion_path
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -124,7 +134,9 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     return train(projector, epoch_batches, results_dir=args.results_dir,
                  epochs=epochs, lr=args.lr,
                  generator=torch.Generator(device=device).manual_seed(
-                     args.seed))
+                     args.seed),
+                 profiler=TrainProfiler.from_args(args, args.results_dir,
+                                                  device))
 
 
 if __name__ == "__main__":

@@ -11,6 +11,11 @@ Usage:
       [--results_dir DIR] [--device cpu]
   python -m interdiff_torch.cli.train_correction_smpl --synthetic N_steps ...
 
+``--profiler simple`` prints the seconds of the sections ``batch_place``
+and ``train_step`` at the end, ``--profiler trace`` writes a
+`torch.profiler` trace to ``<results_dir>/trace``, ``--debug_nan`` turns on
+torch's anomaly detection with NaN checks.
+
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
 device and without ``--device`` it stops.  The dataset route trains on the
 train split of ``--motion_path`` with every field of a clip (markers, body
@@ -42,6 +47,8 @@ from interdiff_torch.cli.common import (
     add_data_args,
     batch_iterator,
     check_data_args,
+    TrainProfiler,
+    add_profiler_args,
     correction_train_loop,
     fit_batch_size,
     load_smpl_models,
@@ -72,7 +79,8 @@ def train(projector: ObjProjectorSmpl,
           weights: Optional[CorrectionLossWeights] = None,
           initialize_epochs: int = 10,
           generator: Optional[torch.Generator] = None,
-          on_step: Optional[Callable] = None
+          on_step: Optional[Callable] = None,
+          profiler: Optional[TrainProfiler] = None
           ) -> Tuple[CorrectionTrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_correction_smpl.py:190-
     262`) on the projector's device: epochs below ``initialize_epochs`` take
@@ -89,7 +97,8 @@ def train(projector: ObjProjectorSmpl,
     return correction_train_loop(
         projector, state, lambda epoch: steps[epoch < initialize_epochs],
         epoch_batches, KEYS, results_dir=results_dir, epochs=epochs,
-        ckpt_every=25, generator=generator, on_step=on_step)
+        ckpt_every=25, generator=generator, on_step=on_step,
+        profiler=profiler)
 
 
 def build_parser() -> ArgumentParser:
@@ -116,6 +125,7 @@ def build_parser() -> ArgumentParser:
                              "reference's 0.1)")
     for name in UNPORTED:
         parser.add_argument(f"--{name}", default=None, help="not ported yet")
+    add_profiler_args(parser)
     add_data_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
@@ -169,7 +179,9 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
                  weights=weights,
                  initialize_epochs=0 if args.synthetic else 10,
                  generator=torch.Generator(device=device).manual_seed(
-                     args.seed))
+                     args.seed),
+                 profiler=TrainProfiler.from_args(args, args.results_dir,
+                                                  device))
 
 
 if __name__ == "__main__":

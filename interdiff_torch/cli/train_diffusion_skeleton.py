@@ -5,7 +5,8 @@ Usage:
   python -m interdiff_torch.cli.train_diffusion_skeleton --synthetic N_steps \\
       [--batch_size 32] [--lr 3e-4] [--ema_decay 0.9999] \\
       [--steps_per_dispatch K] [--val_respacing 25] \\
-      [--resume_checkpoint model.pt] [--results_dir DIR] [--device cpu]
+      [--resume_checkpoint model.pt] [--profiler simple|trace] \\
+      [--debug_nan] [--results_dir DIR] [--device cpu]
   python -m interdiff_torch.cli.train_diffusion_skeleton --motion_path DIR ...
 
 It runs on the CUDA device unless ``--device`` names another; without a CUDA
@@ -17,9 +18,11 @@ validation.  Validation runs the full inpainting sampler
 (``--val_respacing``) and scores `skeleton_metrics` (the reference's
 `validation_step`, `train_diffusion_skeleton.py:272-295`), on the EMA
 shadow when there is one.  ``--resume_checkpoint`` takes a state-dict file
-of the port (`utils/convert.py::save_state_dict`).  Validation renders
-(``--render_interval``), YAML path configs (``--config``) and the profiler
-flags are not ported, and the parser does not know them.
+of the port (`utils/convert.py::save_state_dict`).  ``--config`` may name
+the motion path in a YAML path config (PyYAML is imported only then).  The
+batches are built on the main thread between steps, as in the SMPL
+trainer; ``--profiler`` and ``--debug_nan`` as there.  Validation renders (``--render_interval``) are not ported,
+and the parser does not know them.
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself.
 It writes ``<results_dir>/ckpt/`` (the weights, the best three by the
@@ -39,6 +42,8 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    TrainProfiler,
+    add_profiler_args,
     batch_iterator,
     fit_batch_size,
     load_weights,
@@ -47,6 +52,7 @@ from interdiff_torch.cli.common import (
     synthetic_skeleton_batches,
 )
 from interdiff_torch.config import DiffusionConfig, SkeletonTrackConfig
+from interdiff_torch.data.paths import load_paths
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.eval.metrics import skeleton_metrics
 from interdiff_torch.eval.skeleton import (
@@ -98,7 +104,9 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
           val_diffusion: Optional[GaussianDiffusion] = None,
           val_batch: Optional[Batch] = None,
           generator: Optional[torch.Generator] = None,
-          on_step: Optional[Callable] = None) -> Tuple[TrainState, Dict]:
+          on_step: Optional[Callable] = None,
+          profiler: Optional[TrainProfiler] = None
+          ) -> Tuple[TrainState, Dict]:
     """The training loop
     (`interdiff_tpu/cli/train_diffusion_skeleton.py:199-268`) on the model's
     device; returns (the final `TrainState`, a summary with ``steps`` and
@@ -113,7 +121,8 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
     ``ckpt_ema/``, ranked by ``mpjpe_h``.  The timesteps, the training noise
     and the validation's noise come from ``generator``.  ``on_step(steps so
     far, state, metrics)`` is called after every dispatch with the metrics
-    still on the device.
+    still on the device.  ``profiler`` times the sections ``batch_place``
+    and ``train_step``.
     """
     device = next(model.parameters()).device
     spd = max(1, steps_per_dispatch)
@@ -131,31 +140,36 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
     val_model = copy.deepcopy(model) if ema_decay > 0 else model
     run_validation = make_validation(val_model, val_diffusion or diffusion)
 
+    prof = profiler if profiler is not None else TrainProfiler(results_dir)
     i, summary = 0, {"val": []}
-    for epoch in range(epochs):
-        batch_np = None
-        for batch_np, batch in stack_batches(epoch_batches(), spd, device,
-                                             KEYS):
-            state, metrics = step(state, batch, generator)
-            if (i // spd) % max(1, 10 // spd) == 0:
-                loss = float(metrics["loss"].mean())
-                logger.log(i, {"loss": loss}, epoch=epoch)
-                print(f"step {i} loss {loss:.4f}", flush=True)
-            i += spd
-            if on_step is not None:
-                on_step(i, state, metrics)
-        if (epoch + 1) % val_every == 0 or validate_every_epoch:
-            if state.ema_params is not None:
-                val_model.load_state_dict(state.ema_params, strict=True)
-            val_metrics = run_validation(
-                batch_np if val_batch is None else val_batch, generator)
-            logger.log(i, val_metrics, epoch=epoch, split="valid")
-            print(f"epoch {epoch} val {val_metrics}", flush=True)
-            summary["val"].append(val_metrics)
-            ckpt.save(i, state.params, val_loss=val_metrics["mpjpe_h"])
-            if ckpt_ema is not None:
-                ckpt_ema.save(i, state.ema_params,
-                              val_loss=val_metrics["mpjpe_h"])
+    try:
+        for epoch in range(epochs):
+            batch_np = None
+            for batch_np, batch in stack_batches(
+                    epoch_batches(), spd, device, KEYS, prof.section):
+                with prof.section("train_step"):
+                    state, metrics = step(state, batch, generator)
+                if (i // spd) % max(1, 10 // spd) == 0:
+                    loss = float(metrics["loss"].mean())
+                    logger.log(i, {"loss": loss}, epoch=epoch)
+                    print(f"step {i} loss {loss:.4f}", flush=True)
+                i += spd
+                if on_step is not None:
+                    on_step(i, state, metrics)
+            if (epoch + 1) % val_every == 0 or validate_every_epoch:
+                if state.ema_params is not None:
+                    val_model.load_state_dict(state.ema_params, strict=True)
+                val_metrics = run_validation(
+                    batch_np if val_batch is None else val_batch, generator)
+                logger.log(i, val_metrics, epoch=epoch, split="valid")
+                print(f"epoch {epoch} val {val_metrics}", flush=True)
+                summary["val"].append(val_metrics)
+                ckpt.save(i, state.params, val_loss=val_metrics["mpjpe_h"])
+                if ckpt_ema is not None:
+                    ckpt_ema.save(i, state.ema_params,
+                                  val_loss=val_metrics["mpjpe_h"])
+    finally:
+        prof.finish()
     ckpt.wait()
     if ckpt_ema is not None:
         ckpt_ema.wait()
@@ -169,6 +183,9 @@ def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--motion_path", default=None,
                         help="directory of HO-GCN sequence pickles")
+    parser.add_argument("--config", default=None,
+                        help="YAML path config (BEHAVE.yml/HOI.yml style; "
+                             "needs PyYAML): its motion path")
     parser.add_argument("--results_dir",
                         default="./results/skeleton_diffusion")
     parser.add_argument("--batch_size", type=int, default=32)
@@ -195,6 +212,7 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--val_respacing", default="",
                         help="timestep respacing of the validation sampler "
                              "('' = the full schedule; e.g. '25')")
+    add_profiler_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -204,6 +222,9 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> Tuple[TrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.config:
+        args.motion_path = args.motion_path or load_paths(
+            args.config).motion_path
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
     device = resolve_device(None if args.device == "cuda" else args.device)
@@ -253,11 +274,13 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
 
     return train(
         model, track.diffusion.build(device), epoch_batches,
-        results_dir=args.results_dir, epochs=epochs, lr=args.lr, ema_decay=args.ema_decay,
+        results_dir=args.results_dir, epochs=epochs, lr=args.lr,
+        ema_decay=args.ema_decay,
         steps_per_dispatch=args.steps_per_dispatch, val_every=args.val_every,
         validate_every_epoch=bool(args.synthetic),
         val_diffusion=val_diffusion, val_batch=val_batch,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        profiler=TrainProfiler.from_args(args, args.results_dir, device))
 
 
 if __name__ == "__main__":

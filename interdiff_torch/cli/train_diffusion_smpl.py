@@ -7,6 +7,7 @@ Usage:
       [--lr 3e-4] [--schedule_sampler uniform] [--ema_decay 0.9999] \\
       [--bn_train_mode 1] [--steps_per_dispatch K] [--val_every 50] \\
       [--val_respacing 25] [--val_diverse N] [--resume_checkpoint model.pt] \\
+      [--use_pointnet2 0] [--profiler simple|trace] [--debug_nan] \\
       [--results_dir DIR] [--device cpu]
   python -m interdiff_torch.cli.train_diffusion_smpl --synthetic N_steps ...
 
@@ -17,10 +18,17 @@ window jitter drawn anew) and validates every ``--val_every`` epochs on the
 first batch of the test split, or on the epoch's last train batch when the
 corpus has no Date03* sequence (``--config`` may name both paths,
 ``--synthetic_body`` stands in for the pkls).  ``--synthetic N`` trains on
-N random batches, one epoch and one validation.  Validation renders
-(``--render_interval``), the Linear object encoder (``--use_pointnet2 0``)
-and the profiler flags are not ported, and the parser does not know them.
-``--resume_checkpoint`` takes a state-dict file of the port
+N random batches, one epoch and one validation.  The batches are built on
+the main thread between steps: JAX's two prefetch threads
+(`utils/prefetch.py::threaded_batches`) slow the port's eager step, whose
+dispatch holds the interpreter lock the clip building needs (PERF.md §6).
+``--use_pointnet2 0`` encodes the object cloud by the linear
+encoder over [xyz | normal] instead of PointNet++.  ``--profiler simple``
+prints the seconds of the sections ``batch_place`` and ``train_step`` at
+the end, ``--profiler trace`` writes a `torch.profiler` trace to
+``<results_dir>/trace``, ``--debug_nan`` turns on torch's anomaly
+detection with NaN checks.  Validation renders (``--render_interval``) are
+not ported, and the parser does not know them.  ``--resume_checkpoint`` takes a state-dict file of the port
 (`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here).
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
@@ -43,7 +51,9 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
+    TrainProfiler,
     add_data_args,
+    add_profiler_args,
     batch_iterator,
     check_data_args,
     load_smpl_models,
@@ -138,7 +148,9 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
           val_diffusion: Optional[GaussianDiffusion] = None,
           val_batch: Optional[Batch] = None,
           generator: Optional[torch.Generator] = None,
-          on_step: Optional[Callable] = None) -> Tuple[TrainState, Dict]:
+          on_step: Optional[Callable] = None,
+          profiler: Optional[TrainProfiler] = None
+          ) -> Tuple[TrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_diffusion_smpl.py:341-429`)
     on the model's device; returns (the final `TrainState`, a summary with
     ``steps`` and the validations' ``val_loss`` and ``val_terms``).
@@ -152,7 +164,8 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
     validation loss and saves ``ckpt/`` and ``ckpt_ema/``.  The timesteps,
     the training noise and the validation's noise come from ``generator``.
     ``on_step(steps so far, state, metrics)`` is called after every
-    dispatch with the metrics still on the device.
+    dispatch with the metrics still on the device.  ``profiler`` times the
+    sections ``batch_place`` and ``train_step``.
     """
     device = next(model.parameters()).device
     spd = max(1, steps_per_dispatch)
@@ -185,37 +198,44 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
         val_model, val_diffusion or diffusion, past_len=model.past_len,
         future_len=model.future_len, val_diverse=val_diverse)
 
+    prof = profiler if profiler is not None else TrainProfiler(results_dir)
     i, summary = 0, {"val_loss": [], "val_terms": []}
-    for epoch in range(epochs):
-        batch_np = None
-        for batch_np, batch in stack_batches(epoch_batches(), spd, device,
-                                             KEEP):
-            state, metrics = step(state, batch, generator)
-            if (i // spd) % max(1, 10 // spd) == 0:
-                # chained dispatches return stacked [K] metrics: log the mean
-                loss = float(metrics["loss"].mean())
-                logger.log(i, {"loss": loss}, epoch=epoch)
-                print(f"step {i} loss {loss:.4f}", flush=True)
-            i += spd
-            if on_step is not None:
-                on_step(i, state, metrics)
-        if (epoch + 1) % val_every == 0 or validate_every_epoch:
-            if state.ema_params is not None:
-                val_model.load_state_dict(
-                    merge_bn_state(state.ema_params, state.model_state),
-                    strict=True)
-            val_loss, val_terms = run_validation(
-                batch_np if val_batch is None else val_batch, generator)
-            logger.log(i, {"val_loss": val_loss, **val_terms}, epoch=epoch)
-            print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
-            summary["val_loss"].append(val_loss)
-            summary["val_terms"].append(val_terms)
-            ckpt.save(i, merge_bn_state(state.params, state.model_state),
-                      val_loss=val_loss)
-            if ckpt_ema is not None:
-                ckpt_ema.save(i, merge_bn_state(state.ema_params,
-                                                state.model_state),
-                              val_loss=val_loss)
+    try:
+        for epoch in range(epochs):
+            batch_np = None
+            for batch_np, batch in stack_batches(
+                    epoch_batches(), spd, device, KEEP, prof.section):
+                with prof.section("train_step"):
+                    state, metrics = step(state, batch, generator)
+                if (i // spd) % max(1, 10 // spd) == 0:
+                    # chained dispatches return stacked [K] metrics: log the
+                    # mean
+                    loss = float(metrics["loss"].mean())
+                    logger.log(i, {"loss": loss}, epoch=epoch)
+                    print(f"step {i} loss {loss:.4f}", flush=True)
+                i += spd
+                if on_step is not None:
+                    on_step(i, state, metrics)
+            if (epoch + 1) % val_every == 0 or validate_every_epoch:
+                if state.ema_params is not None:
+                    val_model.load_state_dict(
+                        merge_bn_state(state.ema_params, state.model_state),
+                        strict=True)
+                val_loss, val_terms = run_validation(
+                    batch_np if val_batch is None else val_batch, generator)
+                logger.log(i, {"val_loss": val_loss, **val_terms},
+                           epoch=epoch)
+                print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
+                summary["val_loss"].append(val_loss)
+                summary["val_terms"].append(val_terms)
+                ckpt.save(i, merge_bn_state(state.params, state.model_state),
+                          val_loss=val_loss)
+                if ckpt_ema is not None:
+                    ckpt_ema.save(i, merge_bn_state(state.ema_params,
+                                                    state.model_state),
+                                  val_loss=val_loss)
+    finally:
+        prof.finish()
     ckpt.wait()
     if ckpt_ema is not None:
         ckpt_ema.wait()
@@ -243,6 +263,10 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--embedding_dim", type=int, default=256)
     parser.add_argument("--ff_size", type=int, default=1024)
     parser.add_argument("--num_layers", type=int, default=8)
+    parser.add_argument("--use_pointnet2", type=int, default=1,
+                        help="1 = PointNet++ object encoder; 0 = the linear "
+                             "encoder over [xyz | normal] averaged over the "
+                             "points")
     parser.add_argument("--schedule_sampler", default="uniform",
                         choices=["uniform", "loss-second-moment"],
                         help="timestep sampler; the reference hardcodes "
@@ -272,6 +296,7 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--val_respacing", default="",
                         help="timestep respacing of the validation sampler "
                              "('' = the full schedule; e.g. '25')")
+    add_profiler_args(parser)
     add_data_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
@@ -318,7 +343,8 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
     track = SmplTrackConfig(past_len=args.past_len,
                             future_len=args.future_len,
                             embedding_dim=args.embedding_dim,
-                            ff_size=args.ff_size, num_layers=args.num_layers)
+                            ff_size=args.ff_size, num_layers=args.num_layers,
+                            use_pointnet2=bool(args.use_pointnet2))
     model = track.build_model(device)
     load_weights(model, args.resume_checkpoint)
     if args.resume_checkpoint:
@@ -350,7 +376,8 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         validate_every_epoch=bool(args.synthetic),
         val_diverse=args.val_diverse, val_diffusion=val_diffusion,
         val_batch=val_batch,
-        generator=torch.Generator(device=device).manual_seed(args.seed))
+        generator=torch.Generator(device=device).manual_seed(args.seed),
+        profiler=TrainProfiler.from_args(args, args.results_dir, device))
 
 
 if __name__ == "__main__":

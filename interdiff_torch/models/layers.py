@@ -7,11 +7,14 @@ bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
 (flax ``kernel`` is the transposed ``weight``), ``TorchMHA`` keeps the
 packed ``in_proj_kernel`` [D, 3D] layout, QaN layers keep ``queries``
 [N, D] and ``wk`` [N, 1].  Every layer is post-norm, LayerNorm eps is 1e-5,
-GELU is the exact erf form.  Dropout in the transformer layers is
-inference-only (rate 0 in every reference run), so it is not modelled
-there; the ST-GCNN layers model it in train mode, from an explicit
-generator.  Both BatchNorms have flax's train mode: ``BatchNormState`` (the
-correction networks) keeps its running statistics as buffers, state that
+GELU is the exact erf form.  Dropout sits where the JAX package puts it
+(after the positional encoding, inside the feed-forward block, on each
+sublayer's output before its residual; not inside attention) and acts in
+train mode only (``train=True``), its mask drawn from an explicit
+``torch.Generator`` (:func:`dropout`); at rate 0 or in eval mode a layer
+computes exactly what it does without dropout and draws nothing.  Both
+BatchNorms have flax's train mode: ``BatchNormState`` (the correction
+networks) keeps its running statistics as buffers, state that
 the correction trainers move by momentum and never optimise;
 ``BatchNorm`` (the PointNet++ encoder) keeps them as parameters, because
 the JAX package's default diffusion train step optimises them.
@@ -33,6 +36,19 @@ from interdiff_torch.ops.attention import (
 )
 
 
+def dropout(x: torch.Tensor, rate: float, train: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """flax's ``nn.Dropout``: in train mode with ``rate`` > 0, each element
+    kept with probability 1 - rate (a uniform draw from ``generator`` below
+    it) and scaled by 1 / (1 - rate), the others zeroed; otherwise ``x``
+    itself, with no draw."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0)
+
+
 def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
     """The sin/cos positional table of `interdiff/model/layers.py:9-21`."""
     pe = np.zeros((max_len, d_model), dtype=np.float32)
@@ -45,16 +61,20 @@ def sinusoidal_table(max_len: int, d_model: int) -> np.ndarray:
 
 
 class PositionalEncoding(nn.Module):
-    """x + pe[:T] (`layers.py:9-26`); x is [B, T, D]."""
+    """x + pe[:T], then dropout (`layers.py:9-26`); x is [B, T, D]."""
 
-    def __init__(self, d_model: int, max_len: int = 5000):
+    def __init__(self, d_model: int, dropout: float = 0.0,
+                 max_len: int = 5000):
         super().__init__()
+        self.dropout = dropout
         self.register_buffer(
             "pe", torch.from_numpy(sinusoidal_table(max_len, d_model)),
             persistent=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x + self.pe[None, : x.shape[1]].to(x.dtype)
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return dropout(x + self.pe[None, : x.shape[1]].to(x.dtype),
+                       self.dropout, train, generator)
 
 
 class TimestepEmbedder(nn.Module):
@@ -107,17 +127,19 @@ def _activation(name: str):
 
 
 class FeedForward(nn.Module):
-    """linear2(act(linear1(x))) (`sublayers.py:201-203`)."""
+    """linear2(dropout(act(linear1(x)))) (`sublayers.py:201-203`)."""
 
     def __init__(self, d_model: int, dim_feedforward: int,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0):
         super().__init__()
         self.linear1 = nn.Linear(d_model, dim_feedforward)
         self.linear2 = nn.Linear(dim_feedforward, d_model)
         self.act = _activation(activation)
+        self.dropout = dropout
 
-    def forward(self, x):
-        return self.linear2(self.act(self.linear1(x)))
+    def forward(self, x, train: bool = False, generator=None):
+        return self.linear2(dropout(self.act(self.linear1(x)), self.dropout,
+                                    train, generator))
 
 
 def _layer_norm(d_model: int) -> nn.LayerNorm:
@@ -128,52 +150,66 @@ class EncoderLayer(nn.Module):
     """Post-norm ``nn.TransformerEncoderLayer``; ``memory`` is ignored."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = TorchMHA(d_model, num_heads)
         self.norm1 = _layer_norm(d_model)
-        self.ff = FeedForward(d_model, dim_feedforward, activation)
+        self.ff = FeedForward(d_model, dim_feedforward, activation, dropout)
         self.norm2 = _layer_norm(d_model)
 
-    def forward(self, x, memory=None):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        return self.norm2(x + self.ff(x))
+    def forward(self, x, memory=None, train: bool = False, generator=None):
+        def drop(h):
+            return dropout(h, self.dropout, train, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, x)))
+        return self.norm2(x + drop(self.ff(x, train, generator)))
 
 
 class DecoderLayer(nn.Module):
     """Post-norm ``nn.TransformerDecoderLayer``."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 activation: str = "gelu"):
+                 activation: str = "gelu", dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.self_attn = TorchMHA(d_model, num_heads)
         self.norm1 = _layer_norm(d_model)
         self.multihead_attn = TorchMHA(d_model, num_heads)
         self.norm2 = _layer_norm(d_model)
-        self.ff = FeedForward(d_model, dim_feedforward, activation)
+        self.ff = FeedForward(d_model, dim_feedforward, activation, dropout)
         self.norm3 = _layer_norm(d_model)
 
-    def forward(self, x, memory):
-        x = self.norm1(x + self.self_attn(x, x, x))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory))
-        return self.norm3(x + self.ff(x))
+    def forward(self, x, memory, train: bool = False, generator=None):
+        def drop(h):
+            return dropout(h, self.dropout, train, generator)
+
+        x = self.norm1(x + drop(self.self_attn(x, x, x)))
+        x = self.norm2(x + drop(self.multihead_attn(x, memory, memory)))
+        return self.norm3(x + drop(self.ff(x, train, generator)))
 
 
 class _QaNBlock(nn.Module):
     """Banded rotary attention of learned queries, mixed by ``wk``."""
 
-    def __init__(self, d_model: int, num_heads: int, num_queries: int):
+    def __init__(self, d_model: int, num_heads: int, num_queries: int,
+                 dropout: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.queries = nn.Parameter(
             torch.randn(num_queries, d_model) / math.sqrt(d_model))
         self.wk = nn.Parameter(
             torch.randn(num_queries, 1) / math.sqrt(num_queries))
 
-    def _qa_block(self, x):
+    def _drop(self, h, train: bool, generator):
+        return dropout(h, self.dropout, train, generator)
+
+    def _qa_block(self, x, train: bool = False, generator=None):
         out = banded_qan_attention(self.queries, x, num_heads=self.num_heads)
         # einsum bntd,nk->bktd with k == 1 (`sublayers.py:188`)
-        return torch.einsum("bntd,nk->bktd", out, self.wk)[:, 0]
+        return self._drop(torch.einsum("bntd,nk->bktd", out, self.wk)[:, 0],
+                          train, generator)
 
 
 class QaNEncoderLayer(_QaNBlock):
@@ -181,15 +217,17 @@ class QaNEncoderLayer(_QaNBlock):
     residual is taken from ``src`` (stochastic depth at rate 0)."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 activation: str = "gelu", num_queries: int = 10):
-        super().__init__(d_model, num_heads, num_queries)
+                 activation: str = "gelu", dropout: float = 0.0,
+                 num_queries: int = 10):
+        super().__init__(d_model, num_heads, num_queries, dropout)
         self.norm1 = _layer_norm(d_model)
-        self.ff = FeedForward(d_model, dim_feedforward, activation)
+        self.ff = FeedForward(d_model, dim_feedforward, activation, dropout)
         self.norm2 = _layer_norm(d_model)
 
-    def forward(self, src, memory=None):
-        x = self.norm1(src + self._qa_block(src))
-        x = self.norm2(x + self.ff(x))
+    def forward(self, src, memory=None, train: bool = False, generator=None):
+        x = self.norm1(src + self._qa_block(src, train, generator))
+        x = self.norm2(x + self._drop(self.ff(x, train, generator), train,
+                                      generator))
         return src + (x - src)
 
 
@@ -198,18 +236,21 @@ class QaNDecoderLayer(_QaNBlock):
     dense cross-attn to memory, FFN; post-norm; residual from ``tgt``."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 activation: str = "gelu", num_queries: int = 10):
-        super().__init__(d_model, num_heads, num_queries)
+                 activation: str = "gelu", dropout: float = 0.0,
+                 num_queries: int = 10):
+        super().__init__(d_model, num_heads, num_queries, dropout)
         self.norm1 = _layer_norm(d_model)
         self.multihead_attn = TorchMHA(d_model, num_heads)
         self.norm2 = _layer_norm(d_model)
-        self.ff = FeedForward(d_model, dim_feedforward, activation)
+        self.ff = FeedForward(d_model, dim_feedforward, activation, dropout)
         self.norm3 = _layer_norm(d_model)
 
-    def forward(self, tgt, memory):
-        x = self.norm1(tgt + self._qa_block(tgt))
-        x = self.norm2(x + self.multihead_attn(x, memory, memory))
-        x = self.norm3(x + self.ff(x))
+    def forward(self, tgt, memory, train: bool = False, generator=None):
+        x = self.norm1(tgt + self._qa_block(tgt, train, generator))
+        x = self.norm2(x + self._drop(self.multihead_attn(x, memory, memory),
+                                      train, generator))
+        x = self.norm3(x + self._drop(self.ff(x, train, generator), train,
+                                      generator))
         return tgt + (x - tgt)
 
 
@@ -223,16 +264,19 @@ class TransformerStack(nn.Module):
     'qan_dec', and encoder kinds ignore ``memory``."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
-                 kinds: Sequence[str], activation: str = "gelu"):
+                 kinds: Sequence[str], activation: str = "gelu",
+                 dropout: float = 0.0):
         super().__init__()
         self.kinds = tuple(kinds)
         for i, kind in enumerate(self.kinds):
             self.add_module(f"layer_{i}", _KINDS[kind](
-                d_model, num_heads, dim_feedforward, activation))
+                d_model, num_heads, dim_feedforward, activation, dropout))
 
-    def forward(self, x, memory: Optional[torch.Tensor] = None):
+    def forward(self, x, memory: Optional[torch.Tensor] = None,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
         for i in range(len(self.kinds)):
-            x = getattr(self, f"layer_{i}")(x, memory)
+            x = getattr(self, f"layer_{i}")(x, memory, train, generator)
         return x
 
 
@@ -372,11 +416,7 @@ class STGCNNLayer(nn.Module):
                 ) -> torch.Tensor:
         res = (self.res_bn(self.res_conv(x), train)
                if self.has_res_conv else x)
-        h = self.tcn_bn(self.tcn_conv(self.gcn(x)), train)
-        if train and self.dropout > 0.0:
-            keep = 1.0 - self.dropout
-            mask = torch.rand(h.shape, generator=generator,
-                              device=h.device) < keep
-            h = torch.where(mask, h / keep, 0.0)
+        h = dropout(self.tcn_bn(self.tcn_conv(self.gcn(x)), train),
+                    self.dropout, train, generator)
         h = h + res
         return torch.where(h >= 0, h, self.prelu * h)

@@ -54,7 +54,10 @@ class MDMSkeleton(nn.Module):
     (``latent_usage='memory'``).  Built on ``device`` (CUDA unless given),
     in eval mode.  ``encode`` and ``denoise`` record a graph when a
     parameter requires a gradient; the samplers hold `torch.no_grad`
-    themselves.  Dropout (0 in every reference run) is not modelled.
+    themselves.  ``dropout`` and the condition mask of ``cond_mask_prob``
+    act with ``train=True`` only, drawn from the call's ``generator``; the
+    train step runs the denoiser with ``train=False``, as the JAX package's
+    does, and so refuses a model built with either rate above 0.
     """
 
     def __init__(self, num_joints: int = 21, num_points: int = 12,
@@ -64,26 +67,25 @@ class MDMSkeleton(nn.Module):
                  cond_mask_prob: float = 0.0, latent_usage: str = "memory",
                  device=None):
         super().__init__()
-        if dropout != 0.0:
-            raise NotImplementedError("dropout is not ported")
         self.num_joints = num_joints
         self.num_points = num_points
         self.embed_dim = embed_dim
         self.past_len = past_len
+        self.dropout = dropout
         self.cond_mask_prob = cond_mask_prob
         E = embed_dim
         self.bodyEmbedding = nn.Linear(self.body_dim, E)
         self.shapeEmbedding = nn.Linear(self.points_dim, E)
         self.objEmbedding = nn.Linear(self.points_dim, E)
-        self.positional = PositionalEncoding(E)
+        self.positional = PositionalEncoding(E, dropout)
         self.embedTimeStep = TimestepEmbedder(E)
         self.encoder = TransformerStack(
             E, num_heads, ff_size, mdm_stack_kinds(num_layers, cross=False),
-            activation)
+            activation, dropout)
         self.decoder = TransformerStack(
             E, num_heads, ff_size,
             mdm_stack_kinds(num_layers, cross=latent_usage == "memory"),
-            activation)
+            activation, dropout)
         self.bodyFinalLinear = nn.Linear(E, self.body_dim)
         self.objFinalLinear = nn.Linear(E, 7)
         self.to(resolve_device(device))
@@ -103,11 +105,14 @@ class MDMSkeleton(nn.Module):
 
     # -- conditioning ---------------------------------------------------------
     def encode(self, body_gt: torch.Tensor, obj_gt: torch.Tensor,
-               pose_gt: torch.Tensor, zero_pose_obj: torch.Tensor
+               pose_gt: torch.Tensor, zero_pose_obj: torch.Tensor, *,
+               train: bool = False,
+               generator: Optional[torch.Generator] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """`_get_embeddings` (`diffusion_skeleton.py:194-215`): body_gt
         [B,T,21,3], obj_gt [B,T,12,3], pose_gt [B,T,7], zero_pose_obj
-        [B,12,3] -> (memory [B, past_len, E], gt state [B, T, state_dim])."""
+        [B,12,3] -> (memory [B, past_len, E], gt state [B, T, state_dim]).
+        ``train`` applies dropout, drawn from ``generator``."""
         B, T = body_gt.shape[:2]
         body_flat = body_gt.reshape(B, T, self.body_dim)
         obj_flat = obj_gt.reshape(B, T, self.points_dim)
@@ -117,7 +122,8 @@ class MDMSkeleton(nn.Module):
         p = self.past_len
         emb = (self.bodyEmbedding(body_flat[:, :p])
                + self.objEmbedding(obj_flat[:, :p]) + shape_emb)
-        return self.encoder(self.positional(emb)), gt
+        return self.encoder(self.positional(emb, train, generator),
+                            train=train, generator=generator), gt
 
     def mask_cond(self, cond: torch.Tensor, *, force_mask: bool = False,
                   train: bool = False,
@@ -149,14 +155,14 @@ class MDMSkeleton(nn.Module):
         h = (self.bodyEmbedding(x[..., :bd])
              + self.objEmbedding(x[..., bd:bd + od])
              + self.embedTimeStep(timesteps))
-        h = self.positional(h)
+        h = self.positional(h, train, generator)
         if cond is None:
             cond = torch.zeros((x.shape[0], 1, self.embed_dim),
                                dtype=x.dtype, device=x.device)
         else:
             cond = self.mask_cond(cond, force_mask=force_mask, train=train,
                                   generator=generator)
-        h = self.decoder(h, cond)
+        h = self.decoder(h, cond, train=train, generator=generator)
         body_pred = self.bodyFinalLinear(h)
         pose_pred = self.objFinalLinear(h)
         obj_pred = rigid_keypoints_from_pose(pose_pred, zero_pose_obj)

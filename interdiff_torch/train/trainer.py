@@ -18,9 +18,11 @@ running statistics move by momentum and stay out of the optimiser;
 :func:`split_bn_state` takes them out.
 
 The denoisers run as they are built, in eval mode, as the JAX steps run
-them (``train=False``).  The correction projectors run in train mode: their
-BatchNorm running statistics are buffers, moved by momentum in the forward
-(flax's ``mutable=["batch_stats"]``), and Adam sees only the parameters.
+them (``train=False``); a denoiser built with ``dropout`` or
+``cond_mask_prob`` above 0 is refused, since neither would act.  The
+correction projectors run in train mode: their BatchNorm running statistics
+are buffers, moved by momentum in the forward (flax's
+``mutable=["batch_stats"]``), and Adam sees only the parameters.
 """
 
 from __future__ import annotations
@@ -122,6 +124,18 @@ def sample_timesteps(generator: Optional[torch.Generator], batch: int,
     return UniformSampler(num_timesteps).sample(generator, batch, device)
 
 
+def _refuse_train_mode_rates(model) -> None:
+    """The denoiser steps run ``model`` in eval mode, as the JAX steps do:
+    its ``dropout`` and ``cond_mask_prob`` would not act, so a rate above 0
+    is refused rather than ignored."""
+    if model.dropout > 0.0 or model.cond_mask_prob > 0.0:
+        raise ValueError(
+            f"dropout={model.dropout}, cond_mask_prob={model.cond_mask_prob}"
+            ": the train step runs the denoiser in eval mode (train=False, "
+            "as the JAX package's does), where neither acts; build the "
+            "model with both at 0")
+
+
 def skeleton_gt_from_batch(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     """Batch dict -> state tensor [B, T, 106]."""
     B, T = batch["skeleton"].shape[:2]
@@ -145,8 +159,10 @@ def make_skeleton_train_step(
     ``metrics``: ``loss`` and the 13 weighted terms, 0-d tensors on the
     device.  After the step each parameter's ``.grad`` holds this step's
     gradient.  TF32 is turned off: parity with the reference needs
-    full-f32 matmuls.
+    full-f32 matmuls.  A model with ``dropout`` or ``cond_mask_prob`` above
+    0 is refused (`_refuse_train_mode_rates`).
     """
+    _refuse_train_mode_rates(model)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -233,8 +249,11 @@ def make_smpl_train_step(
     ``metrics``: ``loss``, the 16 weighted terms as batch means and
     ``loss_q0..3`` (the per-sample loss by timestep quartile), 0-d tensors
     on the device; nothing is read back here.  After the step each
-    parameter's ``.grad`` holds this step's gradient.
+    parameter's ``.grad`` holds this step's gradient.  A model with
+    ``dropout`` or ``cond_mask_prob`` above 0 is refused
+    (`_refuse_train_mode_rates`).
     """
+    _refuse_train_mode_rates(model)
     resampler = None
     if isinstance(schedule_sampler, LossSecondMomentResampler):
         resampler = schedule_sampler

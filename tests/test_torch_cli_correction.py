@@ -97,7 +97,8 @@ def test_skeleton_correction_main_synthetic(tmp_path):
     (cli_smpl, ["--motion_path", "x", "--synthetic", "1"]),
     (cli_smpl, ["--synthetic", "1", "--synthetic_body"]),
     (cli_smpl, []),
-    (cli_skel, ["--config", "x.yml"]),
+    # a path config that names no motion path: the route is incomplete
+    (cli_skel, ["--config", os.devnull]),
     (cli_opt, ["--motion_path", "x"]),
     (cli_opt, ["--synthetic", "1", "--synthetic_body"]),
 ])

@@ -1,6 +1,7 @@
 """The port's short-term eval entry point
 (`interdiff_torch/cli/eval_smpl_short.py`): `main([...])` on the CPU from
-saved state dicts of the trained `artifacts/` weights, its flag checks, the
+saved state dicts of the trained `artifacts/` weights (written by
+`scripts/torch_convert_orbax.py`), its flag checks, the
 synthetic batches against the JAX package's, and `evaluate` against the loop
 body of `interdiff_tpu/cli/eval_smpl_short.py` at a small size (3 layers,
 d=32, "5" respacing, the 128-vertex stand-in body) with the same weights
@@ -9,6 +10,7 @@ and noise: every metric of the MPJPE family within 1e-3 (PARITY.md row 27),
 
 import ast
 import os
+import sys
 
 import numpy as np
 import jax
@@ -38,10 +40,12 @@ from interdiff_torch.eval.smpl_short import SmplEvalConfig  # noqa: E402
 from interdiff_torch.utils.convert import (  # noqa: E402
     flax_to_torch_state_dict,
     load_state_dict,
-    save_state_dict,
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+import torch_convert_orbax as convert_orbax  # noqa: E402
+
 SMPL_REAL = os.path.join(ROOT, "artifacts", "smpl_real_params")
 CORRECTION_REAL = os.path.join(ROOT, "artifacts", "correction_real_params")
 KEYS = {"global_mpjpe", "local_mpjpe", "body_translation", "obj_translation",
@@ -51,6 +55,16 @@ SMALL_RUN = ["--device", "cpu", "--synthetic", "1", "--batch_size", "2",
              "5"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test processes share the machine's cores,
+    and these small ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def checkpoints(tmp_path_factory):
     """The trained weights of `artifacts/`, restored as the JAX package's
@@ -58,21 +72,11 @@ def checkpoints(tmp_path_factory):
     own format."""
     if not (os.path.isdir(SMPL_REAL) and os.path.isdir(CORRECTION_REAL)):
         pytest.skip("artifacts/ not present")
-    import orbax.checkpoint as ocp
-
-    jmodel = JTrack().build_model()
-    template = jax.eval_shape(lambda: jmodel.init(
-        jax.random.PRNGKey(0), jnp.zeros((2, 35, 144)), jnp.zeros((2, 64, 6)),
-        jnp.zeros((2,), jnp.int32), method=JMDM.init_forward))
-    mdm = jax.device_get(ocp.StandardCheckpointer().restore(
-        SMPL_REAL, target=template))
-    projector = jax.device_get(
-        jcommon.load_correction_variables(CORRECTION_REAL))
     out = tmp_path_factory.mktemp("ckpt")
     paths = {"diffusion": str(out / "mdm_smpl.pt"),
              "correction": str(out / "projector.pt")}
-    save_state_dict(paths["diffusion"], flax_to_torch_state_dict(mdm))
-    save_state_dict(paths["correction"], flax_to_torch_state_dict(projector))
+    convert_orbax.convert(SMPL_REAL, "mdm_smpl", paths["diffusion"])
+    convert_orbax.convert(CORRECTION_REAL, "correction", paths["correction"])
     return paths
 
 
@@ -166,14 +170,50 @@ SMALL = dict(embedding_dim=32, num_heads=4, ff_size=64, num_layers=3)
 B, FOLD, SAMPLES, STEPS = 2, 2, 4, 5
 
 
-def _jax_loop_body(batch, jmodel, variables, jdiff, jsmpl, noises,
-                   projector=None, projector_vars=None):
+@pytest.fixture(scope="module")
+def small_eval():
+    """The small model on both sides with one set of weights, the 128-vertex
+    stand-in body on both, and the JAX loop body's jitted postprocess,
+    metrics and encode, made once for the module's cases."""
+    jtrack = JTrack(**SMALL, diffusion=JDiffCfg(timestep_respacing=str(STEPS)))
+    jmodel, jdiff = jtrack.build_model(), jtrack.diffusion.build()
+    variables = jax.jit(lambda: jmodel.init(
+        jax.random.PRNGKey(1), jnp.zeros((B, 35, 144)), jnp.zeros((B, 64, 6)),
+        jnp.zeros((B,), jnp.int32), method=JMDM.init_forward))()
+    track = SmplTrackConfig(
+        **SMALL, diffusion=DiffusionConfig(timestep_respacing=str(STEPS)))
+    model = track.build_model("cpu")
+    model.load_state_dict(
+        flax_to_torch_state_dict(jax.device_get(variables)), strict=True)
+    jsmpl = jcommon.synthetic_smpl_body(np.random.default_rng(3))
+    cfg = jss.SmplEvalConfig()
+    faces = jnp.asarray(jsmpl.faces)
+    return dict(
+        jmodel=jmodel, jdiff=jdiff, variables=variables, jsmpl=jsmpl,
+        track=track, model=model,
+        tsmpl=tcommon.synthetic_smpl_body(np.random.default_rng(3),
+                                          device="cpu"),
+        post=jax.jit(lambda x, h, b: jss.postprocess_sample(cfg, jsmpl, x, h,
+                                                            b)),
+        metrics=jax.jit(lambda out, gt_post, pts3: j_smpl_metrics(
+            out["obj_pred"][:, 10:], out["jtr"][:, 10:],
+            out["body_pred"][:, 10:], gt_post["obj_pred"][:, 10:],
+            gt_post["jtr"][:, 10:], gt_post["body_pred"][:, 10:],
+            out["verts"][:, 10:], faces, pts3)),
+        encode=jax.jit(lambda v, g, p: jmodel.apply(v, g, p,
+                                                    method=JMDM.encode)))
+
+
+def _jax_loop_body(batch, parts, noises, projector=None,
+                   projector_vars=None):
     """`interdiff_tpu/cli/eval_smpl_short.py:263-311` for one batch, with the
     sampling noise given."""
     cfg = jss.SmplEvalConfig()
+    variables, post, metrics = (parts["variables"], parts["post"],
+                                parts["metrics"])
     sample = jax.jit(jss.make_sampler(
-        cfg, jmodel, jdiff, smpl=jsmpl, projector=projector,
-        projector_params=projector_vars,
+        cfg, parts["jmodel"], parts["jdiff"], smpl=parts["jsmpl"],
+        projector=projector, projector_params=projector_vars,
         use_correction=projector is not None, reuse_memory=True))
     gt = j_gt_from_raw(jnp.asarray(batch["body_pose"][..., :66]),
                        jnp.asarray(batch["body_trans"]),
@@ -182,16 +222,7 @@ def _jax_loop_body(batch, jmodel, variables, jdiff, jsmpl, noises,
     pts = jnp.asarray(batch["obj_points"][..., :6])
     hand = jnp.asarray(batch["body_pose"][..., 66:])
     betas = jnp.asarray(batch["body_betas"])
-    post = jax.jit(lambda x, h, b: jss.postprocess_sample(cfg, jsmpl, x, h,
-                                                          b))
-    faces = jnp.asarray(jsmpl.faces)
-    metrics = jax.jit(lambda out, gt_post, pts3: j_smpl_metrics(
-        out["obj_pred"][:, 10:], out["jtr"][:, 10:],
-        out["body_pred"][:, 10:], gt_post["obj_pred"][:, 10:],
-        gt_post["jtr"][:, 10:], gt_post["body_pred"][:, 10:],
-        out["verts"][:, 10:], faces, pts3))
-    memory = jax.jit(lambda v, g, p: jmodel.apply(
-        v, g, p, method=JMDM.encode))(variables, gt, pts)
+    memory = parts["encode"](variables, gt, pts)
     gt_post = post(gt, hand, betas)
     gt, pts, hand, betas, memory = jsp.tile_for_diverse_samples(
         (gt, pts, hand, betas, memory), FOLD)
@@ -210,27 +241,14 @@ def _jax_loop_body(batch, jmodel, variables, jdiff, jsmpl, noises,
 
 
 @pytest.mark.parametrize("mode", ["no_correction", "correction"])
-def test_evaluate_matches_jax_loop_body(mode):
+def test_evaluate_matches_jax_loop_body(small_eval, mode):
     rng = np.random.default_rng(41)
-    jsmpl = jcommon.synthetic_smpl_body(np.random.default_rng(3))
-    tsmpl = tcommon.synthetic_smpl_body(np.random.default_rng(3),
-                                        device="cpu")
     batch = next(tcommon.synthetic_smpl_batches(
         rng, batch_size=B, seq_len=35, num_points=64, steps=1))
     noises = [(rng.standard_normal((B * FOLD, 35, 144)).astype(np.float32),
                rng.standard_normal((STEPS, B * FOLD, 35, 144)).astype(
                    np.float32)) for _ in range(SAMPLES // FOLD)]
-
-    jtrack = JTrack(**SMALL, diffusion=JDiffCfg(timestep_respacing=str(STEPS)))
-    jmodel, jdiff = jtrack.build_model(), jtrack.diffusion.build()
-    variables = jax.jit(lambda: jmodel.init(
-        jax.random.PRNGKey(1), jnp.zeros((B, 35, 144)), jnp.zeros((B, 64, 6)),
-        jnp.zeros((B,), jnp.int32), method=JMDM.init_forward))()
-    track = SmplTrackConfig(
-        **SMALL, diffusion=DiffusionConfig(timestep_respacing=str(STEPS)))
-    model = track.build_model("cpu")
-    model.load_state_dict(
-        flax_to_torch_state_dict(jax.device_get(variables)), strict=True)
+    model, track = small_eval["model"], small_eval["track"]
     jproj = proj_vars = projector = None
     if mode == "correction":
         jproj = JProj()
@@ -240,11 +258,11 @@ def test_evaluate_matches_jax_loop_body(mode):
         projector.load_state_dict(
             flax_to_torch_state_dict(jax.device_get(proj_vars)), strict=True)
 
-    want = _jax_loop_body(batch, jmodel, variables, jdiff, jsmpl, noises,
-                          jproj, proj_vars)
+    want = _jax_loop_body(batch, small_eval, noises, jproj, proj_vars)
     reports = []
     totals, nb = tcli.evaluate(
-        SmplEvalConfig(), model, track.diffusion.build("cpu"), tsmpl,
+        SmplEvalConfig(), model, track.diffusion.build("cpu"),
+        small_eval["tsmpl"],
         [batch], projector=projector, diverse_samples=SAMPLES,
         diverse_fold=FOLD,
         # the stand-in body has 128 vertices: the JAX gather clamps the

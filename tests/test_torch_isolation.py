@@ -1,7 +1,8 @@
 """`interdiff_torch` stands alone: importing every module of it loads
 neither jax, flax, optax, orbax nor `interdiff_tpu` (nor PyYAML, which only
-reading a path config needs), nor does a run of its eval or training entry
-point, nor does `chip_smoke.py` import any of them,
+reading a path config needs), nor does a run of its eval, training or
+checkpoint-conversion entry point, nor does `chip_smoke.py` import any of
+them,
 and an entry point asked for the default device with no CUDA device present
 raises instead of running on the CPU."""
 
@@ -47,7 +48,9 @@ def test_port_imports_no_jax():
                    "cli.train_correction_skeleton", "cli.optimization",
                    "smpl.loader", "data.behave", "data.paths",
                    "eval.smpl_long", "cli.eval_smpl_long",
-                   "geometry.mesh_losses"):
+                   "geometry.mesh_losses", "utils.prefetch",
+                   "utils.profiling", "utils.checkpoint",
+                   "cli.convert_checkpoint"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -270,3 +273,31 @@ def test_long_eval_entry_point_stops_without_a_card(monkeypatch, tmp_path):
         eval_smpl_long.main(["--synthetic", "1", "--batch_size", "1",
                              "--out_dir", str(tmp_path / "out")])
     assert not os.path.exists(tmp_path / "out")
+
+
+_RUN_CONVERT = r"""
+import sys, tempfile, os
+import chip_smoke
+from interdiff_torch.cli import convert_checkpoint
+from interdiff_torch.config import CorrectionConfig
+from interdiff_torch.utils.convert import torch_to_flax_variables
+proj = CorrectionConfig(num_nodes=8, dct=4).build_model("cpu")
+with tempfile.TemporaryDirectory() as root:
+    path = os.path.join(root, "correction.ckpt")
+    chip_smoke.write_lightning_ckpt(
+        path, torch_to_flax_variables(proj.state_dict()), "correction_smpl",
+        {})
+    convert_checkpoint.main(["--ckpt", path, "--kind", "correction_smpl",
+                             "--out", os.path.join(root, "out")])
+banned = [m for m in sys.modules
+          if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                 "interdiff_tpu", "yaml")]
+assert not banned, banned
+"""
+
+
+def test_convert_checkpoint_runs_without_jax():
+    out = subprocess.run([sys.executable, "-c", _RUN_CONVERT], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "state_dict.pt" in out.stdout

@@ -1,10 +1,11 @@
 """The long-term autoregressive eval (`interdiff_torch/eval/smpl_long.py`,
 `cli/eval_smpl_long.py::make_window_metrics`) against `interdiff_tpu`'s:
 the recanonicalize/denormalize round trip within 1e-6, the centroid sum
-that keeps a constant-velocity rollout straight, a rollout of two chunks
-after the first of the small sampler (3 layers, d=32, "10" respacing)
-without and with the correction in the loop against JAX within 1e-4
-(sampled trajectories), and the per-window drift metrics within 1e-4.
+that keeps a constant-velocity rollout straight, a rollout of four chunks
+after the first (five windows, as the long eval's CLI runs) of the small
+sampler (3 layers, d=32, "10" respacing) without and with the correction
+in the loop against JAX within 1e-4 (sampled trajectories), and the
+per-window drift metrics within 1e-4.
 
 The JAX rollout splits a key per chunk and the port draws from a
 generator, so each side's ``sample_fn`` ignores its key or generator and
@@ -36,11 +37,21 @@ from interdiff_torch.utils.convert import flax_to_torch_state_dict  # noqa: E402
 
 B, T, P, V, M = 2, 35, 64, 64, 40
 D = 135
-CHUNKS = 2
+CHUNKS = 4
 SMALL = dict(embedding_dim=32, num_heads=4, ff_size=64, num_layers=3)
 MARKERS = np.arange(M)
 CFG = dict(correction_t_max=9, correction_every=3, nn_chunk=None)
 ARRAYS = ("v_template", "shapedirs", "posedirs", "j_regressor", "weights")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test processes share the machine's cores,
+    and these small ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(x):

@@ -145,9 +145,11 @@ def test_loss_aware_sampler_and_resume(tmp_path, capsys):
 
 
 def test_flags_of_unported_routes_are_unknown(tmp_path):
-    for flag in (["--render_interval", "1"], ["--use_pointnet2", "0"]):
-        with pytest.raises(SystemExit):
-            cli.build_parser().parse_args(flag)
+    with pytest.raises(SystemExit):
+        cli.build_parser().parse_args(["--render_interval", "1"])
+    # the linear object encoder is ported
+    assert cli.build_parser().parse_args(
+        ["--use_pointnet2", "0"]).use_pointnet2 == 0
     # the dataset route's flags are known; an incomplete route stops
     for argv in ([], ["--motion_path", "x"], ["--model_path", "x"],
                  ["--synthetic_body"], ["--synthetic", "1", "--config", "x"]):

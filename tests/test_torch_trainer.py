@@ -57,6 +57,16 @@ RADII = (0.05, 0.1, 0.2)
 KEYS = ("body_pose", "body_trans", "obj_angles", "obj_trans", "obj_points")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the test processes share the machine's cores,
+    and these small ops gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _batches(rng, n):
     out = []
     for _ in range(n):
@@ -90,12 +100,23 @@ def _capture_grads():
         lambda grads, state, params=None: (grads, grads))
 
 
+@pytest.fixture(scope="module")
+def init_variables():
+    """The small JAX model's initial variables, made once for the module
+    (one jitted init in place of an eager one per case)."""
+    jmodel = JTrack(**SMALL).build_model()
+    return jax.device_get(jax.jit(lambda: jmodel.init(
+        jax.random.PRNGKey(1), jnp.zeros((B, T, 144)),
+        jnp.zeros((B, P, 6)), jnp.zeros((B,), jnp.int32),
+        method=JMDM.init_forward))())
+
+
 class _Pair:
     """The JAX step (jitted, with its draws patched) and the port's step on
     the same initial weights."""
 
-    def __init__(self, monkeypatch, *, bn_train_mode=False, loss_aware=False,
-                 ema_rate=0.0, fused=False, seed=0):
+    def __init__(self, monkeypatch, variables, *, bn_train_mode=False,
+                 loss_aware=False, ema_rate=0.0, fused=False, seed=0):
         if fused:
             monkeypatch.setenv("INTERDIFF_FUSED_SA", "1")
             monkeypatch.setattr(jpg, "_FORCE_PALLAS_INTERPRET", True)
@@ -105,10 +126,6 @@ class _Pair:
         rng = np.random.default_rng(seed)
         jtrack = JTrack(**SMALL)
         jmodel, jdiff = jtrack.build_model(), jtrack.diffusion.build()
-        variables = jax.device_get(jmodel.init(
-            jax.random.PRNGKey(1), jnp.zeros((B, T, 144)),
-            jnp.zeros((B, P, 6)), jnp.zeros((B,), jnp.int32),
-            method=JMDM.init_forward))
         variables = {"params": variables["params"], "batch_stats": {
             "pcEmbedding": jax.tree.map(
                 lambda v: (v + 0.1 * rng.standard_normal(v.shape)).astype(
@@ -266,11 +283,11 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", list(CASES))
-def test_train_steps_match_jax(monkeypatch, case):
+def test_train_steps_match_jax(monkeypatch, init_variables, case):
     """One step: loss, every metric and every gradient.  Three steps:
     parameters, BatchNorm statistics, EMA shadow and resampler state."""
     opts = CASES[case]
-    pair = _Pair(monkeypatch, **opts)
+    pair = _Pair(monkeypatch, init_variables, **opts)
     rng = np.random.default_rng(10)
     batches = _batches(rng, STEPS)
     ts, noises = _draws(rng, STEPS, repeat_t=opts.get("loss_aware", False))
