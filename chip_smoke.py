@@ -209,12 +209,41 @@ Phases, each printing JSON lines (any failure exits non-zero):
    `load_correction_variables`) and from the converted state-dict files,
    one seed: metrics bitwise equal, launches equal (SMPL: K1 2, K2 4, K4 4,
    K3 2; skeleton: none).
+18. prepare_cpu_vs_gpu: the contact-label preprocessing's mesh signed
+   distance (`ops/mesh_distance.py`, plain PyTorch: no Pallas kernel stands
+   behind it, so the port adds none) on the card against the CPU, 8 posed
+   frames of the V=6890 stand-in body (13,776 faces) against 2048 points a
+   frame straddling its surface: |distance| within 1e-6, closest points
+   within 1e-5, the sign equal where |d| > 1e-5, face indices equal except
+   at ties within 1e-6, labels equal except within 1e-5 of the 0.02 m
+   threshold; the card against the host BVH (`utils/native.py`) within
+   2e-4, with the count of labels that differ.
+19. prepare: `python -m interdiff_torch.data.prepare_behave`'s ``main()``
+   at full width on a written corpus (one train and one test sequence of
+   512 frames, 2048 points, stand-in object scans from
+   `write_object_meshes`): seconds a frame split into FK, distance and
+   labels, the face chunk, peak memory, no launch of K1-K6; the files read
+   back by `data/behave.py` and one dataset-route eval batch on them with
+   phase `behave`'s launches (K1 2, K2 4, K4 4, K3 2).
+20. render: `evaluate` of the SMPL eval entry point at full width ("100"
+   respacing) with ``render_dir``, with a stand-in object mesh and with the
+   point-sphere fallback, against the same call without it (launches
+   equal); the skeleton eval's render (or, without matplotlib, its entry
+   point refusing the flag before anything is built); the SMPL trainer's
+   validation render (one more encode, K1 2, for its own sample).  Each
+   gif's frames (`gif_frame_count`) and the render's seconds.
+21. diffusion_math: `calc_bpd_loop` of the full-width MDM on 32 clips at
+   "100" and `p_sample_loop` with ``skip_timesteps=900`` from an
+   ``init_image`` (ms a step); the small MDM's bound at "20" and a skipped,
+   inpainted, guided trajectory on the card against the CPU (1e-5 and
+   1e-4).
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
 its own, beside the skeleton paths' zeros, the correction trainers',
 the refiner's, the dataset routes', the long-term eval's, the train
-options' (none on the linear encoder's) and the checkpoint route's; K6's of its
+options' (none on the linear encoder's), the checkpoint route's, the
+preprocessing's (none) and the render paths'; K6's of its
 opt-in routes, K5's of the backward with
 respect to the cloud; K3 and K4 also at this slice's shapes), and the
 device line.  Weights and data come from numpy seeds;
@@ -2015,16 +2044,75 @@ def _smooth_walk(rng, frames: int, dims: int, step: float,
     return np.stack([pad[t:t + frames] for t in range(9)]).mean(0)
 
 
+def ellipsoid_mesh(semi_axes, verts: int = 642):
+    """A closed triangle mesh of an ellipsoid with the given semi-axes:
+    ``verts`` Fibonacci-sphere points triangulated by their convex hull
+    (2 * verts - 4 faces, wound outward).  -> (vertices [V, 3] float64,
+    faces [F, 3] int32)."""
+    from scipy.spatial import ConvexHull
+
+    i = np.arange(verts, dtype=np.float64)
+    phi = np.pi * (3.0 - np.sqrt(5.0)) * i
+    y = 1.0 - 2.0 * (i + 0.5) / verts
+    r = np.sqrt(np.maximum(1.0 - y * y, 0.0))
+    unit = np.stack([r * np.cos(phi), y, r * np.sin(phi)], axis=1)
+    faces = ConvexHull(unit).simplices.astype(np.int32)
+    tri = unit[faces]
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    flip = np.einsum("fi,fi->f", n, tri.mean(axis=1)) < 0
+    faces[flip] = faces[flip][:, [0, 2, 1]]
+    return unit * np.asarray(semi_axes, np.float64), faces
+
+
+def write_object_meshes(object_path: str, rng, *, verts: int = 642,
+                        categories=BEHAVE_CATEGORIES) -> dict:
+    """Stand-in object scans where `data/prepare_behave.py` looks for them,
+    ``<object_path>/<cat>/<cat>.obj``: for each category an ellipsoid
+    (`ellipsoid_mesh`) with BEHAVE-object-sized semi-axes (0.1-0.4 m) off
+    its centre by up to 5 cm (the scans are not centred; the preprocessing
+    centres them).  Returns {category: path}."""
+    paths = {}
+    for cat in categories:
+        v, f = ellipsoid_mesh(rng.uniform(0.1, 0.4, 3), verts)
+        v = v + rng.uniform(-0.05, 0.05, 3)
+        path = os.path.join(object_path, cat, f"{cat}.obj")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as out:
+            out.writelines(f"v {a!r} {b!r} {c!r}\n"
+                           for a, b, c in v.tolist())
+            out.writelines(f"f {a + 1} {b + 1} {c + 1}\n"
+                           for a, b, c in f.tolist())
+        paths[cat] = path
+    return paths
+
+
+def gif_frame_count(path: str, fps: float) -> int:
+    """The frames a gif shows at ``fps``: its writers merge identical
+    consecutive frames into one of a longer duration (stored in whole
+    centiseconds), so each stored frame counts as its duration over one
+    frame's."""
+    from PIL import Image
+
+    n = 0
+    with Image.open(path) as im:
+        for k in range(im.n_frames):
+            im.seek(k)
+            n += round(im.info["duration"] / (1000.0 / fps))
+    return n
+
+
 def write_behave_corpus(root: str, body, rng, *, sequences: int = 2,
-                        frames: int = 1408, points: int = 2048):
+                        frames: int = 1408, points: int = 2048,
+                        contact: bool = True):
     """A BEHAVE-format corpus on disk, as `data/behave.py` reads it:
     ``sequences`` train (Date01_*) and as many test (Date03_*) sequences of
     ``frames`` frames under ``<root>/sequence/<name>/`` (smpl_fit_all.npz
     poses [N,156], betas, trans; object_fit_all.npz angles, trans;
     contact.npz with the object's template points and normals [P,6], the
     per-frame contact index lists of the object and the body and the
-    foot-contact joint label; info.json gender and category), and ``body``
-    as ``<root>/models/SMPLH_{male,female}.pkl`` (`write_smplh_pkl`).  The
+    foot-contact joint label, left out with ``contact=False`` for
+    `data/prepare_behave.py` to write; info.json gender and category), and
+    ``body`` as ``<root>/models/SMPLH_{male,female}.pkl`` (`write_smplh_pkl`).  The
     motion is a smooth seeded walk of the pose (the yaw wider than the
     rest) and of the translation, the object walks along beside the body;
     genders alternate.  Returns (motion_path, model_path)."""
@@ -2057,7 +2145,7 @@ def write_behave_corpus(root: str, body, rng, *, sequences: int = 2,
             np.savez(os.path.join(seq_dir, "object_fit_all.npz"),
                      angles=obj_angles.astype(np.float32),
                      trans=obj_trans.astype(np.float32))
-            contact = {
+            labels = {
                 "object_points": object_cloud(rng, 1, points)[0],
                 "object_contact_vertex_label": [
                     np.sort(rng.choice(points, rng.integers(0, 40),
@@ -2069,7 +2157,8 @@ def write_behave_corpus(root: str, body, rng, *, sequences: int = 2,
                     for _ in range(frames)],
                 "foot_contact_joint_label": rng.integers(10, 12, frames),
             }
-            np.savez(os.path.join(seq_dir, "contact.npz"), contact)
+            if contact:
+                np.savez(os.path.join(seq_dir, "contact.npz"), labels)
             with open(os.path.join(seq_dir, "info.json"), "w") as f:
                 json.dump({"gender": ("male", "female")[k % 2], "cat": cat},
                           f)
@@ -4514,6 +4603,655 @@ def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
     return by_path
 
 
+# -- slice 12: contact-label preprocessing, renders, the rest of the engine
+# card against CPU of the mesh signed distance: the same elementwise float32
+# operations on both (products and sums written out, no GEMM); distances
+# within 1e-6, closest points within 1e-5, signs beyond 1e-5 of the
+# surface, faces outside ties within 1e-6, labels outside 1e-5 of 0.02 m
+PREP_FRAMES, PREP_POINTS, PREP_SEQ_FRAMES = 8, 2048, 512
+PREP_DIST_TOL, PREP_POINT_TOL = 1e-6, 1e-5
+PREP_SIGN_MARGIN, PREP_TIE_TOL, PREP_LABEL_MARGIN = 1e-5, 1e-6, 1e-5
+PREP_THRES = 0.02
+# the host BVH against the brute force: |distance| within JAX's own
+# tolerance (tests/test_native_mesh_distance.py:47).  Their signs may part
+# where the closest point lies on an edge of a fold: the brute force (JAX's
+# rule) takes an edge's normal only for a barycentric coordinate below
+# 1e-6, and the float32 coordinates of a point on an edge come out at a few
+# 1e-6 or more, while the BVH takes the edge from Ericson's region.  The
+# signs and labels that differ are counted, with the largest coordinate of
+# such a point, not gated
+NATIVE_TOL = 2e-4
+RENDER_RESPACING, RENDER_VAL_RESPACING = "100", "25"
+MATH_RESPACING, MATH_SKIP, MATH_SMALL_RESPACING = "100", 900, "20"
+BPD_TOL, TRAJ_TOL = 1e-5, 1e-4
+
+
+def _sync() -> None:
+    if DEV != "cpu":
+        torch.cuda.synchronize()
+
+
+def straddling_points(rng, verts: np.ndarray, faces: np.ndarray,
+                      n: int, spread: float = 0.03) -> np.ndarray:
+    """[n, 3] float64 points at area-uniform spots of random faces of the
+    mesh, moved along the face's normal by N(0, ``spread``): about half
+    inside, half outside, many within the contact threshold."""
+    f = rng.integers(0, len(faces), n)
+    tri = verts[faces[f]].astype(np.float64)
+    r1 = np.sqrt(rng.random(n))[:, None]
+    r2 = rng.random(n)[:, None]
+    p = (1 - r1) * tri[:, 0] + r1 * (1 - r2) * tri[:, 1] + r1 * r2 * tri[:, 2]
+    nrm = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    return p + nrm * rng.normal(0.0, spread, (n, 1))
+
+
+def _posed_frames(body, rng, frames: int) -> torch.Tensor:
+    """The body's vertices [frames, V, 3] in seeded poses, on its device."""
+    from interdiff_torch.smpl.model import smpl_forward
+
+    device = body.v_template.device
+    pose = np.concatenate([rng.standard_normal((frames, 66)) * 0.3,
+                           rng.standard_normal((frames, 90)) * 0.1], 1)
+    args = (pose, np.zeros((frames, 10)),
+            rng.standard_normal((frames, 3)) * 0.1)
+    with torch.no_grad():
+        return smpl_forward(body, *(torch.as_tensor(
+            a, dtype=torch.float32, device=device) for a in args))[0]
+
+
+def _bary_min(verts: np.ndarray, faces: np.ndarray, face: int,
+              point: np.ndarray) -> float:
+    """The smallest barycentric coordinate of ``point`` in the float32
+    triangle ``face``, computed as the sign rule computes it."""
+    tri = verts[faces[face]].astype(np.float32)
+    v0, v1, v2 = tri[1] - tri[0], tri[2] - tri[0], point - tri[0]
+    d00, d01, d11 = v0 @ v0, v0 @ v1, v1 @ v1
+    d20, d21 = v2 @ v0, v2 @ v1
+    den = d00 * d11 - d01 * d01
+    v = (d11 * d20 - d01 * d21) / den
+    w = (d00 * d21 - d01 * d20) / den
+    return float(min(1.0 - v - w, v, w))
+
+
+def _label_sets(in_contact: np.ndarray) -> list:
+    return [set(np.where(row)[0].tolist()) for row in in_contact]
+
+
+def phase_prepare_cpu_vs_gpu(gpu: str) -> None:
+    """The mesh signed distance of the contact-label preprocessing
+    (`ops/mesh_distance.py`, the torch engine) on the card against the CPU:
+    PREP_FRAMES frames of the V=6890 stand-in body (13,776 faces) in seeded
+    poses, the same vertices on both devices, PREP_POINTS points a frame
+    straddling its surface; the card takes the frames in one call over all
+    faces, the CPU frame by frame at its default face chunk.  |distance|
+    within PREP_DIST_TOL, closest points within PREP_POINT_TOL, the sign
+    equal wherever |d| > PREP_SIGN_MARGIN, the face index equal except at
+    ties within PREP_TIE_TOL, the object labels (and, where they agree, the
+    body labels) equal except within PREP_LABEL_MARGIN of the 0.02 m
+    threshold.  Then the card against the native engine (the host BVH of
+    `native/mesh_distance.cpp`): |distance| within NATIVE_TOL; the signs
+    and the object labels that differ, counted (the two engines' edge
+    rules, see NATIVE_TOL)."""
+    from interdiff_torch.config import build_smpl_body
+    from interdiff_torch.data import prepare_behave as prep
+    from interdiff_torch.ops.mesh_distance import (
+        closest_point_on_triangles,
+        signed_distance_to_mesh,
+    )
+    from interdiff_torch.utils.native import SignedDistanceMesh, build
+
+    build()  # g++ at first use: outside the timing of the queries
+    rng = np.random.default_rng(SEED + 80)
+    body = build_smpl_body(seed=SEED, num_verts=VERTS, device=DEV)
+    faces = body.faces
+    verts = _posed_frames(body, rng, PREP_FRAMES)
+    verts_np = verts.cpu().numpy()
+    pts = np.stack([straddling_points(rng, verts_np[i], faces, PREP_POINTS)
+                    for i in range(PREP_FRAMES)])
+
+    _sync()
+    t0 = time.perf_counter()
+    card = signed_distance_to_mesh(torch.as_tensor(pts, device=DEV), verts,
+                                   faces, face_chunk=len(faces))
+    _sync()
+    card_s = time.perf_counter() - t0
+    d_card, f_card, cp_card = (a.cpu().numpy() for a in card)
+    t0 = time.perf_counter()
+    cpu = [signed_distance_to_mesh(pts[i], verts_np[i], faces,
+                                   device="cpu") for i in range(PREP_FRAMES)]
+    cpu_s = time.perf_counter() - t0
+    d_cpu, f_cpu, cp_cpu = (np.stack([c[k].numpy() for c in cpu])
+                            for k in range(3))
+    t0 = time.perf_counter()
+    queries = [SignedDistanceMesh(verts_np[i], faces).query(pts[i])
+               for i in range(PREP_FRAMES)]
+    native_s = time.perf_counter() - t0
+    native = np.stack([q[0] for q in queries])
+    native_cp = np.stack([q[2] for q in queries])
+
+    dist_err = float(np.abs(np.abs(d_card) - np.abs(d_cpu)).max())
+    point_err = float(np.abs(cp_card - cp_cpu).max())
+    away = np.abs(d_cpu) > PREP_SIGN_MARGIN
+    sign_diff = int((np.sign(d_card) != np.sign(d_cpu))[away].sum())
+    # a differing face must be a tie: the CPU's distances to both faces
+    ties, untied = 0, []
+    for i, n in zip(*np.where(f_card != f_cpu)):
+        tri = torch.as_tensor(verts_np[i][faces[[f_card[i, n], f_cpu[i, n]]]])
+        p = torch.as_tensor(pts[i, n:n + 1], dtype=torch.float32)
+        d2 = torch.linalg.norm(p[:, None] - closest_point_on_triangles(
+            p, tri), dim=-1)[0]
+        gap = float(abs(d2[0] - d2[1]))
+        ties += gap <= PREP_TIE_TOL
+        if gap > PREP_TIE_TOL:
+            untied.append((int(i), int(n), gap))
+    # labels: the object's from each device's distances, the body's from
+    # the float64 distances to the contacting points (as the preprocessing)
+    obj = torch.as_tensor(pts)
+    labels = {}
+    for name, d in (("card", d_card), ("cpu", d_cpu)):
+        in_contact = torch.as_tensor(d < PREP_THRES)
+        labels[name] = (_label_sets(in_contact.numpy()), _label_sets(
+            prep._human_contacts(obj, torch.as_tensor(verts_np), in_contact,
+                                 PREP_THRES).numpy()))
+    label_off, human_off = [], []
+    for i in range(PREP_FRAMES):
+        off = labels["card"][0][i] ^ labels["cpu"][0][i]
+        label_off += [abs(float(d_cpu[i, n]) - PREP_THRES) for n in off]
+        if not off:
+            near = obj[i][sorted(labels["cpu"][0][i])]
+            dv = torch.linalg.norm(near[None] - torch.as_tensor(
+                verts_np[i], dtype=torch.float64)[:, None], dim=-1)
+            dmin = dv.min(dim=1).values.numpy() if len(near) else None
+            human_off += [abs(float(dmin[v]) - PREP_THRES) for v in
+                          labels["card"][1][i] ^ labels["cpu"][1][i]]
+    native_err = float(np.abs(np.abs(d_card) - np.abs(native)).max())
+    flips = [(int(i), int(n)) for i, n in zip(*np.where(
+        (np.sign(d_card) != np.sign(native)) & away))]
+    flip_bary = [_bary_min(verts_np[i], faces, f_card[i, n], cp_card[i, n])
+                 for i, n in flips]
+    native_labels = sum(len(a ^ b) for a, b in zip(
+        _label_sets(d_card < PREP_THRES), _label_sets(native < PREP_THRES)))
+    line = {"phase": "prepare_cpu_vs_gpu", "gpu": gpu,
+            "frames": PREP_FRAMES, "points": PREP_POINTS,
+            "faces": int(len(faces)),
+            "pairs_per_frame": PREP_POINTS * int(len(faces)),
+            "card_s_per_frame": card_s / PREP_FRAMES,
+            "cpu_s_per_frame": cpu_s / PREP_FRAMES,
+            "native_s_per_frame": native_s / PREP_FRAMES,
+            "max_abs_dist_err": dist_err, "dist_tol": PREP_DIST_TOL,
+            "dist_bitwise": bool(np.array_equal(d_card, d_cpu)),
+            "max_abs_point_err": point_err, "point_tol": PREP_POINT_TOL,
+            "sign_diffs_beyond_margin": sign_diff,
+            "inside_share": float((d_cpu < 0).mean()),
+            "face_diffs": int((f_card != f_cpu).sum()), "face_ties": ties,
+            "untied_face_diffs": untied[:5],
+            "object_labels_per_frame": float(np.mean(
+                [len(s) for s in labels["cpu"][0]])),
+            "body_labels_per_frame": float(np.mean(
+                [len(s) for s in labels["cpu"][1]])),
+            "object_label_diffs": len(label_off),
+            "object_label_diff_max_margin": max(label_off, default=0.0),
+            "body_label_diffs": len(human_off),
+            "body_label_diff_max_margin": max(human_off, default=0.0),
+            "label_margin": PREP_LABEL_MARGIN,
+            "native_max_abs_err": native_err, "native_tol": NATIVE_TOL,
+            "native_max_abs_point_err": float(np.abs(
+                cp_card - native_cp).max()),
+            "native_sign_diffs": len(flips),
+            "native_sign_diff_max_bary": max(flip_bary, default=0.0),
+            "native_object_label_diffs": native_labels}
+    emit(line)
+    if (dist_err > PREP_DIST_TOL or point_err > PREP_POINT_TOL or sign_diff
+            or untied or any(m >= PREP_LABEL_MARGIN
+                             for m in label_off + human_off)
+            or native_err > NATIVE_TOL or not (d_cpu < 0).any()
+            or not (d_cpu > PREP_THRES).any()
+            or not all(labels["cpu"][1])):
+        raise AssertionError(f"prepare_cpu_vs_gpu: {line}")
+
+
+def phase_prepare(group, nn, sa, models, gpu: str) -> dict:
+    """`python -m interdiff_torch.data.prepare_behave` at full width: its
+    ``main()`` on a corpus of `write_behave_corpus` without contact files
+    (one train and one test sequence of PREP_SEQ_FRAMES frames, the V=6890
+    stand-in body as SMPLH_{male,female}.pkl) and stand-in object scans
+    (`write_object_meshes`), 2048 points a template, the torch engine on
+    the card: seconds a frame (FK, distance, labels), the face chunk and
+    the frames a call, peak memory, no launch of K1-K6.  Then the written
+    files read back by `data/behave.py` (labels equal the files', a clip
+    with every field built) and one dataset-route eval batch on them (the
+    test clips, 4 diverse samples, correction, "100" respacing): its
+    launches those of phase `behave`.  Returns the launches by path."""
+    import tempfile
+    from argparse import Namespace
+
+    from interdiff_torch.cli.common import (
+        batch_iterator,
+        fit_batch_size,
+        load_smpl_models,
+    )
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.data import prepare_behave as prep
+    from interdiff_torch.data.behave import (
+        BehaveDataset,
+        collate,
+        load_behave_sequences,
+    )
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+
+    mdm, projector, body = models
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        motion_path, model_path = write_behave_corpus(
+            root, body, np.random.default_rng(SEED + 81), sequences=1,
+            frames=PREP_SEQ_FRAMES, points=POINTS, contact=False)
+        object_path = os.path.join(root, "objects")
+        write_object_meshes(object_path, np.random.default_rng(SEED + 82),
+                            categories=BEHAVE_CATEGORIES[:1])
+        timings = {}
+        _reset_launches(group, nn, sa)
+        if DEV != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        _sync()
+        t0 = time.perf_counter()
+        written = prep.main(["--motion_path", motion_path, "--object_path",
+                             object_path, "--model_path", model_path,
+                             "--device", DEV], timings=timings)
+        _sync()
+        wall = time.perf_counter() - t0
+        launched = _read_launches(group, nn, sa)
+        by_path["prepare"] = launched
+        frames = timings["frames"]
+        files = [np.load(p, allow_pickle=True)["arr_0"].item()
+                 for p in written]
+        line = {"phase": "prepare", "part": "main", "gpu": gpu,
+                "sequences": len(written), "frames": frames,
+                "points": POINTS, "faces": int(len(body.faces)),
+                "engine": "torch",
+                **dict(zip(("frames_per_call", "face_chunk"),
+                           prep.default_chunking(torch.device(DEV),
+                                                 len(body.faces)))),
+                "wall_s": wall,
+                "s_per_frame": wall / frames,
+                "fk_s_per_frame": timings["fk"] / frames,
+                "distance_s_per_frame": timings["distance"] / frames,
+                "labels_s_per_frame": timings["labels"] / frames,
+                "pairs_per_s": frames * POINTS * len(body.faces)
+                / timings["distance"],
+                "peak_memory_gb": (torch.cuda.max_memory_allocated() / 1e9
+                                   if DEV != "cpu" else None),
+                "object_labels_per_frame": float(np.mean([
+                    len(a) for f in files
+                    for a in f["object_contact_vertex_label"]])),
+                "body_labels_per_frame": float(np.mean([
+                    len(a) for f in files
+                    for a in f["human_contact_vertex_label"]])),
+                "launches": launched}
+        emit(line)
+        if (launched != NO_LAUNCHES or len(written) != 2
+                or frames != 2 * PREP_SEQ_FRAMES
+                or not line["object_labels_per_frame"]):
+            raise AssertionError(f"prepare: {line}")
+
+        # the written files through the dataset's reader
+        bodies = load_smpl_models(Namespace(model_path=model_path,
+                                            synthetic_body=False), DEV)
+        test_seqs = load_behave_sequences(motion_path, smpl_models=bodies,
+                                          mode="test")
+        (seq,) = test_seqs
+        labels = files[[os.path.basename(os.path.dirname(p))
+                        for p in written].index(seq.seq_name)]
+        same = (np.array_equal(seq.obj_points, labels["object_points"])
+                and all(np.array_equal(a, b) for a, b in zip(
+                    seq.obj_contact_idx,
+                    labels["object_contact_vertex_label"]))
+                and all(np.array_equal(a, b) for a, b in zip(
+                    seq.human_contact_idx,
+                    labels["human_contact_vertex_label"])))
+        rng = np.random.default_rng(SEED + 83)
+        clip = BehaveDataset(test_seqs, rng=rng, fields="full")[0]
+        test_light = BehaveDataset(test_seqs, rng=rng, fields="light")
+        clips = fit_batch_size(len(test_light), CLIPS)
+        batch = next(iter(batch_iterator(test_light, collate,
+                                         batch_size=clips, rng=rng,
+                                         shuffle=False)))
+        diffusion = DiffusionConfig(
+            timestep_respacing=BEHAVE_EVAL_RESPACING).build(DEV)
+        _reset_launches(group, nn, sa)
+        _sync()
+        t0 = time.perf_counter()
+        totals, nb = evaluate(
+            SmplEvalConfig(), mdm, diffusion, bodies["male"], [batch],
+            projector=projector, diverse_samples=BEHAVE_DIVERSE,
+            diverse_fold=FOLD,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            report=lambda n, means: None)
+        _sync()
+        wall = time.perf_counter() - t0
+        launched = _read_launches(group, nn, sa)
+        by_path["prepare_eval"] = launched
+        calls = BEHAVE_DIVERSE // FOLD
+        want = {**NO_LAUNCHES, "K1": 2, "K2": 2 * calls, "K4": 2 * calls,
+                "K3": calls}
+        line = {"phase": "prepare", "part": "eval", "gpu": gpu,
+                "clips": clips, "labels_read_back": same,
+                "full_clip_finite": all(
+                    np.isfinite(np.asarray(v, np.float64)).all()
+                    for v in clip.values() if np.asarray(v).dtype.kind
+                    == "f"),
+                "metrics": totals, "wall_s": wall, "launches": launched,
+                "want": want}
+        emit(line)
+        if (not same or not line["full_clip_finite"] or launched != want
+                or not all(np.isfinite(v) for v in totals.values())):
+            raise AssertionError(f"prepare eval: {line}")
+    return by_path
+
+
+def phase_render(group, nn, sa, models, gpu: str) -> dict:
+    """The render flags at full width, each against the same call without
+    the flag: `cli/eval_smpl_short.py::evaluate` on one batch (32 clips, 4
+    diverse samples, correction, "100" respacing) with ``render_dir`` and
+    a stand-in object mesh, with the point-sphere fallback, and without;
+    `cli/eval_skeleton.py::evaluate` with ``render_dir`` (matplotlib) or,
+    where matplotlib is not installed, the entry point refusing the flag
+    before anything is built; one validation render of
+    `cli/train_diffusion_smpl.py::train` (two steps and a validation at
+    "25" with ``render_interval=1`` against ``render_interval=0``: one more
+    encode, K1 2, for the render's own sample) and the render alone.
+    Each: the gif's frames (`gif_frame_count`), the render's seconds, the
+    launches.  Returns the launches by path."""
+    import contextlib as _contextlib
+    import io
+    import tempfile
+
+    from interdiff_torch.cli.common import load_object_mesh
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.cli.train_diffusion_smpl import (
+        make_validation_render,
+        train,
+    )
+    from interdiff_torch.config import DiffusionConfig
+    from interdiff_torch.eval.skeleton import SkeletonEvalConfig
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+
+    mdm, projector, body = models
+    by_path = {}
+    rng = np.random.default_rng(SEED + 85)
+    batch = _main_path_batch(rng, CLIPS, FRAMES, POINTS)
+    diffusion = DiffusionConfig(timestep_respacing=RENDER_RESPACING).build(
+        DEV)
+    with tempfile.TemporaryDirectory() as root:
+        mesh = load_object_mesh(write_object_meshes(
+            os.path.join(root, "objects"), rng,
+            categories=BEHAVE_CATEGORIES[:1])[BEHAVE_CATEGORIES[0]])
+
+        def smpl_eval(render_dir, obj_mesh):
+            timings = {}
+            _reset_launches(group, nn, sa)
+            _sync()
+            t0 = time.perf_counter()
+            totals, _ = evaluate(
+                SmplEvalConfig(), mdm, diffusion, body, [batch],
+                projector=projector, diverse_samples=BEHAVE_DIVERSE,
+                diverse_fold=FOLD,
+                generator=torch.Generator(device=DEV).manual_seed(SEED),
+                report=lambda n, means: None, timings=timings,
+                render_dir=render_dir, obj_mesh=obj_mesh)
+            _sync()
+            return (totals, _read_launches(group, nn, sa), timings,
+                    time.perf_counter() - t0)
+
+        base = smpl_eval(None, None)
+        for name, obj_mesh in (("obj_mesh", mesh), ("point_spheres", None)):
+            rdir = os.path.join(root, name)
+            totals, launched, timings, wall = smpl_eval(rdir, obj_mesh)
+            by_path[f"render_eval_{name}"] = launched
+            gif = os.path.join(rdir, "batch1.gif")
+            line = {"phase": "render", "part": f"eval_smpl_short_{name}",
+                    "gpu": gpu, "clips": CLIPS, "respacing": RENDER_RESPACING,
+                    "gif_frames": gif_frame_count(gif, 30),
+                    "gif_bytes": os.path.getsize(gif),
+                    "render_s": timings["render"], "wall_s": wall,
+                    "wall_s_without": base[3],
+                    "launches": launched, "launches_without": base[1],
+                    "metrics_max_abs_diff": max(
+                        abs(totals[k] - base[0][k]) for k in totals)}
+            emit(line)
+            if line["gif_frames"] != FRAMES or launched != base[1]:
+                raise AssertionError(f"render: {line}")
+
+        # the skeleton track's renderer needs matplotlib
+        try:
+            import matplotlib  # noqa: F401
+            have_mpl = True
+        except ImportError:
+            have_mpl = False
+        if have_mpl:
+            from interdiff_torch.cli.eval_skeleton import (
+                evaluate as skel_evaluate,
+            )
+
+            model, skel_projector = _skeleton_models(DEV, small=False)
+            skel_diffusion = DiffusionConfig(
+                timestep_respacing=RENDER_RESPACING).build(DEV)
+            skel_batch = _skeleton_batch(rng, SKEL_CLIPS)
+            runs = {}
+            for rdir in (None, os.path.join(root, "skeleton")):
+                timings = {}
+                _reset_launches(group, nn, sa)
+                skel_evaluate(
+                    SkeletonEvalConfig(), model, skel_diffusion,
+                    [skel_batch], projector=skel_projector,
+                    generator=torch.Generator(device=DEV).manual_seed(SEED),
+                    report=lambda n, means: None, timings=timings,
+                    render_dir=rdir)
+                runs[rdir is None] = (_read_launches(group, nn, sa), timings)
+            gif = os.path.join(root, "skeleton", "batch1_correction.gif")
+            line = {"phase": "render", "part": "eval_skeleton", "gpu": gpu,
+                    "matplotlib": True,
+                    "gif_frames": gif_frame_count(gif, 10),
+                    "render_s": runs[False][1]["render"],
+                    "launches": runs[False][0],
+                    "launches_without": runs[True][0]}
+            ok = (line["gif_frames"] == SKEL_FRAMES
+                  and runs[False][0] == runs[True][0] == NO_LAUNCHES)
+        else:
+            from interdiff_torch.cli import eval_skeleton
+
+            err = io.StringIO()
+            _reset_launches(group, nn, sa)
+            with _contextlib.redirect_stderr(err):
+                try:
+                    eval_skeleton.main(["--synthetic", "1", "--render_dir",
+                                        os.path.join(root, "skeleton"),
+                                        "--device", DEV])
+                    code = 0
+                except SystemExit as stop:
+                    code = stop.code
+            line = {"phase": "render", "part": "eval_skeleton", "gpu": gpu,
+                    "matplotlib": False, "exit_code": code,
+                    "message": err.getvalue().strip().splitlines()[-1:],
+                    "launches": _read_launches(group, nn, sa),
+                    "built_nothing": not os.path.exists(
+                        os.path.join(root, "skeleton"))}
+            ok = (code == 2 and "matplotlib" in err.getvalue()
+                  and line["built_nothing"]
+                  and line["launches"] == NO_LAUNCHES)
+        by_path["render_eval_skeleton"] = line["launches"]
+        emit(line)
+        if not ok:
+            raise AssertionError(f"render: {line}")
+
+        # the SMPL trainer's validation render
+        val_diffusion = DiffusionConfig(
+            timestep_respacing=RENDER_VAL_RESPACING).build(DEV)
+        train_diffusion = DiffusionConfig().build(DEV)
+        runs = {}
+        for interval in (0, 1):
+            model = _train_model()
+            _reset_launches(group, nn, sa)
+            _sync()
+            t0 = time.perf_counter()
+            train(model, train_diffusion, lambda: iter([batch, batch]),
+                  results_dir=os.path.join(root, f"train{interval}"),
+                  validate_every_epoch=True, val_diffusion=val_diffusion,
+                  generator=torch.Generator(device=DEV).manual_seed(SEED),
+                  render_interval=interval, render_smpl=body)
+            _sync()
+            runs[interval] = (_read_launches(group, nn, sa),
+                              time.perf_counter() - t0)
+        render = make_validation_render(
+            model, val_diffusion, body, past_len=10, future_len=FUTURE)
+        _reset_launches(group, nn, sa)
+        _sync()
+        t0 = time.perf_counter()
+        render(batch, torch.Generator(device=DEV).manual_seed(SEED),
+               os.path.join(root, "alone.gif"))
+        render_s = time.perf_counter() - t0
+        alone = _read_launches(group, nn, sa)
+        gif = os.path.join(root, "train1", "render", "epoch0.gif")
+        more = {k: runs[1][0][k] - runs[0][0][k] for k in NO_LAUNCHES}
+        line = {"phase": "render", "part": "train_diffusion_smpl",
+                "gpu": gpu, "val_respacing": RENDER_VAL_RESPACING,
+                "gif_frames": gif_frame_count(gif, 30),
+                "render_s": render_s, "render_launches": alone,
+                "launches": runs[1][0], "launches_without": runs[0][0],
+                "launches_added": more, "wall_s": runs[1][1],
+                "wall_s_without": runs[0][1]}
+        by_path["render_train"] = more
+        emit(line)
+        want = {**NO_LAUNCHES, "K1": 2}
+        if line["gif_frames"] != FRAMES or more != want or alone != want:
+            raise AssertionError(f"render: {line}")
+    return by_path
+
+
+def phase_diffusion_math(models, gpu: str) -> None:
+    """The rest of the diffusion engine at full width and card against
+    CPU: `calc_bpd_loop` of the full-width `MDMSmpl` on 32 clips at "100"
+    respacing (ms a step), `p_sample_loop` of the 1000-step schedule with
+    ``skip_timesteps`` = 900 from an ``init_image`` (ms a step); then the
+    small MDM (3 layers, d=32) on 2 clips, the same weights and explicit
+    noise on both devices: every term of the bound at "20" (BPD_TOL, the
+    decoder's at t = 0 among them) and a skipped, inpainted, guided
+    trajectory (TRAJ_TOL), each as |a - b| / (1 + |b|)."""
+    from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
+    from interdiff_torch.diffusion.gaussian import Inpaint
+
+    mdm = models[0]
+    rng = np.random.default_rng(SEED + 86)
+    gt, pts, _, _ = _main_path_inputs(rng, CLIPS, FRAMES, POINTS, DEV)
+    with torch.no_grad():
+        memory = mdm.encode(gt, pts[..., :6])
+
+    def model_fn(x, ts):
+        return mdm.denoise(x, ts, memory)
+
+    diffusion = DiffusionConfig(timestep_respacing=MATH_RESPACING).build(DEV)
+    _sync()
+    t0 = time.perf_counter()
+    bpd = diffusion.calc_bpd_loop(
+        model_fn, gt, generator=torch.Generator(device=DEV).manual_seed(SEED))
+    _sync()
+    bpd_s = time.perf_counter() - t0
+    full = DiffusionConfig().build(DEV)
+    mask = torch.zeros_like(gt, dtype=torch.bool)
+    mask[:, :10] = True
+    _sync()
+    t0 = time.perf_counter()
+    x = full.p_sample_loop(
+        model_fn, noise=torch.randn(gt.shape, device=DEV,
+                                    generator=torch.Generator(
+                                        device=DEV).manual_seed(SEED)),
+        generator=torch.Generator(device=DEV).manual_seed(SEED + 1),
+        inpaint=Inpaint(mask, gt), skip_timesteps=MATH_SKIP, init_image=gt)
+    _sync()
+    skip_s = time.perf_counter() - t0
+    steps = full.num_timesteps - MATH_SKIP
+    line = {"phase": "diffusion_math", "part": "full_width", "gpu": gpu,
+            "clips": CLIPS, "bpd_respacing": MATH_RESPACING,
+            "bpd_ms_per_step": 1e3 * bpd_s / diffusion.num_timesteps,
+            "total_bpd_mean": float(bpd["total_bpd"].mean()),
+            "prior_bpd_mean": float(bpd["prior_bpd"].mean()),
+            "skip_timesteps": MATH_SKIP, "skip_steps": steps,
+            "skip_ms_per_step": 1e3 * skip_s / steps}
+    emit(line)
+    if (tuple(bpd["vb"].shape) != (CLIPS, diffusion.num_timesteps)
+            or not all(bool(torch.isfinite(v).all()) for v in bpd.values())
+            or tuple(x.shape) != tuple(gt.shape)
+            or not bool(torch.isfinite(x).all())):
+        raise AssertionError(f"diffusion_math: {line}")
+
+    # the small model on both devices
+    track = SmplTrackConfig(**SMALL, diffusion=DiffusionConfig(
+        timestep_respacing=MATH_SMALL_RESPACING))
+    cpu_model = track.build_model("cpu")
+    state = seeded_state(cpu_model, SEED + 87)
+    cpu_model.load_state_dict(state, strict=True)
+    dev_model = track.build_model(DEV)
+    dev_model.load_state_dict(state, strict=True)
+    rng = np.random.default_rng(SEED + 88)
+    raw = _main_path_batch(rng, 2, FRAMES, 256)
+    T = track.diffusion.build("cpu").num_timesteps
+    step_noise = rng.standard_normal((T, 2, FRAMES, 144)).astype(np.float32)
+    noise = rng.standard_normal((2, FRAMES, 144)).astype(np.float32)
+    target = rng.standard_normal((2, FRAMES, 144)).astype(np.float32)
+    skip = T // 2
+
+    def small_run(device, model):
+        from interdiff_torch.models.mdm_smpl import smpl_gt_from_raw
+
+        b = {k: torch.from_numpy(v).to(device) for k, v in raw.items()}
+        g = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
+                             b["obj_angles"], b["obj_trans"])
+        d = track.diffusion.build(device)
+        tgt = torch.from_numpy(target).to(device)
+        with torch.no_grad():
+            mem = model.encode(g, b["obj_points"][..., :6])
+
+        def fn(x, ts):
+            return model.denoise(x, ts, mem)
+
+        def cond_fn(x, ts):
+            with torch.enable_grad():
+                xx = x.detach().requires_grad_(True)
+                logp = (-0.05 * (xx - tgt) ** 2).sum()
+                return torch.autograd.grad(logp, xx)[0]
+
+        m = torch.zeros_like(g, dtype=torch.bool)
+        m[:, :10] = True
+        bound = d.calc_bpd_loop(fn, g, step_noise=torch.from_numpy(
+            step_noise).to(device))
+        traj = d.p_sample_loop(
+            fn, noise=torch.from_numpy(noise).to(device),
+            step_noise=torch.from_numpy(step_noise[:T - skip]).to(device),
+            inpaint=Inpaint(m, g), skip_timesteps=skip, init_image=g,
+            cond_fn=cond_fn)
+        return {k: v.cpu() for k, v in bound.items()}, traj.cpu()
+
+    got, traj = small_run(DEV, dev_model)
+    want, want_traj = small_run("cpu", cpu_model)
+
+    def rel(a, b):
+        return float(((a - b).abs() / (1.0 + b.abs())).max())
+
+    errs = {k: rel(got[k], want[k]) for k in ("total_bpd", "prior_bpd",
+                                               "xstart_mse", "mse")}
+    errs["vb_kl"] = rel(got["vb"][:, :-1], want["vb"][:, :-1])
+    errs["vb_decoder"] = rel(got["vb"][:, -1], want["vb"][:, -1])
+    traj_err = rel(traj, want_traj)
+    line = {"phase": "diffusion_math", "part": "cpu_vs_gpu", "gpu": gpu,
+            "respacing": MATH_SMALL_RESPACING, "skip_timesteps": skip,
+            "rel_errs": errs, "bpd_tol": BPD_TOL,
+            "trajectory_rel_err": traj_err, "trajectory_tol": TRAJ_TOL}
+    emit(line)
+    if any(v > BPD_TOL for v in errs.values()) or traj_err > TRAJ_TOL:
+        raise AssertionError(f"diffusion_math: {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4553,6 +5291,10 @@ def main() -> int:
     behave_launches = phase_behave(group, nn, sa, models, gpu)
     long_launches = phase_long_eval(group, nn, sa, models, gpu)
     ckpt_launches = phase_ckpt(group, nn, sa, models, gpu)
+    phase_prepare_cpu_vs_gpu(gpu)
+    prepare_launches = phase_prepare(group, nn, sa, models, gpu)
+    render_launches = phase_render(group, nn, sa, models, gpu)
+    phase_diffusion_math(models, gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
@@ -4563,7 +5305,7 @@ def main() -> int:
                **skeleton_launches, **correction_launches,
                "refine": refine_launches, **behave_launches,
                "long_eval": long_launches, **option_launches,
-               **ckpt_launches}
+               **ckpt_launches, **prepare_launches, **render_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:

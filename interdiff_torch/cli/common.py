@@ -330,7 +330,8 @@ def correction_train_loop(
     keys: Sequence[str], *, results_dir: str, epochs: int, ckpt_every: int,
     generator: Optional[torch.Generator] = None,
     on_step: Optional[Callable] = None, log: Optional[Sequence[str]] = None,
-    profiler: Optional["TrainProfiler"] = None
+    profiler: Optional["TrainProfiler"] = None,
+    on_epoch: Optional[Callable] = None
 ) -> Tuple[object, Dict]:
     """The loop of the correction trainers
     (`interdiff_tpu/cli/train_correction_{smpl,skeleton}.py`): per epoch the
@@ -342,7 +343,8 @@ def correction_train_loop(
     ``<results_dir>/ckpt/`` with the step's loss.  ``on_step(steps so far,
     state, metrics)`` runs after every step, the metrics on the device.
     ``profiler`` times the sections ``batch_place`` and ``train_step`` (no
-    prefetch: the JAX correction trainers have none).
+    prefetch: the JAX correction trainers have none).  ``on_epoch(epoch,
+    the epoch's last raw batch or None, state)`` runs after every epoch.
     Returns (state, {"steps", "loss": the last step's})."""
     device = next(projector.parameters()).device
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
@@ -352,6 +354,7 @@ def correction_train_loop(
     try:
         for epoch in range(epochs):
             step = step_for_epoch(epoch)
+            batch = None
             for batch in epoch_batches():
                 with prof.section("batch_place"):
                     placed = place_batch(batch, device, keys)
@@ -370,6 +373,8 @@ def correction_train_loop(
                                         or epoch + 1 == epochs):
                 ckpt.save(i, projector.state_dict(),
                           val_loss=float(metrics["loss"]))
+            if on_epoch is not None:
+                on_epoch(epoch, batch, state)
     finally:
         prof.finish()
     ckpt.wait()
@@ -502,3 +507,84 @@ def load_eval_sequences(motion_path: str,
         seqs = load_behave_sequences(motion_path, smpl_models=smpl_models,
                                      mode="train", timings=timings)
     return seqs
+
+
+def find_object_mesh(motion_path: str, obj_name: str) -> Optional[str]:
+    """The simplified object mesh of a sequence's category, where the
+    reference renders it from (`eval_smpl_short.py:317-327`, the map at
+    `data/utils.py:18-62`): ``<objects root>/<cat>/<cat>_f1000.ply`` with
+    the objects tree beside the sequence directory.  None when it is not on
+    disk (the object is then drawn as point spheres)."""
+    base = os.path.dirname(os.path.abspath(motion_path).rstrip("/"))
+    cand = os.path.join(base, "objects", obj_name, f"{obj_name}_f1000.ply")
+    return cand if os.path.isfile(cand) else None
+
+
+def load_object_mesh(path: str) -> Tuple[np.ndarray, np.ndarray]:
+    """-> (vertices [Vm, 3] float32 in the object's canonical frame, the
+    frame the sampled ``obj_points`` template lies in; faces [F, 3]
+    int32)."""
+    from interdiff_torch.data.mesh_io import load_mesh
+
+    mesh = load_mesh(path)
+    return (np.asarray(mesh.vertices, np.float32),
+            np.asarray(mesh.faces, np.int32))
+
+
+def check_obj_mesh(parser: ArgumentParser, path: Optional[str]) -> None:
+    """Stop at the flags when ``--obj_mesh`` names no readable mesh file,
+    before any model is built."""
+    if path is None:
+        return
+    if os.path.splitext(path)[1].lower() not in (".obj", ".ply"):
+        parser.error(f"--obj_mesh {path}: not an .obj or .ply file")
+    if not os.path.isfile(path):
+        parser.error(f"--obj_mesh {path}: no such file")
+
+
+def check_render_interval(parser: ArgumentParser, interval: int) -> None:
+    if interval < 0:
+        parser.error("--render_interval must be 0 or more")
+
+
+def render_body_object(path: str, verts: np.ndarray, faces: np.ndarray,
+                       obj_rot: np.ndarray, obj_trans: np.ndarray,
+                       template: np.ndarray,
+                       obj_faces: Optional[np.ndarray], *,
+                       past_len: int) -> np.ndarray:
+    """A four-view mesh gif of one clip (`viz/mesh_viz.py`): the body
+    (verts [T, V, 3], faces) and the object, its template [P, 3] rotated by
+    ``obj_rot`` [T, 3, 3] and moved by ``obj_trans`` [T, 3] (a mesh with
+    ``obj_faces``, point spheres without); host numpy in, frames [T, 3, H,
+    4W] out."""
+    from interdiff_torch.viz.mesh_viz import visualize_body_obj
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    obj_verts = np.einsum("tij,pj->tpi", obj_rot, template) \
+        + obj_trans[:, None]
+    frames = visualize_body_obj(verts, faces, obj_verts, obj_faces,
+                                past_len=past_len, save_path=path)
+    print("rendered", path, flush=True)
+    return frames
+
+
+def render_smpl_sample(cfg, smpl: SmplModel, out: Dict[str, torch.Tensor],
+                       template: np.ndarray,
+                       obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]],
+                       path: str) -> np.ndarray:
+    """The gif of the first row of a postprocessed sample ``out``
+    (`interdiff_tpu/cli/eval_smpl_short.py:312-337`): the future frames'
+    seam smoothed (before the gif only, as the reference does), the object
+    as ``obj_mesh`` (its vertices, faces) under the predicted pose, or as
+    spheres of the template cloud [P, 3] without it.  ``cfg`` gives the
+    past and future lengths.  Returns the frames."""
+    from interdiff_torch.eval.metrics import smooth_seam
+    from interdiff_torch.geometry.rotations import axis_angle_to_matrix
+
+    verts = smooth_seam(out["verts"][:1], cfg.future_len)[0]
+    obj = smooth_seam(out["obj_pred"][:1], cfg.future_len)[0]
+    rot = axis_angle_to_matrix(obj[:, :3])
+    tpl, obj_faces = obj_mesh if obj_mesh is not None else (template, None)
+    return render_body_object(
+        path, verts.cpu().numpy(), smpl.faces, rot.cpu().numpy(),
+        obj[:, 3:].cpu().numpy(), tpl, obj_faces, past_len=cfg.past_len)

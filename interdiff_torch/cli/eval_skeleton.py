@@ -18,8 +18,11 @@ The checkpoints are state dicts written by
 files (the denoiser then built from the file's hyper_parameters); without
 them the weights are the modules' seeded initial ones.  ``--config`` may
 name the motion path in a YAML path config (PyYAML is imported only then).
-Rendering (``--render_dir``) and several devices (``--mesh_devices``) are
-not ported yet, and the parser does not know those flags.
+``--render_dir`` writes a gif of the first clip of every batch, the
+prediction over the ground truth (`viz/skeleton_viz.py`, matplotlib on the
+host; without matplotlib the flag stops before anything is built).
+Several devices (``--mesh_devices``) are not ported yet, and the parser
+does not know that flag.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any models and iterator of batches.
@@ -27,6 +30,7 @@ on any models and iterator of batches.
 
 from __future__ import annotations
 
+import os
 import time
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
@@ -58,6 +62,7 @@ from interdiff_torch.eval.skeleton import (
 )
 from interdiff_torch.models.correction import ObjProjectorSkeleton
 from interdiff_torch.models.mdm_skeleton import MDMSkeleton
+from interdiff_torch.viz.skeleton_viz import require_matplotlib
 
 Noises = Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]
 KEYS = ("skeleton", "obj_points", "poses", "zero_pose_obj")
@@ -77,7 +82,8 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
              report: Callable[[int, Dict[str, float]], None] = _print_running,
              timings: Optional[Dict[str, float]] = None,
              trace: Optional[List[Dict]] = None,
-             forecasts: Optional[List[Dict[str, torch.Tensor]]] = None
+             forecasts: Optional[List[Dict[str, torch.Tensor]]] = None,
+             render_dir: Optional[str] = None
              ) -> Tuple[Dict[str, float], int]:
     """The evaluation loop (`interdiff_tpu/cli/eval_skeleton.py:149-197`) on
     the model's device; returns (the sum over batches of each metric, the
@@ -98,7 +104,9 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     ``noises`` yields one ``(noise, step_noise)`` pair per sampler call.
     ``timings`` collects the wall seconds of ``encode``, ``sampler`` (the
     rollouts' calls included) and ``metrics``, with a device
-    synchronisation around every part (none without it).
+    synchronisation around every part (none without it).  With
+    ``render_dir`` a gif of each batch's first clip goes there,
+    ``batch<n>_<mode>.gif`` (part ``render``).
     """
     device = next(model.parameters()).device
     sample = make_skeleton_sampler(
@@ -157,7 +165,30 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
             for k, v in zip(m, values):
                 totals[k] = totals.get(k, 0.0) + v
             report(nb, {k: v / nb for k, v in totals.items()})
+            if render_dir is not None:
+                mode = "correction" if projector is not None \
+                    else "no_correction"
+                timed("render", render_clip, b, pred, cfg.past_len,
+                      os.path.join(render_dir, f"batch{nb}_{mode}.gif"))
     return totals, nb
+
+
+def render_clip(batch: Dict[str, torch.Tensor],
+                pred: Dict[str, torch.Tensor], past_len: int,
+                path: str) -> str:
+    """A gif of the batch's first clip (`interdiff_tpu/cli/eval_skeleton.py:
+    198-207`): the ground-truth skeleton and object keypoints with the
+    prediction drawn over the future frames."""
+    from interdiff_torch.viz.skeleton_viz import visualize_skeleton
+
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    host = {k: v[0].cpu().numpy() for k, v in (
+        ("body", batch["skeleton"]), ("obj", batch["obj_points"]),
+        ("pred", pred["body"]), ("obj_pred", pred["obj"]))}
+    visualize_skeleton(host["body"], host["obj"], path, pred=host["pred"],
+                       obj_pred=host["obj_pred"], past_len=past_len)
+    print("rendered", path, flush=True)
+    return path
 
 
 def build_parser() -> ArgumentParser:
@@ -183,6 +214,8 @@ def build_parser() -> ArgumentParser:
                         help="timestep respacing, e.g. '100'")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="evaluate N synthetic batches (no dataset)")
+    parser.add_argument("--render_dir", default=None,
+                        help="write a gif of sample 0 per batch here")
     parser.add_argument("--rollouts", type=int, default=0,
                         help="autoregressive future windows after the first "
                              "(the reference's get_batch re-batching, "
@@ -201,6 +234,11 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
             args.config).motion_path
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
+    if args.render_dir:
+        try:
+            require_matplotlib()
+        except ImportError as e:
+            parser.error(f"--render_dir: {e}")
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -243,7 +281,8 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
 
     generator = torch.Generator(device=device).manual_seed(args.seed)
     return evaluate(cfg, model, diffusion, batches(), projector=projector,
-                    rollouts=args.rollouts, generator=generator)
+                    rollouts=args.rollouts, generator=generator,
+                    render_dir=args.render_dir)
 
 
 if __name__ == "__main__":

@@ -20,8 +20,11 @@ batches are rolled out, each written to ``<out_dir>/rollout_<i>.npy``, and
 the per-window means to ``<out_dir>/drift_metrics.json``.  The checkpoints
 are state dicts (`utils/convert.py::save_state_dict`) or the reference's
 Lightning ``.ckpt`` files (`cli/common.py::load_mdm`); without them the
-weights are the modules' seeded initial ones.  Rendering (``--render_dir``,
-``--obj_mesh``) is not ported yet and stops with an error.
+weights are the modules' seeded initial ones.  ``--render_dir`` writes a
+four-view gif of each batch's first rollout over the whole horizon
+(``rollout<i>.gif``; the hand poses and betas beyond the first window held
+at its last frame), the object as ``--obj_mesh`` (or the mesh found beside
+a one-category corpus) under the predicted pose, else as point spheres.
 
 ``setup`` builds the objects from the flags, ``evaluate_long`` is the loop
 itself; ``main`` is the two.
@@ -33,7 +36,7 @@ import json
 import os
 import time
 from argparse import ArgumentParser, Namespace
-from typing import Callable, Dict, Iterable, List, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,11 +46,15 @@ from interdiff_torch.cli.common import (
     add_data_args,
     batch_iterator,
     check_data_args,
+    check_obj_mesh,
+    find_object_mesh,
     fit_batch_size,
     load_eval_sequences,
     load_smpl_models,
     load_correction_variables,
     load_mdm,
+    load_object_mesh,
+    render_body_object,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -130,6 +137,40 @@ def make_window_metrics(cfg: SmplEvalConfig, smpl: SmplModel,
     return window_metrics
 
 
+def render_rollout(cfg: SmplEvalConfig, smpl: SmplModel, full: torch.Tensor,
+                   hand: torch.Tensor, betas: torch.Tensor,
+                   template: np.ndarray,
+                   obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]],
+                   path: str) -> np.ndarray:
+    """The gif of the first rollout of ``full`` [B, H, 144] over its whole
+    horizon (`interdiff_tpu/cli/eval_smpl_long.py:295-341`): FK of the body
+    with the first window's hand poses and betas ([B, T, 90], [B, T, 10])
+    held at their last frame beyond it, the object as ``obj_mesh`` (its
+    vertices, faces) or as spheres of the template cloud [P, 3].  Returns
+    the frames."""
+    D = cfg.smpl_dim + 3
+    x = full[:1]
+    Tf = x.shape[1]
+
+    def hold(a):
+        a = a[:1]
+        return torch.cat([a, a[:, -1:].expand(1, Tf - a.shape[1],
+                                              a.shape[2])], dim=1)
+
+    body_aa = matrix_to_axis_angle(rotation_6d_to_matrix(
+        x[..., :D - 3].reshape(1, Tf, -1, 6))).reshape(1, Tf, -1)
+    pose = torch.cat([body_aa, hold(hand)], dim=-1)
+    with torch.no_grad():
+        verts, _, _, _ = smpl_forward(smpl, pose[0], hold(betas)[0],
+                                      x[0, :, D - 3:D])
+    rot = rotation_6d_to_matrix(x[0, :, D:D + 6])
+    tpl, obj_faces = obj_mesh if obj_mesh is not None else (template, None)
+    return render_body_object(
+        path, verts.cpu().numpy(), smpl.faces, rot.cpu().numpy(),
+        x[0, :, D + 6:D + 9].cpu().numpy(), tpl, obj_faces,
+        past_len=cfg.past_len)
+
+
 def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
                   diffusion: GaussianDiffusion, smpl: SmplModel,
                   batches: Iterable[Dict[str, np.ndarray]], *,
@@ -138,7 +179,9 @@ def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
                   generator: Optional[torch.Generator] = None,
                   out_dir: str, max_batches: int = 3,
                   timings: Optional[Dict[str, float]] = None,
-                  outputs: Optional[List[torch.Tensor]] = None
+                  outputs: Optional[List[torch.Tensor]] = None,
+                  render_dir: Optional[str] = None,
+                  obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None
                   ) -> List[Dict[str, float]]:
     """The rollout loop (`interdiff_tpu/cli/eval_smpl_long.py:236-277`) on
     the model's device; returns the per-window means over the batches, also
@@ -153,7 +196,8 @@ def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
     ``rollout_<i>.npy``.  Stops after ``max_batches`` batches.  ``timings``
     collects the wall seconds of ``rollout`` and ``metrics`` (a device
     synchronisation around each) and the count of ``chunks``; ``outputs``
-    receives each trajectory."""
+    receives each trajectory.  With ``render_dir``, `render_rollout`
+    writes ``rollout<i>.gif`` there for each batch (``render`` seconds)."""
     device = next(model.parameters()).device
     # the stand-in bodies may have fewer vertices than the marker set's
     # largest index; the JAX package's gather clamps such indices
@@ -216,6 +260,16 @@ def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
                 full.cpu().numpy())
         if outputs is not None:
             outputs.append(full)
+        if render_dir is not None:
+            t0 = time.perf_counter()
+            render_rollout(cfg, smpl, full, hand_long[:, :T],
+                           betas_long[:, :T],
+                           b["obj_points"][0, :, :3].cpu().numpy(),
+                           obj_mesh,
+                           os.path.join(render_dir, f"rollout{i}.gif"))
+            if timings is not None:
+                timings["render"] = (timings.get("render", 0.0)
+                                     + time.perf_counter() - t0)
         if n_batches >= max_batches:
             break
 
@@ -245,8 +299,12 @@ def build_parser() -> ArgumentParser:
                         help="timestep respacing, e.g. '100' or 'ddim50'")
     parser.add_argument("--out_dir", default="./results")
     parser.add_argument("--render_dir", default=None,
-                        help="not ported yet")
-    parser.add_argument("--obj_mesh", default=None, help="not ported yet")
+                        help="write a gif of each batch's first rollout "
+                             "over the whole horizon here")
+    parser.add_argument("--obj_mesh", default=None,
+                        help="simplified object mesh (ply/obj) rendered "
+                             "under the predicted pose; found beside "
+                             "--motion_path when omitted (one category)")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="roll out N synthetic batches on the 128-vertex "
                              "stand-in body (no dataset, no pkl)")
@@ -284,10 +342,15 @@ def setup(args: Namespace, device) -> Dict:
     else:
         smpl_models = load_smpl_models(args, device)
         smpl = smpl_models["male"]  # one body for every clip, as in JAX
+        seqs = load_eval_sequences(args.motion_path, smpl_models)
+        # a mesh found on disk only for a one-category corpus
+        if args.render_dir and not args.obj_mesh and len(
+                {s.obj_name for s in seqs}) == 1:
+            args.obj_mesh = find_object_mesh(args.motion_path,
+                                             seqs[0].obj_name)
         # light fields: the loop reads the pose streams and the template
         # cloud only; the windows cover the whole horizon
-        ds = BehaveDataset(load_eval_sequences(args.motion_path, smpl_models),
-                           past_len=args.past_len,
+        ds = BehaveDataset(seqs, past_len=args.past_len,
                            future_len=horizon - args.past_len, rng=rng,
                            fields="light")
         args.batch_size = fit_batch_size(len(ds), args.batch_size)
@@ -298,16 +361,15 @@ def setup(args: Namespace, device) -> Dict:
                 rollouts=args.rollouts,
                 generator=torch.Generator(device=device).manual_seed(
                     args.seed),
-                out_dir=args.out_dir)
+                out_dir=args.out_dir, render_dir=args.render_dir,
+                obj_mesh=load_object_mesh(args.obj_mesh) if args.obj_mesh
+                else None)
 
 
 def main(argv=None) -> None:
     parser = build_parser()
     args = parser.parse_args(argv)
-    unported = [f"--{n}" for n in ("render_dir", "obj_mesh")
-                if getattr(args, n) is not None]
-    if unported:
-        parser.error(f"{', '.join(unported)}: rendering is not ported yet")
+    check_obj_mesh(parser, args.obj_mesh)
     if args.rollouts < 0:
         parser.error("--rollouts must be 0 or more")
     check_data_args(parser, args)

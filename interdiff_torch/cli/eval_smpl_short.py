@@ -19,9 +19,13 @@ The checkpoints are state dicts written by
 `utils/convert.py::save_state_dict` or the reference's Lightning ``.ckpt``
 files (the denoiser then built from the file's hyper_parameters, with
 exact FPS: `cli/common.py::load_mdm`); without them the weights are the
-modules' seeded initial ones.  Rendering (``--render_dir``, ``--obj_mesh``)
-is not ported yet and stops with an error; several devices
-(``--mesh_devices``) are not ported, and the parser does not know the flag.
+modules' seeded initial ones.  ``--render_dir`` writes a four-view gif of
+the first sample of every batch (the seam smoothed first, as the reference
+does), the object as the mesh of ``--obj_mesh`` under the predicted pose,
+or found beside a one-category corpus (``objects/<cat>/<cat>_f1000.ply``),
+else as point spheres of its template cloud; the gif is drawn on the host.
+Several devices (``--mesh_devices``) are not ported, and the parser does
+not know the flag.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any body, models and iterator of batches.
@@ -29,6 +33,7 @@ on any body, models and iterator of batches.
 
 from __future__ import annotations
 
+import os
 import time
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
@@ -41,11 +46,15 @@ from interdiff_torch.cli.common import (
     add_data_args,
     batch_iterator,
     check_data_args,
+    check_obj_mesh,
+    find_object_mesh,
     fit_batch_size,
     load_eval_sequences,
     load_smpl_models,
     load_correction_variables,
     load_mdm,
+    load_object_mesh,
+    render_smpl_sample,
     seed_everything,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -90,7 +99,9 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
              generator: Optional[torch.Generator] = None,
              noises: Optional[Noises] = None,
              report: Callable[[int, Dict[str, float]], None] = _print_running,
-             timings: Optional[Dict[str, float]] = None
+             timings: Optional[Dict[str, float]] = None,
+             render_dir: Optional[str] = None,
+             obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None
              ) -> Tuple[Dict[str, float], int]:
     """The evaluation loop (`interdiff_tpu/cli/eval_smpl_short.py:263-311`)
     on the model's device; returns (the sum over batches of each metric's
@@ -108,7 +119,10 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
     is drawn from ``generator`` unless ``noises`` yields one
     ``(noise, step_noise)`` pair per sampler call (replay across devices and
     packages).  ``timings`` collects the wall seconds of each part, with a
-    device synchronisation around every part (none without it).
+    device synchronisation around every part (none without it).  With
+    ``render_dir``, a gif ``batch<n>.gif`` of the last sampler call's first
+    row goes there after each batch (`cli/common.py::render_smpl_sample`,
+    part ``render``).
     """
     if diverse_fold < 1 or diverse_samples % diverse_fold:
         raise ValueError("diverse_fold must be positive and divide "
@@ -185,6 +199,10 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
             for k, v in zip(best, means):
                 totals[k] = totals.get(k, 0.0) + v
             report(nb, {k: v / nb for k, v in totals.items()})
+            if render_dir is not None:
+                timed("render", render_smpl_sample, cfg, smpl, out,
+                      b["obj_points"][0, :, :3].cpu().numpy(), obj_mesh,
+                      os.path.join(render_dir, f"batch{nb}.gif"))
     return totals, nb
 
 
@@ -224,8 +242,13 @@ def build_parser() -> ArgumentParser:
                              "sweep (pruning is faster and closer to the "
                              "geometric truth but changes the number)")
     add_data_args(parser)
-    parser.add_argument("--render_dir", default=None, help="not ported yet")
-    parser.add_argument("--obj_mesh", default=None, help="not ported yet")
+    parser.add_argument("--render_dir", default=None,
+                        help="write a gif of sample 0 per batch "
+                             "(seam-smoothed) here")
+    parser.add_argument("--obj_mesh", default=None,
+                        help="simplified object mesh (ply/obj) rendered "
+                             "under the predicted pose; found beside "
+                             "--motion_path when omitted (one category)")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -240,10 +263,7 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         parser.error("--diverse_fold must be a positive integer")
     if args.diverse_samples % args.diverse_fold:
         parser.error("--diverse_fold must divide --diverse_samples")
-    unported = [f"--{n}" for n in ("render_dir", "obj_mesh")
-                if getattr(args, n) is not None]
-    if unported:
-        parser.error(f"{', '.join(unported)}: rendering is not ported yet")
+    check_obj_mesh(parser, args.obj_mesh)
     check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
@@ -276,10 +296,16 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
     else:
         smpl_models = load_smpl_models(args, device)
         smpl = smpl_models["male"]  # one body for every clip, as in JAX
+        seqs = load_eval_sequences(args.motion_path, smpl_models)
+        # a mesh found on disk only for a one-category corpus: with mixed
+        # objects the right mesh is per clip (point spheres then)
+        if args.render_dir and not args.obj_mesh and len(
+                {s.obj_name for s in seqs}) == 1:
+            args.obj_mesh = find_object_mesh(args.motion_path,
+                                             seqs[0].obj_name)
         # light fields: the loop reads the pose streams and the template
         # cloud only (contacts are recomputed in the loop)
-        ds = BehaveDataset(load_eval_sequences(args.motion_path, smpl_models),
-                           past_len=args.past_len,
+        ds = BehaveDataset(seqs, past_len=args.past_len,
                            future_len=args.future_len, rng=rng,
                            fields="light")
         batches = batch_iterator(
@@ -295,7 +321,9 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         sampler=args.sampler,
         metrics_prune_delta=args.metrics_prune_delta
         if args.metrics_prune_delta > 0 else None,
-        markers_idx=markers_idx, generator=generator)
+        markers_idx=markers_idx, generator=generator,
+        render_dir=args.render_dir,
+        obj_mesh=load_object_mesh(args.obj_mesh) if args.obj_mesh else None)
 
 
 if __name__ == "__main__":

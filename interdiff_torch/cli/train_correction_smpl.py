@@ -25,8 +25,11 @@ mean-marker phase (``--config`` may name both paths, ``--synthetic_body``
 stands in for the pkls).  ``--synthetic N`` trains on N random batches
 (``--synthetic_verts`` body vertices, ``--synthetic_points`` object
 points), one epoch in the main phase, as the JAX package's ``--synthetic``
-does.  The validation renders (``--render_interval``) are not ported yet
-and stop with an error.
+does.  ``--render_interval N`` renders, every N epochs, the predicted and
+the ground-truth object trajectory of the epoch's last batch's first clip
+beside its body as two gifs in ``<results_dir>/render`` (the reference's
+validation renders); it needs the body's faces, so ``--synthetic`` ignores
+it, as the JAX package does.
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
 any projector and any source of batches.  It writes ``<results_dir>/ckpt/``
@@ -36,6 +39,7 @@ and after the last) and ``metrics.jsonl``.
 
 from __future__ import annotations
 
+import os
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
@@ -47,6 +51,8 @@ from interdiff_torch.cli.common import (
     add_data_args,
     batch_iterator,
     check_data_args,
+    check_render_interval,
+    render_body_object,
     TrainProfiler,
     add_profiler_args,
     correction_train_loop,
@@ -60,6 +66,11 @@ from interdiff_torch.data.behave import (
     collate,
     load_behave_sequences,
 )
+from interdiff_torch.geometry.rotations import (
+    axis_angle_to_matrix,
+    matrix_to_rotation_6d,
+    rotation_6d_to_matrix,
+)
 from interdiff_torch.models.correction import ObjProjectorSmpl
 from interdiff_torch.train.losses_correction import CorrectionLossWeights
 from interdiff_torch.train.trainer import (
@@ -70,7 +81,39 @@ from interdiff_torch.train.trainer import (
 
 KEYS = ("obj_angles", "obj_trans", "markers", "human_verts", "obj_points")
 Batch = Dict[str, np.ndarray]
-UNPORTED = ("render_interval",)
+
+
+def make_correction_render(projector: ObjProjectorSmpl, faces: np.ndarray,
+                           results_dir: str) -> Callable:
+    """``render(epoch, batch)``: the projector's eval-mode correction of the
+    batch's first clip (the ground-truth object pose and markers, the
+    contact counts of the future frames) and the ground truth, each as a
+    gif of the object's template cloud beside the body
+    (`interdiff_tpu/cli/train_correction_smpl.py:159-230`):
+    ``<results_dir>/render/epoch<e>_{pred,gt}.gif``."""
+    device = next(projector.parameters()).device
+    past_len = projector.past_len
+
+    @torch.no_grad()
+    def render(epoch: int, batch: Batch) -> None:
+        b = {k: torch.as_tensor(batch[k][:1], device=device) for k in KEYS}
+        markers = b["markers"]
+        contact = markers[:, past_len:, :, 6].sum(dim=1)
+        obj_gt = torch.cat([matrix_to_rotation_6d(axis_angle_to_matrix(
+            b["obj_angles"])), b["obj_trans"]], dim=-1)
+        obj_pred = projector.sample(obj_gt, markers[..., :3], contact,
+                                    train=False)
+        body = b["human_verts"][0, :, :, :3].cpu().numpy()
+        tpl = b["obj_points"][0, :, :3].cpu().numpy()
+        for tag, pose in (("pred", obj_pred), ("gt", obj_gt)):
+            render_body_object(
+                os.path.join(results_dir, "render",
+                             f"epoch{epoch}_{tag}.gif"),
+                body, faces, rotation_6d_to_matrix(pose[0, :, :6]).cpu()
+                .numpy(), pose[0, :, 6:9].cpu().numpy(), tpl, None,
+                past_len=past_len)
+
+    return render
 
 
 def train(projector: ObjProjectorSmpl,
@@ -80,7 +123,9 @@ def train(projector: ObjProjectorSmpl,
           initialize_epochs: int = 10,
           generator: Optional[torch.Generator] = None,
           on_step: Optional[Callable] = None,
-          profiler: Optional[TrainProfiler] = None
+          profiler: Optional[TrainProfiler] = None,
+          render_interval: int = 0,
+          render_faces: Optional[np.ndarray] = None
           ) -> Tuple[CorrectionTrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_correction_smpl.py:190-
     262`) on the projector's device: epochs below ``initialize_epochs`` take
@@ -88,8 +133,24 @@ def train(projector: ObjProjectorSmpl,
     the annealing reads the epoch.  ``epoch_batches()`` yields one epoch of
     raw batches (``obj_angles`` / ``obj_trans`` [B,T,3], ``markers``
     [B,T,67,7], ``human_verts`` [B,T,V,7], ``obj_points`` [B,P,>=3]; numpy).
-    The marker draws (and dropout) come from ``generator``.  Returns (the
+    The marker draws (and dropout) come from ``generator``.  Every
+    ``render_interval`` epochs (none at 0) `make_correction_render` draws
+    the epoch's last batch on the body faces ``render_faces``.  Returns (the
     final state, {"steps", "loss"})."""
+    on_epoch = None
+    if render_interval:
+        if render_faces is None:
+            raise ValueError("render_interval needs the body's faces")
+        render = make_correction_render(projector, render_faces, results_dir)
+
+        def on_epoch(epoch, batch, state):
+            if (epoch + 1) % render_interval == 0:
+                if batch is None:
+                    print("render skipped: no batches this epoch",
+                          flush=True)
+                else:
+                    render(epoch, batch)
+
     state = CorrectionTrainState.create(projector, adam(lr))
     steps = {phase: make_correction_smpl_train_step(
         projector, weights=weights, initialize=phase)
@@ -98,7 +159,7 @@ def train(projector: ObjProjectorSmpl,
         projector, state, lambda epoch: steps[epoch < initialize_epochs],
         epoch_batches, KEYS, results_dir=results_dir, epochs=epochs,
         ckpt_every=25, generator=generator, on_step=on_step,
-        profiler=profiler)
+        profiler=profiler, on_epoch=on_epoch)
 
 
 def build_parser() -> ArgumentParser:
@@ -123,8 +184,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--w_penetration", type=float, default=None,
                         help="penetration loss weight (default: the "
                              "reference's 0.1)")
-    for name in UNPORTED:
-        parser.add_argument(f"--{name}", default=None, help="not ported yet")
+    parser.add_argument("--render_interval", type=int, default=0,
+                        help="render pred-vs-gt object-trajectory mesh gifs "
+                             "of sample 0 every N epochs into "
+                             "<results_dir>/render; needs real data (body "
+                             "faces), ignored under --synthetic")
     add_profiler_args(parser)
     add_data_args(parser)
     parser.add_argument("--device", default="cuda",
@@ -136,11 +200,8 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
-    given = [f"--{n}" for n in UNPORTED if getattr(args, n) is not None]
-    if given:
-        parser.error(f"{', '.join(given)}: validation renders are not "
-                     "ported yet")
     check_data_args(parser, args)
+    check_render_interval(parser, args.render_interval)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -154,7 +215,12 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
         penetration=defaults.penetration if args.w_penetration is None
         else args.w_penetration)
 
+    render_faces = None
     if args.synthetic:
+        if args.render_interval:
+            print("--render_interval needs real data (body faces); ignored "
+                  "under --synthetic", flush=True)
+
         def epoch_batches():
             return synthetic_smpl_batches(
                 rng, batch_size=args.batch_size, seq_len=T,
@@ -163,8 +229,10 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     else:
         # the corpus is read once; the window jitter is drawn per clip, so
         # one dataset serves every epoch
+        smpl_models = load_smpl_models(args, device)
+        render_faces = smpl_models["male"].faces
         ds = BehaveDataset(load_behave_sequences(
-            args.motion_path, smpl_models=load_smpl_models(args, device),
+            args.motion_path, smpl_models=smpl_models,
             mode="train"), past_len=args.past_len,
             future_len=args.future_len, rng=rng)
         batch_size = fit_batch_size(len(ds), args.batch_size)
@@ -181,7 +249,10 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
                  generator=torch.Generator(device=device).manual_seed(
                      args.seed),
                  profiler=TrainProfiler.from_args(args, args.results_dir,
-                                                  device))
+                                                  device),
+                 render_interval=0 if args.synthetic
+                 else args.render_interval,
+                 render_faces=render_faces)
 
 
 if __name__ == "__main__":

@@ -21,8 +21,11 @@ shadow when there is one.  ``--resume_checkpoint`` takes a state-dict file
 of the port (`utils/convert.py::save_state_dict`).  ``--config`` may name
 the motion path in a YAML path config (PyYAML is imported only then).  The
 batches are built on the main thread between steps, as in the SMPL
-trainer; ``--profiler`` and ``--debug_nan`` as there.  Validation renders (``--render_interval``) are not ported,
-and the parser does not know them.
+trainer; ``--profiler`` and ``--debug_nan`` as there.  ``--render_interval
+N`` draws validation sample 0, the prediction over the ground truth, as a
+gif in ``<results_dir>/render`` every N validations (every validation under
+``--synthetic``; matplotlib on the host, without which the flag stops
+before anything is built).
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself.
 It writes ``<results_dir>/ckpt/`` (the weights, the best three by the
@@ -45,12 +48,14 @@ from interdiff_torch.cli.common import (
     TrainProfiler,
     add_profiler_args,
     batch_iterator,
+    check_render_interval,
     fit_batch_size,
     load_weights,
     seed_everything,
     stack_batches,
     synthetic_skeleton_batches,
 )
+from interdiff_torch.cli.eval_skeleton import render_clip
 from interdiff_torch.config import DiffusionConfig, SkeletonTrackConfig
 from interdiff_torch.data.paths import load_paths
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
@@ -61,6 +66,7 @@ from interdiff_torch.eval.skeleton import (
     split_skeleton_state,
 )
 from interdiff_torch.models.mdm_skeleton import MDMSkeleton
+from interdiff_torch.viz.skeleton_viz import require_matplotlib
 from interdiff_torch.train.trainer import (
     TrainState,
     adamw,
@@ -75,23 +81,26 @@ Batch = Dict[str, np.ndarray]
 
 def make_validation(model: MDMSkeleton, val_diffusion: GaussianDiffusion
                     ) -> Callable:
-    """``run_validation(batch, generator) -> metrics``: the inpainting
-    sampler without correction on a raw batch, then `skeleton_metrics` on
-    the frames after the model's ``past_len``, as floats."""
+    """``run_validation(batch, generator) -> (metrics, prediction)``: the
+    inpainting sampler without correction on a raw batch, then
+    `skeleton_metrics` on the frames after the model's ``past_len``, as
+    floats; the prediction's ``body``, ``obj`` and ``pose`` on the
+    device."""
     past_len = model.past_len
     cfg = SkeletonEvalConfig(past_len=past_len)
     sampler = make_skeleton_sampler(cfg, model, val_diffusion)
     device = next(model.parameters()).device
 
     @torch.no_grad()
-    def run_validation(batch: Batch, generator=None) -> Dict[str, float]:
+    def run_validation(batch: Batch, generator=None
+                       ) -> Tuple[Dict[str, float], Dict[str, torch.Tensor]]:
         b = {k: torch.as_tensor(batch[k], device=device) for k in KEYS}
         x = sampler(*(b[k] for k in KEYS), generator=generator)
         pred = split_skeleton_state(x, cfg)
         m = skeleton_metrics(pred["body"], b["skeleton"], pred["obj"],
                              b["obj_points"], pred["pose"], b["poses"],
                              start=past_len)
-        return dict(zip(m, torch.stack(list(m.values())).tolist()))
+        return dict(zip(m, torch.stack(list(m.values())).tolist())), pred
 
     return run_validation
 
@@ -105,7 +114,8 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
           val_batch: Optional[Batch] = None,
           generator: Optional[torch.Generator] = None,
           on_step: Optional[Callable] = None,
-          profiler: Optional[TrainProfiler] = None
+          profiler: Optional[TrainProfiler] = None,
+          render_interval: int = 0
           ) -> Tuple[TrainState, Dict]:
     """The training loop
     (`interdiff_tpu/cli/train_diffusion_skeleton.py:199-268`) on the model's
@@ -122,7 +132,9 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
     and the validation's noise come from ``generator``.  ``on_step(steps so
     far, state, metrics)`` is called after every dispatch with the metrics
     still on the device.  ``profiler`` times the sections ``batch_place``
-    and ``train_step``.
+    and ``train_step``.  Every ``render_interval`` validations (none at 0)
+    `cli/eval_skeleton.py::render_clip` draws the first clip of the
+    validation batch to ``<results_dir>/render/epoch<e>.gif``.
     """
     device = next(model.parameters()).device
     spd = max(1, steps_per_dispatch)
@@ -141,7 +153,7 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
     run_validation = make_validation(val_model, val_diffusion or diffusion)
 
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
-    i, summary = 0, {"val": []}
+    i, n_vals, summary = 0, 0, {"val": []}
     try:
         for epoch in range(epochs):
             batch_np = None
@@ -159,8 +171,8 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
             if (epoch + 1) % val_every == 0 or validate_every_epoch:
                 if state.ema_params is not None:
                     val_model.load_state_dict(state.ema_params, strict=True)
-                val_metrics = run_validation(
-                    batch_np if val_batch is None else val_batch, generator)
+                val_b = batch_np if val_batch is None else val_batch
+                val_metrics, val_pred = run_validation(val_b, generator)
                 logger.log(i, val_metrics, epoch=epoch, split="valid")
                 print(f"epoch {epoch} val {val_metrics}", flush=True)
                 summary["val"].append(val_metrics)
@@ -168,6 +180,13 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
                 if ckpt_ema is not None:
                     ckpt_ema.save(i, state.ema_params,
                                   val_loss=val_metrics["mpjpe_h"])
+                n_vals += 1
+                if render_interval and n_vals % render_interval == 0:
+                    render_clip({k: torch.as_tensor(val_b[k][:1])
+                                 for k in ("skeleton", "obj_points")},
+                                val_pred, model.past_len, os.path.join(
+                                    results_dir, "render",
+                                    f"epoch{epoch}.gif"))
     finally:
         prof.finish()
     ckpt.wait()
@@ -212,6 +231,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--val_respacing", default="",
                         help="timestep respacing of the validation sampler "
                              "('' = the full schedule; e.g. '25')")
+    parser.add_argument("--render_interval", type=int, default=0,
+                        help="render a pred-vs-gt skeleton gif of validation "
+                             "sample 0 every N validations into "
+                             "<results_dir>/render (every validation under "
+                             "--synthetic)")
     add_profiler_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
@@ -227,6 +251,12 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
             args.config).motion_path
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
+    check_render_interval(parser, args.render_interval)
+    if args.render_interval:
+        try:
+            require_matplotlib()
+        except ImportError as e:
+            parser.error(f"--render_interval: {e}")
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -280,7 +310,10 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         validate_every_epoch=bool(args.synthetic),
         val_diffusion=val_diffusion, val_batch=val_batch,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        profiler=TrainProfiler.from_args(args, args.results_dir, device))
+        profiler=TrainProfiler.from_args(args, args.results_dir, device),
+        # every validation renders under --synthetic, as in JAX
+        render_interval=(1 if args.synthetic else args.render_interval)
+        if args.render_interval else 0)
 
 
 if __name__ == "__main__":

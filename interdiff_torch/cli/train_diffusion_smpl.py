@@ -27,8 +27,11 @@ encoder over [xyz | normal] instead of PointNet++.  ``--profiler simple``
 prints the seconds of the sections ``batch_place`` and ``train_step`` at
 the end, ``--profiler trace`` writes a `torch.profiler` trace to
 ``<results_dir>/trace``, ``--debug_nan`` turns on torch's anomaly
-detection with NaN checks.  Validation renders (``--render_interval``) are
-not ported, and the parser does not know them.  ``--resume_checkpoint`` takes a state-dict file of the port
+detection with NaN checks.  ``--render_interval N`` renders a four-view
+gif of validation sample 0 every N validations into
+``<results_dir>/render`` (the reference's validation gifs; every
+validation under ``--synthetic``, on the 128-vertex stand-in body there).
+``--resume_checkpoint`` takes a state-dict file of the port
 (`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here).
 
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
@@ -56,11 +59,14 @@ from interdiff_torch.cli.common import (
     add_profiler_args,
     batch_iterator,
     check_data_args,
+    check_render_interval,
     load_smpl_models,
     load_weights,
+    render_smpl_sample,
     seed_everything,
     stack_batches,
     synthetic_smpl_batches,
+    synthetic_smpl_body,
 )
 from interdiff_torch.config import DiffusionConfig, SmplTrackConfig
 from interdiff_torch.data.behave import (
@@ -73,10 +79,12 @@ from interdiff_torch.diffusion.resample import LossSecondMomentResampler
 from interdiff_torch.eval.smpl_short import (
     SmplEvalConfig,
     make_sampler,
+    postprocess_sample,
     state_to_axis_angle,
 )
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
 from interdiff_torch.parallel.sample_parallel import tile_for_diverse_samples
+from interdiff_torch.smpl.model import SmplModel
 from interdiff_torch.train.losses import (
     smpl_diverse_test_losses,
     smpl_val_losses,
@@ -138,6 +146,36 @@ def make_validation(model: MDMSmpl, val_diffusion: GaussianDiffusion, *,
     return run_validation
 
 
+def make_validation_render(model: MDMSmpl, val_diffusion: GaussianDiffusion,
+                           smpl: SmplModel, *, past_len: int,
+                           future_len: int) -> Callable:
+    """``render(batch, generator, path)``: the gif of the validation
+    sampler's sample of the batch's first clip, FK on ``smpl``, the seam
+    smoothed, the object as spheres of its template cloud
+    (`interdiff_tpu/cli/train_diffusion_smpl.py:294-330`)."""
+    cfg = SmplEvalConfig(past_len=past_len, future_len=future_len)
+    sampler = make_sampler(cfg, model, val_diffusion)
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def render(batch: Batch, generator, path: str) -> np.ndarray:
+        b = {k: torch.as_tensor(v[:1], device=device)
+             for k, v in batch.items() if k in KEEP + ("body_betas",)}
+        gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
+                              b["obj_angles"], b["obj_trans"])
+        hand = b["body_pose"][..., 66:]
+        betas = b["body_betas"] if "body_betas" in b \
+            else gt.new_zeros(gt.shape[:2] + (10,))
+        x = sampler(gt, b["obj_points"][..., :6], hand, betas,
+                    generator=generator)
+        out = postprocess_sample(cfg, smpl, x, hand, betas)
+        return render_smpl_sample(cfg, smpl, out,
+                                  b["obj_points"][0, :, :3].cpu().numpy(),
+                                  None, path)
+
+    return render
+
+
 def train(model: MDMSmpl, diffusion: GaussianDiffusion,
           epoch_batches: Callable[[], Iterable[Batch]], *, results_dir: str,
           epochs: int = 1, lr: float = 3e-4,
@@ -149,7 +187,9 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
           val_batch: Optional[Batch] = None,
           generator: Optional[torch.Generator] = None,
           on_step: Optional[Callable] = None,
-          profiler: Optional[TrainProfiler] = None
+          profiler: Optional[TrainProfiler] = None,
+          render_interval: int = 0,
+          render_smpl: Optional[SmplModel] = None
           ) -> Tuple[TrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_diffusion_smpl.py:341-429`)
     on the model's device; returns (the final `TrainState`, a summary with
@@ -165,8 +205,12 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
     the training noise and the validation's noise come from ``generator``.
     ``on_step(steps so far, state, metrics)`` is called after every
     dispatch with the metrics still on the device.  ``profiler`` times the
-    sections ``batch_place`` and ``train_step``.
+    sections ``batch_place`` and ``train_step``.  Every ``render_interval``
+    validations (none at 0) `make_validation_render` writes
+    ``<results_dir>/render/epoch<e>.gif`` on the body ``render_smpl``.
     """
+    if render_interval and render_smpl is None:
+        raise ValueError("render_interval needs the body `render_smpl`")
     device = next(model.parameters()).device
     spd = max(1, steps_per_dispatch)
     sampler_state = None
@@ -197,9 +241,13 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
     run_validation = make_validation(
         val_model, val_diffusion or diffusion, past_len=model.past_len,
         future_len=model.future_len, val_diverse=val_diverse)
+    render = make_validation_render(
+        val_model, val_diffusion or diffusion, render_smpl,
+        past_len=model.past_len, future_len=model.future_len) \
+        if render_interval else None
 
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
-    i, summary = 0, {"val_loss": [], "val_terms": []}
+    i, n_vals, summary = 0, 0, {"val_loss": [], "val_terms": []}
     try:
         for epoch in range(epochs):
             batch_np = None
@@ -234,6 +282,11 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
                     ckpt_ema.save(i, merge_bn_state(state.ema_params,
                                                     state.model_state),
                                   val_loss=val_loss)
+                n_vals += 1
+                if render is not None and n_vals % render_interval == 0:
+                    render(batch_np if val_batch is None else val_batch,
+                           generator, os.path.join(
+                               results_dir, "render", f"epoch{epoch}.gif"))
     finally:
         prof.finish()
     ckpt.wait()
@@ -296,6 +349,11 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--val_respacing", default="",
                         help="timestep respacing of the validation sampler "
                              "('' = the full schedule; e.g. '25')")
+    parser.add_argument("--render_interval", type=int, default=0,
+                        help="render a 4-view mesh gif of validation sample "
+                             "0 every N validations into "
+                             "<results_dir>/render (every validation under "
+                             "--synthetic, on the stand-in body)")
     add_profiler_args(parser)
     add_data_args(parser)
     parser.add_argument("--device", default="cuda",
@@ -337,6 +395,7 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
     parser = build_parser()
     args = parser.parse_args(argv)
     check_data_args(parser, args)
+    check_render_interval(parser, args.render_interval)
     device = resolve_device(None if args.device == "cuda" else args.device)
 
     rng = seed_everything(args.seed)
@@ -361,9 +420,13 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
                 rng, batch_size=args.batch_size,
                 seq_len=args.past_len + args.future_len,
                 num_points=args.synthetic_points, steps=args.synthetic)
+        render_smpl = synthetic_smpl_body(
+            np.random.default_rng(0),
+            device=device) if args.render_interval else None
     else:
-        epoch_batches, val_batch = dataset_batches(
-            args, load_smpl_models(args, device), rng)
+        smpl_models = load_smpl_models(args, device)
+        epoch_batches, val_batch = dataset_batches(args, smpl_models, rng)
+        render_smpl = smpl_models["male"]
 
     # a synthetic run is one epoch with one validation, whatever --epochs
     return train(
@@ -377,7 +440,11 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         val_diverse=args.val_diverse, val_diffusion=val_diffusion,
         val_batch=val_batch,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        profiler=TrainProfiler.from_args(args, args.results_dir, device))
+        profiler=TrainProfiler.from_args(args, args.results_dir, device),
+        # every validation renders under --synthetic, as in JAX
+        render_interval=(1 if args.synthetic else args.render_interval)
+        if args.render_interval else 0,
+        render_smpl=render_smpl)
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
-"""Body-model constants of the SMPL track (data tables, not code): the port's
-copy of what the correction path needs from `interdiff_tpu/data/constants.py`.
+"""Body-model and object constants (data tables, not code): the port's copy
+of what the correction path, the contact-label preprocessing and the
+renderers need from `interdiff_tpu/data/constants.py`.
 
 Values are the published SSM marker set and body-part groupings used by
 BEHAVE/InterDiff (`interdiff/data/utils.py:232-261`), so that contact labels
@@ -48,3 +49,74 @@ def hand_bias_vector(num_markers: int = 67) -> np.ndarray:
     bias = np.zeros((num_markers,), dtype=np.float32)
     bias[HAND_MARKER_IDS[HAND_MARKER_IDS < num_markers]] = 0.5
     return bias
+
+
+# Simplified object-template meshes per BEHAVE category
+# (`data/utils.py:18-40`): category name -> relative path of the
+# decimated-scan mesh used for point sampling.
+SIMPLIFIED_MESH = {
+    "backpack": "backpack/backpack_f1000.ply",
+    "basketball": "basketball/basketball_f1000.ply",
+    "boxlarge": "boxlarge/boxlarge_f1000.ply",
+    "boxtiny": "boxtiny/boxtiny_f1000.ply",
+    "boxlong": "boxlong/boxlong_f1000.ply",
+    "boxsmall": "boxsmall/boxsmall_f1000.ply",
+    "boxmedium": "boxmedium/boxmedium_f1000.ply",
+    "chairblack": "chairblack/chairblack_f2500.ply",
+    "chairwood": "chairwood/chairwood_f2500.ply",
+    "monitor": "monitor/monitor_closed_f1000.ply",
+    "keyboard": "keyboard/keyboard_f1000.ply",
+    "plasticcontainer": "plasticcontainer/plasticcontainer_f1000.ply",
+    "stool": "stool/stool_f1000.ply",
+    "tablesquare": "tablesquare/tablesquare_f2000.ply",
+    "toolbox": "toolbox/toolbox_f1000.ply",
+    "suitcase": "suitcase/suitcase_f1000.ply",
+    "tablesmall": "tablesmall/tablesmall_f1000.ply",
+    "yogamat": "yogamat/yogamat_f1000.ply",
+    "yogaball": "yogaball/yogaball_f1000.ply",
+    "trashbin": "trashbin/trashbin_f1000.ply",
+}
+
+# Skeleton-track (HO-GCN) bone list for rendering (`render/viz_helper.py:11-15`).
+SKELETON_BONES = [
+    (0, 1), (1, 2), (2, 3), (3, 4),
+    (2, 5), (5, 6), (6, 7), (7, 8),
+    (2, 9), (9, 10), (10, 11), (11, 12),
+    (0, 13), (13, 14), (14, 15),
+    (0, 16), (16, 17), (17, 18),
+]
+
+# Object keypoint edge maps per category (`render/viz_helper.py:17-28`).
+OBJ_CONNECTS = {
+    "chair4": [(1, 2), (1, 4), (2, 4), (1, 0), (0, 2), (0, 5), (5, 7), (0, 10),
+               (2, 11), (4, 9), (1, 8), (2, 3), (5, 3), (4, 6), (0, 6), (0, 7),
+               (2, 7), (3, 7)],
+    "box2": [(2, 11), (2, 5), (9, 11), (1, 0), (1, 7), (8, 10), (3, 4), (4, 9),
+             (3, 8), (7, 8), (1, 11), (3, 5), (6, 2), (3, 6), (2, 0), (4, 10),
+             (6, 8), (1, 2), (7, 10), (7, 0), (4, 5), (5, 11), (0, 6), (6, 7),
+             (1, 9), (9, 10), (5, 9), (7, 9)],
+    "board": [(3, 6), (6, 5), (3, 9), (5, 9), (5, 1), (1, 4), (2, 4), (1, 7),
+              (0, 7), (0, 11), (11, 10), (8, 10), (2, 8), (2, 9)],
+    "chair2": [(4, 9), (2, 11), (1, 8), (0, 10), (0, 1), (1, 4), (2, 4),
+               (2, 3), (3, 5), (0, 2), (0, 5), (7, 3), (7, 5), (7, 0), (7, 2),
+               (0, 6), (6, 1), (6, 2), (6, 4)],
+    "box3": [(4, 5), (5, 9), (5, 11), (2, 5), (2, 6), (2, 0), (2, 11), (9, 4),
+             (9, 11), (9, 1), (9, 10), (1, 0), (1, 7), (0, 6), (3, 4), (3, 5),
+             (3, 10), (3, 8), (8, 6), (8, 7), (8, 10), (3, 6), (0, 7), (1, 11),
+             (4, 10), (10, 7)],
+    "table": [(0, 2), (2, 3), (3, 4), (4, 0), (0, 1), (2, 1), (1, 10), (3, 5),
+              (2, 5), (5, 8), (4, 6), (3, 6), (6, 7), (0, 11), (4, 11),
+              (11, 9)],
+    "chair": [(4, 9), (2, 11), (1, 8), (0, 10), (0, 1), (1, 4), (2, 4), (2, 3),
+              (3, 5), (0, 2), (0, 5), (7, 3), (7, 5), (7, 0), (7, 2), (0, 6),
+              (6, 1), (6, 2), (6, 4)],
+    "box": [(4, 5), (5, 9), (5, 11), (2, 5), (2, 6), (2, 0), (2, 11), (9, 4),
+            (9, 11), (9, 1), (9, 10), (1, 0), (1, 7), (0, 6), (3, 4), (3, 5),
+            (3, 10), (3, 8), (8, 6), (8, 7), (8, 10), (3, 6), (0, 7), (1, 11),
+            (4, 10), (10, 7)],
+    "tripod": [(3, 5), (4, 6), (0, 1), (7, 10), (7, 11), (9, 7), (1, 8),
+               (4, 8), (5, 8), (8, 2), (8, 7), (7, 10)],
+}
+
+# Full-resolution object templates (`data/utils.py:42-62`).
+FULL_MESH = {k: f"{k}/{k}.obj" for k in SIMPLIFIED_MESH}

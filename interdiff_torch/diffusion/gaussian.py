@@ -1,19 +1,26 @@
 """Gaussian diffusion engine over a precomputed schedule
 (`interdiff_tpu/diffusion/gaussian.py`): ancestral DDPM, DDIM and PLMS
-sampling, and the training pair ``training_losses``.
+sampling, the deterministic DDIM encoding ``ddim_reverse_sample``, the
+training pair ``training_losses`` and the variational bound in bits per
+dimension (``vb_terms_bpd``, ``prior_bpd``, ``calc_bpd_loop``).
 
 The schedule is computed in float64 numpy and cast once to float32 tensors
 on the engine's device.  Each sampling loop is a Python loop over the kept
 timesteps; observation inpainting overwrites the model's x0 prediction on
 the masked (past) elements, and ``denoised_fn`` is the correction hook.
-Learned variances, x_{t-1} prediction, classifier guidance (``cond_fn``),
-``ddim_reverse_sample`` and the variational-bound terms are not ported yet.
+The model may predict x0, the noise or x_{t-1} (`ModelMeanType`), with
+fixed or learned variances (`ModelVarType`; a learned one takes the second
+half of the model's channel axis 1).  Classifier guidance takes a
+``cond_fn(x, model_timesteps) -> gradient`` that computes its gradient
+itself under ``torch.enable_grad()`` (the loops run without autograd); the
+reference's ``*_with_grad`` family is the same one API, as in JAX.
 """
 
 from __future__ import annotations
 
 import enum
 import functools
+import math
 import inspect
 from typing import Callable, NamedTuple, Optional
 
@@ -22,16 +29,24 @@ import torch
 
 from interdiff_torch import resolve_device
 from interdiff_torch.diffusion import schedule as sched_lib
+from interdiff_torch.diffusion.losses import (
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+)
 
 
 class ModelMeanType(enum.Enum):
+    PREVIOUS_X = "previous_x"
     START_X = "start_x"
     EPSILON = "epsilon"
 
 
 class ModelVarType(enum.Enum):
+    LEARNED = "learned"
     FIXED_SMALL = "fixed_small"
     FIXED_LARGE = "fixed_large"
+    LEARNED_RANGE = "learned_range"
 
 
 class Inpaint(NamedTuple):
@@ -138,7 +153,8 @@ class GaussianDiffusion:
     @classmethod
     def create_named(cls, *, schedule_name: str = "cosine", steps: int = 1000,
                      timestep_respacing=None, predict_xstart: bool = True,
-                     sigma_small: bool = True, rescale_timesteps: bool = False,
+                     sigma_small: bool = True, learn_sigma: bool = False,
+                     rescale_timesteps: bool = False,
                      scale_beta: float = 1.0,
                      device=None) -> "GaussianDiffusion":
         """Factory matching `interdiff/model/diffusion_smpl.py:251-284`."""
@@ -148,14 +164,29 @@ class GaussianDiffusion:
             timestep_respacing = [steps]
         use_ts = sched_lib.space_timesteps(steps, timestep_respacing)
         betas, timestep_map = sched_lib.respace_betas(betas, sorted(use_ts))
+        if learn_sigma:
+            var_type = ModelVarType.LEARNED_RANGE
+        else:
+            var_type = (ModelVarType.FIXED_SMALL if sigma_small
+                        else ModelVarType.FIXED_LARGE)
         return cls.create(
             betas,
             model_mean_type=(ModelMeanType.START_X if predict_xstart
                              else ModelMeanType.EPSILON),
-            model_var_type=(ModelVarType.FIXED_SMALL if sigma_small
-                            else ModelVarType.FIXED_LARGE),
+            model_var_type=var_type,
             rescale_timesteps=rescale_timesteps, timestep_map=timestep_map,
             original_num_steps=steps, device=device)
+
+    @staticmethod
+    def masked_l2(a: torch.Tensor, b: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+        """Mask-normalised squared error per sample
+        (`gaussian_diffusion.py:201-214`): a, b [B, J, Jdim, T], mask
+        [B, 1, 1, T] -> sum((a - b)^2 * mask) / (sum(mask) * J * Jdim)."""
+        dims = tuple(range(1, a.ndim))
+        loss = ((a - b) ** 2 * mask).sum(dim=dims)
+        non_zero = mask.sum(dim=dims) * (a.shape[1] * a.shape[2])
+        return loss / non_zero.clamp(min=1.0)
 
     # -- timesteps and the forward process ------------------------------------
     def model_timesteps(self, t: torch.Tensor) -> torch.Tensor:
@@ -190,6 +221,12 @@ class GaussianDiffusion:
         return (_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
                 - _extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps)
 
+    def predict_xstart_from_xprev(self, x_t, t, xprev):
+        nd = x_t.ndim
+        return (_extract(1.0 / self.posterior_mean_coef1, t, nd) * xprev
+                - _extract(self.posterior_mean_coef2
+                           / self.posterior_mean_coef1, t, nd) * x_t)
+
     def predict_eps_from_xstart(self, x_t, t, pred_xstart):
         nd = x_t.ndim
         return ((_extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t
@@ -202,26 +239,34 @@ class GaussianDiffusion:
         """``(model_output, target)`` of one training draw
         (`interdiff_tpu/diffusion/gaussian.py:545-561`): the model's output
         on ``q_sample(x_start, t, noise)`` (inpainted where asked) and what
-        it is trained to match, x0 or the noise; the weighted loss lives in
-        `train/losses.py`."""
+        it is trained to match: x0, the noise, or the posterior mean for an
+        x_{t-1} model; the weighted loss lives in `train/losses.py`."""
         x_t = self.q_sample(x_start, t, noise)
         if inpaint is not None:
             if self.model_mean_type != ModelMeanType.START_X:
                 raise ValueError("inpainting needs an x0-predicting model")
             x_t = torch.where(inpaint.mask, inpaint.motion, x_t)
         model_output = model_fn(x_t, self.model_timesteps(t))
-        target = (x_start if self.model_mean_type == ModelMeanType.START_X
-                  else noise)
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            target = self.q_posterior_mean_variance(x_start, x_t, t)[0]
+        elif self.model_mean_type == ModelMeanType.START_X:
+            target = x_start
+        else:
+            target = noise
         return model_output, target
 
     # -- reverse process -------------------------------------------------------
     def p_mean_variance(self, model_fn: Callable, x, t, *,
+                        clip_denoised: bool = False,
                         denoised_fn: Optional[Callable] = None,
                         inpaint: Optional[Inpaint] = None):
         """Model posterior p(x_{t-1} | x_t) plus the x0 prediction.
 
-        ``model_fn(x, model_ts) -> model_output``; ``denoised_fn(x0, t) -> x0``
-        is the correction hook.  Inpainting overwrites the model output.
+        ``model_fn(x, model_ts) -> model_output`` (x0, eps or x_{t-1}; with
+        a learned variance the channel axis 1 carries [prediction,
+        variance values]); ``denoised_fn(x0, t) -> x0`` is the correction
+        hook, ``clip_denoised`` clips x0 to [-1, 1] after it.  Inpainting
+        overwrites the model output.
         """
         nd = x.ndim
         model_output = model_fn(x, self.model_timesteps(t))
@@ -231,7 +276,21 @@ class GaussianDiffusion:
             model_output = torch.where(inpaint.mask, inpaint.motion,
                                        model_output)
 
-        if self.model_var_type == ModelVarType.FIXED_SMALL:
+        if self.model_var_type in (ModelVarType.LEARNED,
+                                   ModelVarType.LEARNED_RANGE):
+            C = x.shape[1]
+            model_output, var_values = model_output[:, :C], \
+                model_output[:, C:]
+            if self.model_var_type == ModelVarType.LEARNED:
+                model_log_variance = var_values
+            else:
+                min_log = _extract(self.posterior_log_variance_clipped, t,
+                                   nd)
+                max_log = _extract(torch.log(self.betas), t, nd)
+                frac = (var_values + 1) / 2
+                model_log_variance = frac * max_log + (1 - frac) * min_log
+            model_variance = torch.exp(model_log_variance)
+        elif self.model_var_type == ModelVarType.FIXED_SMALL:
             model_variance = _extract(self.posterior_variance, t, nd)
             model_log_variance = _extract(self.posterior_log_variance_clipped,
                                           t, nd)
@@ -239,30 +298,71 @@ class GaussianDiffusion:
             model_variance = _extract(self.fixed_large_variance, t, nd)
             model_log_variance = _extract(self.fixed_large_log_variance, t, nd)
 
-        if self.model_mean_type == ModelMeanType.START_X:
-            pred_xstart = model_output
+        def process_xstart(x0):
+            if denoised_fn is not None:
+                x0 = denoised_fn(x0, t)
+            return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+
+        if self.model_mean_type == ModelMeanType.PREVIOUS_X:
+            pred_xstart = process_xstart(
+                self.predict_xstart_from_xprev(x, t, model_output))
+            model_mean = model_output
         else:
-            pred_xstart = self.predict_xstart_from_eps(x, t, model_output)
-        if denoised_fn is not None:
-            pred_xstart = denoised_fn(pred_xstart, t)
-        model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x, t)
+            if self.model_mean_type == ModelMeanType.START_X:
+                pred_xstart = process_xstart(model_output)
+            else:
+                pred_xstart = process_xstart(
+                    self.predict_xstart_from_eps(x, t, model_output))
+            model_mean, _, _ = self.q_posterior_mean_variance(pred_xstart, x,
+                                                              t)
         return {"mean": model_mean, "variance": model_variance,
                 "log_variance": model_log_variance,
                 "pred_xstart": pred_xstart}
 
+    # -- classifier guidance ------------------------------------------------
+    def condition_mean(self, cond_fn, p_mean_var, x, t):
+        """Sohl-Dickstein-style mean shift (`gaussian_diffusion.py:418-431`):
+        the mean plus the variance times ``cond_fn(x, model_ts)``."""
+        gradient = cond_fn(x, self.model_timesteps(t))
+        return p_mean_var["mean"] + p_mean_var["variance"] * gradient
+
+    def condition_score(self, cond_fn, p_mean_var, x, t):
+        """Song-style score conditioning (`gaussian_diffusion.py:448-470`):
+        eps shifted by sqrt(1 - alpha_bar) times the gradient, x0 and the
+        mean formed again from it."""
+        nd = x.ndim
+        alpha_bar = _extract(self.alphas_cumprod, t, nd)
+        eps = self.predict_eps_from_xstart(x, t, p_mean_var["pred_xstart"])
+        eps = eps - torch.sqrt(1 - alpha_bar) * cond_fn(
+            x, self.model_timesteps(t))
+        out = dict(p_mean_var)
+        out["pred_xstart"] = self.predict_xstart_from_eps(x, t, eps)
+        out["mean"], _, _ = self.q_posterior_mean_variance(
+            out["pred_xstart"], x, t)
+        return out
+
     def p_sample(self, model_fn, x, t, *, noise=None, generator=None,
-                 denoised_fn=None, inpaint=None):
+                 clip_denoised=False, denoised_fn=None, cond_fn=None,
+                 inpaint=None, const_noise=False):
         """One ancestral step.  ``noise`` overrides the draw from
-        ``generator``; at t = 0 no noise is added."""
-        out = self.p_mean_variance(model_fn, x, t, denoised_fn=denoised_fn,
-                                   inpaint=inpaint)
+        ``generator``; ``const_noise`` gives every row the first row's
+        noise; ``cond_fn`` shifts the mean (`condition_mean`); at t = 0 no
+        noise is added."""
+        out = self.p_mean_variance(model_fn, x, t,
+                                   clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn, inpaint=inpaint)
         if noise is None:
             noise = torch.randn(x.shape, generator=generator, device=x.device,
                                 dtype=x.dtype)
+        if const_noise:
+            noise = noise[:1].expand(noise.shape)
         nonzero_mask = (t != 0).to(x.dtype).reshape(
             (-1,) + (1,) * (x.ndim - 1))
-        sample = (out["mean"]
-                  + nonzero_mask * torch.exp(0.5 * out["log_variance"]) * noise)
+        mean = out["mean"]
+        if cond_fn is not None:
+            mean = self.condition_mean(cond_fn, out, x, t)
+        sample = mean + nonzero_mask * torch.exp(0.5 * out["log_variance"]) \
+            * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
     def _initial(self, shape, noise, generator, inpaint):
@@ -278,9 +378,11 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def p_sample_loop(self, model_fn, shape=None, *, noise=None,
-                      step_noise=None, generator=None, denoised_fn=None,
-                      inpaint: Optional[Inpaint] = None):
-        """The full reverse process, t = T-1 .. 0.
+                      step_noise=None, generator=None, clip_denoised=False,
+                      denoised_fn=None, cond_fn=None,
+                      inpaint: Optional[Inpaint] = None, const_noise=False,
+                      skip_timesteps: int = 0, init_image=None):
+        """The full reverse process, t = T-1 .. ``skip_timesteps``.
 
         A ``denoised_fn(x0, t)`` that also takes a keyword ``step`` is handed
         the loop's own index as a Python int, so that a hook which fires on
@@ -289,28 +391,43 @@ class GaussianDiffusion:
 
         With explicit ``noise`` the initial inpainting overwrite is skipped
         (the eval harnesses pass explicit noise); with noise drawn here it
-        is applied.  ``step_noise`` [num_timesteps, *shape] replaces the
-        per-step draws, first row for t = T-1.
+        is applied.  ``step_noise`` [steps, *shape] replaces the per-step
+        draws, first row for the first step.  ``skip_timesteps`` stops the
+        chain early at t = skip (the reference DDPM loop's semantics); with
+        it or with ``init_image`` the first image is ``q_sample(init_image,
+        T-1, initial noise)``, the start image zeros when not given.
         """
         img = self._initial(shape, noise, generator, inpaint)
         B = img.shape[0]
+        first = self.num_timesteps - 1
+        if init_image is None and skip_timesteps:
+            init_image = torch.zeros_like(img)
+        if init_image is not None:
+            img = self.q_sample(init_image, torch.full(
+                (B,), first, dtype=torch.int64, device=img.device), img)
         hook_at = _step_hook(denoised_fn)
-        for n, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
+        for n, i in enumerate(range(first, skip_timesteps - 1, -1)):
             t = torch.full((B,), i, dtype=torch.int64, device=img.device)
             img = self.p_sample(
                 model_fn, img, t,
                 noise=None if step_noise is None else step_noise[n],
-                generator=generator, denoised_fn=hook_at(i),
-                inpaint=inpaint)["sample"]
+                generator=generator, clip_denoised=clip_denoised,
+                denoised_fn=hook_at(i), cond_fn=cond_fn, inpaint=inpaint,
+                const_noise=const_noise)["sample"]
         return img
 
     # -- DDIM -------------------------------------------------------------------
     def ddim_sample(self, model_fn, x, t, *, generator=None,
-                    denoised_fn=None, inpaint=None, eta: float = 0.0):
+                    clip_denoised=False, denoised_fn=None, cond_fn=None,
+                    inpaint=None, eta: float = 0.0):
         """One DDIM step (`interdiff_tpu/diffusion/gaussian.py:405-422`);
-        with ``eta`` = 0 it is deterministic and draws nothing."""
-        out = self.p_mean_variance(model_fn, x, t, denoised_fn=denoised_fn,
-                                   inpaint=inpaint)
+        with ``eta`` = 0 it is deterministic and draws nothing; ``cond_fn``
+        conditions the score (`condition_score`)."""
+        out = self.p_mean_variance(model_fn, x, t,
+                                   clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn, inpaint=inpaint)
+        if cond_fn is not None:
+            out = self.condition_score(cond_fn, out, x, t)
         nd = x.ndim
         eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
         alpha_bar = _extract(self.alphas_cumprod, t, nd)
@@ -330,7 +447,8 @@ class GaussianDiffusion:
 
     @torch.no_grad()
     def ddim_sample_loop(self, model_fn, shape=None, *, noise=None,
-                         generator=None, denoised_fn=None,
+                         generator=None, clip_denoised=False,
+                         denoised_fn=None, cond_fn=None,
                          inpaint: Optional[Inpaint] = None,
                          eta: float = 0.0):
         """DDIM sampling, t = T-1 .. 0; ``noise``, ``inpaint`` and the
@@ -341,14 +459,30 @@ class GaussianDiffusion:
         for i in range(self.num_timesteps - 1, -1, -1):
             t = torch.full((B,), i, dtype=torch.int64, device=img.device)
             img = self.ddim_sample(model_fn, img, t, generator=generator,
-                                   denoised_fn=hook_at(i), inpaint=inpaint,
-                                   eta=eta)["sample"]
+                                   clip_denoised=clip_denoised,
+                                   denoised_fn=hook_at(i), cond_fn=cond_fn,
+                                   inpaint=inpaint, eta=eta)["sample"]
         return img
+
+    def ddim_reverse_sample(self, model_fn, x, t, *, clip_denoised=False,
+                            denoised_fn=None):
+        """Deterministic encoding x_t -> x_{t+1} (the DDIM ODE run forward,
+        `gaussian_diffusion.py:847-884`, eta 0)."""
+        out = self.p_mean_variance(model_fn, x, t,
+                                   clip_denoised=clip_denoised,
+                                   denoised_fn=denoised_fn)
+        nd = x.ndim
+        eps = self.predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = _extract(self.alphas_cumprod_next, t, nd)
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                     + torch.sqrt(1 - alpha_bar_next) * eps)
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
 
     # -- PLMS (pseudo linear multistep) -----------------------------------------
     @torch.no_grad()
     def plms_sample_loop(self, model_fn, shape=None, *, noise=None,
-                         generator=None, denoised_fn=None,
+                         generator=None, clip_denoised=False,
+                         denoised_fn=None,
                          inpaint: Optional[Inpaint] = None, order: int = 2):
         """PLMS sampling (`interdiff_tpu/diffusion/gaussian.py:466-543`).
 
@@ -366,6 +500,7 @@ class GaussianDiffusion:
 
         def model_eps(x, t, step):
             out = self.p_mean_variance(model_fn, x, t,
+                                       clip_denoised=clip_denoised,
                                        denoised_fn=hook_at(step),
                                        inpaint=inpaint)
             return (self.predict_eps_from_xstart(x, t, out["pred_xstart"]),
@@ -406,6 +541,65 @@ class GaussianDiffusion:
             if order > 1:
                 hist = [eps] + hist[:order - 2]
         return img
+
+    # -- variational bound (diagnostics) ----------------------------------------
+    def vb_terms_bpd(self, model_fn, x_start, x_t, t, *,
+                     clip_denoised=False):
+        """One term of the variational bound in bits per dimension, [B]:
+        KL(q(x_{t-1} | x_t, x_0) || p(x_{t-1} | x_t)), or at t = 0 the
+        decoder's negative log-likelihood; and the x0 prediction."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(
+            x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t,
+                                   clip_denoised=clip_denoised)
+        kl = mean_flat(normal_kl(true_mean, true_log_var, out["mean"],
+                                 out["log_variance"])) / math.log(2.0)
+        decoder_nll = mean_flat(-discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"],
+            log_scales=0.5 * out["log_variance"])) / math.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl),
+                "pred_xstart": out["pred_xstart"]}
+
+    def prior_bpd(self, x_start):
+        """Prior KL term of the bound in bits per dimension, [B]
+        (`gaussian_diffusion.py:1535-1551`)."""
+        t = torch.full((x_start.shape[0],), self.num_timesteps - 1,
+                       dtype=torch.int64, device=x_start.device)
+        qt_mean, _, qt_log_variance = self.q_mean_variance(x_start, t)
+        return mean_flat(normal_kl(qt_mean, qt_log_variance, 0.0, 0.0)) \
+            / math.log(2.0)
+
+    @torch.no_grad()
+    def calc_bpd_loop(self, model_fn, x_start, *, generator=None,
+                      step_noise=None, clip_denoised=False):
+        """The whole variational bound (`gaussian_diffusion.py:1553-1609`):
+        one model call per timestep, t = T-1 .. 0, on a fresh ``q_sample``.
+        Returns ``{total_bpd [B], prior_bpd [B], vb [B,T], xstart_mse [B,T],
+        mse [B,T]}``, column ``j`` of the per-step tensors holding timestep
+        ``T-1-j``.  The noise comes from ``step_noise`` [T, *x_start.shape]
+        (ordered t = T-1 .. 0) or from ``generator``; one of them is
+        needed."""
+        if step_noise is None and generator is None:
+            raise ValueError("calc_bpd_loop needs `generator` or `step_noise`")
+        B = x_start.shape[0]
+        vb, xstart_mse, mse = [], [], []
+        for j, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((B,), i, dtype=torch.int64, device=x_start.device)
+            noise = step_noise[j] if step_noise is not None else torch.randn(
+                x_start.shape, generator=generator, device=x_start.device,
+                dtype=x_start.dtype)
+            x_t = self.q_sample(x_start, t, noise)
+            out = self.vb_terms_bpd(model_fn, x_start, x_t, t,
+                                    clip_denoised=clip_denoised)
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            eps = self.predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            mse.append(mean_flat((eps - noise) ** 2))
+        vb = torch.stack(vb, dim=1)
+        prior = self.prior_bpd(x_start)
+        return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior,
+                "vb": vb, "xstart_mse": torch.stack(xstart_mse, dim=1),
+                "mse": torch.stack(mse, dim=1)}
 
 
 def _step_hook(denoised_fn: Optional[Callable]) -> Callable:

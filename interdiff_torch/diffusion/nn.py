@@ -5,7 +5,8 @@
 * ``update_ema``, ``zero_params``, ``scale_params``: over the tensors of a
   parameter collection, a name -> tensor mapping (a state dict, the
   trainer's ``params``) or a sequence of tensors, updated in place;
-* ``mean_flat``, ``sum_flat``: reductions over every axis but the batch's.
+* ``mean_flat``, ``sum_flat``: reductions over every axis but the batch's,
+  re-exported from `diffusion/losses.py` as the JAX package's module does.
 
 Gradient checkpointing (`jax.checkpoint` there) has no user in the port.
 """
@@ -17,21 +18,13 @@ from typing import Iterable, List, Mapping, Union
 
 import torch
 
+from interdiff_torch.diffusion.losses import mean_flat, sum_flat  # noqa: F401
+
 Params = Union[Mapping[str, torch.Tensor], Iterable[torch.Tensor]]
 
 
 def _tensors(params: Params) -> List[torch.Tensor]:
     return list(params.values() if isinstance(params, Mapping) else params)
-
-
-def mean_flat(tensor: torch.Tensor) -> torch.Tensor:
-    """Mean over all non-batch axes."""
-    return tensor.mean(dim=tuple(range(1, tensor.ndim)))
-
-
-def sum_flat(tensor: torch.Tensor) -> torch.Tensor:
-    """Sum over all non-batch axes."""
-    return tensor.sum(dim=tuple(range(1, tensor.ndim)))
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,

@@ -6,7 +6,8 @@ as its SMPLH pkls: `eval_smpl_short`, `train_diffusion_smpl`,
 stand-in body of ``--synthetic_body``), `optimization` (ground-truth clips,
 and generate-then-refine) and `eval_smpl_long`, each through `main`; the
 long eval's synthetic route writes 60-frame rollouts and a 2-window
-`drift_metrics.json`; the flags still unported stop with a clear error."""
+`drift_metrics.json`; the flags still unported, a missing object mesh and
+a negative render interval stop with a clear error."""
 
 import json
 import os
@@ -128,16 +129,16 @@ def test_eval_long_synthetic_route(tmp_path):
 
 
 @pytest.mark.parametrize("module,argv,message", [
-    (eval_smpl_short, ["--synthetic", "1", "--render_dir", "x"],
-     "rendering is not ported yet"),
+    (eval_smpl_short, ["--synthetic", "1", "--render_dir", "x",
+                       "--obj_mesh", "x.stl"], "not an .obj or .ply file"),
     (eval_smpl_short, ["--synthetic", "1", "--obj_mesh", "x.ply"],
-     "rendering is not ported yet"),
-    (eval_smpl_long, ["--synthetic", "1", "--render_dir", "x"],
-     "rendering is not ported yet"),
+     "no such file"),
+    (eval_smpl_long, ["--synthetic", "1", "--render_dir", "x",
+                      "--obj_mesh", "x.stl"], "not an .obj or .ply file"),
     (eval_smpl_long, ["--synthetic", "1", "--obj_mesh", "x.ply"],
-     "rendering is not ported yet"),
-    (train_correction_smpl, ["--synthetic", "1", "--render_interval", "1"],
-     "validation renders are not ported yet"),
+     "no such file"),
+    (train_correction_smpl, ["--synthetic", "1", "--render_interval", "-1"],
+     "--render_interval must be 0 or more"),
     (optimization, ["--synthetic", "1", "--dispatch_chunk", "2"],
      "no bounded dispatches"),
     (eval_smpl_long, ["--synthetic", "1", "--motion_path", "x"],

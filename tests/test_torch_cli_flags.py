@@ -12,13 +12,13 @@ import pytest
 pytest.importorskip("torch")
 
 # flags of the JAX package that the port's parser does not know yet; ROADMAP
-# Queue 1 names each (item 16, rendering; item 19, data parallel)
+# Queue 1 names each (item 19, data parallel)
 TO_PORT = {
     "eval_smpl_short": {"--mesh_devices"},
     "eval_smpl_long": set(),
-    "eval_skeleton": {"--mesh_devices", "--render_dir"},
-    "train_diffusion_smpl": {"--render_interval"},
-    "train_diffusion_skeleton": {"--render_interval"},
+    "eval_skeleton": {"--mesh_devices"},
+    "train_diffusion_smpl": set(),
+    "train_diffusion_skeleton": set(),
     "train_correction_smpl": set(),
     "train_correction_skeleton": set(),
     "optimization": set(),
@@ -34,12 +34,10 @@ PORT_ONLY["train_correction_smpl"] |= {"--synthetic_points",
 PORT_ONLY["convert_checkpoint"] = set()
 # shared flags whose defaults differ: the JAX package defaults the
 # correction checkpoint to a path of the reference's checkout, which the
-# port does not carry (a path or nothing); --render_interval is known to the
-# port's parser only to be refused until the render slice
+# port does not carry (a path or nothing)
 DEFAULTS_DIFFER = {("eval_smpl_short", "--correction_ckpt"),
                    ("eval_smpl_long", "--correction_ckpt"),
-                   ("eval_skeleton", "--correction_ckpt"),
-                   ("train_correction_smpl", "--render_interval")}
+                   ("eval_skeleton", "--correction_ckpt")}
 
 
 class _Captured(Exception):

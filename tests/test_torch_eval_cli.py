@@ -135,7 +135,7 @@ def test_default_device_stops_without_cuda(monkeypatch):
     ["--device", "cpu"],  # no --synthetic: real data is not ported
     ["--synthetic", "1", "--motion_path", "x"],
     ["--synthetic", "1", "--mesh_devices", "2"],
-    ["--synthetic", "1", "--render_dir", "x"],
+    ["--synthetic", "1", "--render_dir", "x", "--obj_mesh", "missing.ply"],
     ["--synthetic", "1", "--sampler", "euler"],
 ])
 def test_flag_checks(argv):

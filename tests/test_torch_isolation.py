@@ -50,7 +50,10 @@ def test_port_imports_no_jax():
                    "eval.smpl_long", "cli.eval_smpl_long",
                    "geometry.mesh_losses", "utils.prefetch",
                    "utils.profiling", "utils.checkpoint",
-                   "cli.convert_checkpoint"):
+                   "cli.convert_checkpoint", "data.mesh_io",
+                   "data.prepare_behave", "ops.mesh_distance",
+                   "utils.native", "viz.render3d", "viz.mesh_viz",
+                   "viz.skeleton_viz", "diffusion.losses"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 

@@ -145,8 +145,15 @@ def test_loss_aware_sampler_and_resume(tmp_path, capsys):
 
 
 def test_flags_of_unported_routes_are_unknown(tmp_path):
+    # data parallel (--mesh_devices) is not ported; the validation renders
+    # are, and a negative interval stops
     with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["--render_interval", "1"])
+        cli.build_parser().parse_args(["--mesh_devices", "2"])
+    assert cli.build_parser().parse_args(
+        ["--render_interval", "2"]).render_interval == 2
+    with pytest.raises(SystemExit):
+        cli.main(["--device", "cpu", "--synthetic", "1", "--render_interval",
+                  "-1", "--results_dir", str(tmp_path)])
     # the linear object encoder is ported
     assert cli.build_parser().parse_args(
         ["--use_pointnet2", "0"]).use_pointnet2 == 0
