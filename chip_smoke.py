@@ -237,13 +237,31 @@ Phases, each printing JSON lines (any failure exits non-zero):
    ``init_image`` (ms a step); the small MDM's bound at "20" and a skipped,
    inpainted, guided trajectory on the card against the CPU (1e-5 and
    1e-4).
+22. data_parallel: at one rank with NCCL on the card (a process group of
+   one), `train/trainer.py::data_parallel_step` of the four train steps at
+   full width, 3 dispatches each (SMPL with the EMA shadow, SMPL under
+   bn_train_mode, SMPL with the loss-second-moment resampler and 2 steps a
+   dispatch, skeleton, SMPL correction on the V=6890 body, skeleton
+   correction) against the same step without a mesh (loss 1e-5, 1e-4
+   under bn_train_mode, whose statistics then come from all-reduced sums;
+   weights within 2 * steps * lr; the resampler's state equal), ms per
+   dispatch with and without the mesh (in turns), launches per rank (K1 2
+   a SMPL step, K3 = K4 = 1 a SMPL correction step); `eval_smpl_short.main`
+   with ``--mesh_devices 1`` against ``0`` (32 clips, 2 diverse samples, "100"
+   respacing: the same metrics and launches).  Then two ranks spawned on
+   the one card, gloo on CUDA tensors (`_dp_rank`): the same steps at
+   small widths on batches whose halves differ, held to one rank on the
+   global batches, the weights bitwise equal on both ranks; both evals at
+   ``--mesh_devices 2`` within DP_METRIC_TOL of ``--mesh_devices 1``, with
+   each rank's launches equal to one rank's.
 
 Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
 its own, beside the skeleton paths' zeros, the correction trainers',
 the refiner's, the dataset routes', the long-term eval's, the train
 options' (none on the linear encoder's), the checkpoint route's, the
-preprocessing's (none) and the render paths'; K6's of its
+preprocessing's (none), the render paths' and the data-parallel step's
+and eval's at one rank; K6's of its
 opt-in routes, K5's of the backward with
 respect to the cloud; K3 and K4 also at this slice's shapes), and the
 device line.  Weights and data come from numpy seeds;
@@ -5252,6 +5270,402 @@ def phase_diffusion_math(models, gpu: str) -> None:
         raise AssertionError(f"diffusion_math: {line}")
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (`parallel/mesh.py`, `train/trainer.py::data_parallel_step`)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+DP_CASES = ("smpl_ema", "smpl_bn_train_mode", "smpl_loss_second_moment_spd2",
+            "skeleton", "correction_smpl", "correction_skeleton")
+# the world-2 part's global batches: 4 clips (2 a rank), small widths
+DP_SMALL_CLIPS = 4
+# the evals through their flags: at one rank the full-width denoiser on a
+# batch of 32 clips, 2 diverse samples folded (64 rows), "100" respacing;
+# at two ranks (and the one rank they are held to) 4 clips, "10" respacing
+DP_EVAL_SMPL = ["--synthetic", "1", "--batch_size", str(CLIPS),
+                "--diverse_samples", "2", "--respacing", "100"]
+DP_EVAL_SMPL_SMALL = ["--synthetic", "1", "--batch_size", "4",
+                      "--diverse_samples", "2", "--respacing", "10"]
+DP_EVAL_SKEL_SMALL = ["--synthetic", "1", "--batch_size", "4",
+                      "--respacing", "10", "--rollouts", "1"]
+DP_METRIC_TOL = 1e-4
+# two ranks against one under bn_train_mode: the encoder's statistics come
+# from all-reduced sums at two ranks and from means at one, and that step is
+# ill-conditioned in float32 at small batches (`tests/test_torch_trainer.py`
+# holds its metrics to 1e-4 against a float64 step); the card gave a loss
+# 9.06e-6 apart on an NVIDIA H100 80GB HBM3 at 700 W
+DP_BN_LOSS_TOL = 1e-4
+DP_METRIC_TOL_REASON = ("each rank samples its rows with the noise rows of "
+                        "one rank's draw, so a row's sample differs only by "
+                        "the card's summation order at another batch size; "
+                        "the gather is exact")
+
+
+def _dp_objects(case: str, device, small: bool, body, seed: int):
+    """(state, raw step, global batches, extras, batch axis) of one case of
+    the data_parallel phase, from seeded weights; ``small``: the widths of
+    the CPU tests and batches whose halves differ (so that a rank's own
+    statistics would show), else the CLIs' defaults."""
+    from interdiff_torch.config import SmplTrackConfig
+    from interdiff_torch.diffusion.resample import LossSecondMomentResampler
+    from interdiff_torch.models.correction import (
+        ObjProjectorSkeleton,
+        ObjProjectorSmpl,
+    )
+    from interdiff_torch.train import trainer
+
+    rng = np.random.default_rng(seed)
+    n = DP_SMALL_CLIPS if small else None
+
+    def halves(batch, key, scale):
+        """The second half's positions scaled (its statistics differ)."""
+        if small:
+            h = batch[key].shape[0] // 2
+            batch[key][h:, ..., :3] = batch[key][h:, ..., :3] * scale
+        return batch
+
+    if case.startswith("smpl"):
+        model = SmplTrackConfig(**SMALL).build_model(device) if small \
+            else _train_model(SEED + 60).to(device)
+        if small:
+            model.load_state_dict(seeded_state(model, SEED + 60),
+                                  strict=True)
+        diffusion = SmplTrackConfig().diffusion.build(device)
+        spd = 2 if case.endswith("spd2") else 1
+        batches = []
+        for _ in range(DP_STEPS):
+            stack = []
+            for _ in range(spd):
+                b = _main_path_batch(rng, n or CLIPS, FRAMES, 64 if small
+                                     else POINTS)
+                b = {k: b[k] for k in TRAIN_KEYS}
+                stack.append(halves(b, "obj_points", 1.6))
+            batches.append(stack[0] if spd == 1 else {
+                k: np.stack([b[k] for b in stack]) for k in TRAIN_KEYS})
+        bn = case == "smpl_bn_train_mode"
+        sampler, sampler_state = "uniform", None
+        if case.startswith("smpl_loss"):
+            sampler = LossSecondMomentResampler(diffusion.num_timesteps)
+            sampler_state = sampler.init_state()
+        params, ms = (trainer.split_bn_state(model) if bn else
+                      (dict(model.named_parameters()), None))
+        state = trainer.TrainState.create(
+            params, trainer.adamw(TRAIN_LR), sampler_state=sampler_state,
+            ema_rate=0.999 if case == "smpl_ema" else 0.0, model_state=ms)
+        step = trainer.make_smpl_train_step(model, diffusion,
+                                            schedule_sampler=sampler,
+                                            bn_train_mode=bn)
+        if spd > 1:
+            step = trainer.chain_steps(step)
+        return state, step, batches, (), 1 if spd > 1 else 0, model
+    if case == "skeleton":
+        model, _ = _skeleton_models(device, small, seed=SEED + 61)
+        from interdiff_torch.config import SkeletonTrackConfig
+
+        diffusion = SkeletonTrackConfig().diffusion.build(device)
+        batches = [halves(_skeleton_batch(rng, n or SKEL_CLIPS), "skeleton",
+                          2.0) for _ in range(DP_STEPS)]
+        state = trainer.TrainState.create(dict(model.named_parameters()),
+                                          trainer.adamw(TRAIN_LR))
+        return (state, trainer.make_skeleton_train_step(model, diffusion),
+                batches, (), 0, model)
+    if case == "correction_smpl":
+        proj = ObjProjectorSmpl(past_len=CORR_PAST, future_len=CORR_FUTURE,
+                                device=device)
+        proj.load_state_dict(seeded_state(proj, SEED + 62), strict=True)
+        batches = [halves(correction_batch(
+            rng, body, n or CORR_CLIPS, CORR_PAST + CORR_FUTURE,
+            64 if small else POINTS), "human_verts", 1.3)
+            for _ in range(DP_STEPS)]
+        step = trainer.make_correction_smpl_train_step(proj)
+    else:
+        proj = ObjProjectorSkeleton(past_len=SKEL_PAST, future_len=SKEL_PAST,
+                                    device=device)
+        proj.load_state_dict(seeded_state(proj, SEED + 63), strict=True)
+        batches = [{k: v for k, v in halves(_skeleton_batch(
+            rng, n or CORR_SKEL_CLIPS), "skeleton", 2.0).items()
+            if k in ("skeleton", "poses")} for _ in range(DP_STEPS)]
+        step = trainer.make_correction_skeleton_train_step(proj)
+    state = trainer.CorrectionTrainState.create(proj, trainer.adam(CORR_LR))
+    return state, step, batches, (20.0,), 0, proj
+
+
+def _dp_run(case: str, device, mesh, *, small: bool, body,
+            seed: int = SEED + 64, timed: bool = False) -> dict:
+    """DP_STEPS dispatches of one case: through `data_parallel_step` on
+    ``mesh`` (each rank its rows of the global batches), or the raw step on
+    the whole batches without one.  Returns the losses, the weights (CPU),
+    the resampler's state, and with ``timed`` the ms of each dispatch after
+    the first (CUDA events), and the kernels' launches in the steps."""
+    from interdiff_torch.ops import group, nn, sa
+    from interdiff_torch.train.trainer import data_parallel_step
+    from interdiff_torch.utils.prefetch import place_batch
+
+    state, step, batches, extras, axis, module = _dp_objects(
+        case, device, small, body, seed)
+    _reset_launches(group, nn, sa)  # the batches' own labels launched K4
+    if mesh is not None:
+        step = data_parallel_step(step, mesh, extra_args=1 + len(extras),
+                                  batch_axis=axis)
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    losses, events = [], []
+    for batch in batches:
+        placed = (step.place_batch(batch) if mesh is not None
+                  else place_batch(batch, device))
+        if timed:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        state, metrics = step(state, placed, generator, *extras)
+        losses += [float(v) for v in metrics["loss"].reshape(-1)]
+    out = {"losses": losses, "launches": _read_launches(group, nn, sa),
+           "weights": {k: v.detach().cpu().clone()
+                       for k, v in module.state_dict().items()}}
+    if timed:
+        events.append(torch.cuda.Event(enable_timing=True))
+        events[-1].record()
+        events[-1].synchronize()
+        out["ms"] = [a.elapsed_time(b) for a, b in zip(events[1:-1],
+                                                        events[2:])]
+    if getattr(state, "sampler_state", None) is not None:
+        out["sampler"] = (state.sampler_state.loss_counts.clone(),
+                          state.sampler_state.loss_history.clone())
+    return out
+
+
+def _dp_compare(name: str, got: dict, want: dict, loss_tol: float, *,
+                exact_sampler: bool = True) -> dict:
+    """Losses within ``loss_tol``; every weight within 2 * steps * lr and
+    their mean difference within lr / 100 (Adam turns a gradient that is
+    rounding noise into a step of up to lr); the resampler's state equal
+    (``exact_sampler``), or its counts equal and its history within 1e-5
+    (two ranks: each row's loss rounds at another batch size)."""
+    steps = len(want["losses"])
+    loss_err = max(abs(a - b) for a, b in zip(got["losses"],
+                                              want["losses"]))
+    diffs = torch.cat([(got["weights"][k] - want["weights"][k]).abs()
+                       .flatten() for k in want["weights"]])
+    rec = {"case": name, "steps": steps, "loss_max_abs_err": loss_err,
+           "loss_tolerance": loss_tol,
+           "param_max_abs_diff": float(diffs.max()),
+           "param_tolerance": 2 * steps * TRAIN_LR,
+           "param_mean_abs_diff": float(diffs.mean())}
+    sampler_equal = True
+    if "sampler" in want:
+        counts, hist = got["sampler"]
+        sampler_equal = torch.equal(counts, want["sampler"][0]) and (
+            torch.equal(hist, want["sampler"][1]) if exact_sampler else
+            bool(torch.allclose(hist, want["sampler"][1], atol=1e-5,
+                                rtol=1e-5)))
+        rec["sampler_state_equal" if exact_sampler
+            else "sampler_counts_equal_history_within_1e-5"] = sampler_equal
+    if not (loss_err <= loss_tol and float(diffs.max()) <= 2 * steps
+            * TRAIN_LR and float(diffs.mean()) <= TRAIN_LR / 100
+            and sampler_equal and np.isfinite(got["losses"]).all()):
+        raise AssertionError(f"data_parallel {name}: {rec}")
+    return rec
+
+
+# the launches of one dispatch on a rank, by case: K1 twice a SMPL step's
+# encode, K3 and K4 once a SMPL correction step; nothing else
+DP_STEP_LAUNCHES = {
+    "smpl_ema": {"K1": 2}, "smpl_bn_train_mode": {"K1": 2},
+    "smpl_loss_second_moment_spd2": {"K1": 4}, "skeleton": {},
+    "correction_smpl": {"K3": 1, "K4": 1}, "correction_skeleton": {}}
+
+
+def _dp_want_launches(case: str) -> dict:
+    return {**NO_LAUNCHES, **{k: v * DP_STEPS for k, v in
+                              DP_STEP_LAUNCHES[case].items()}}
+
+
+def _dp_eval(cli, argv, group, nn, sa, run_args=None):
+    """One eval through its flags (``main``; or, with ``run_args``, the
+    per-rank ``run`` of already parsed flags) -> (totals, launches)."""
+    _reset_launches(group, nn, sa)
+    if run_args is None:
+        totals, n = cli.main(["--device", DEV] + argv)
+    else:
+        totals, n = cli.run(run_args, run_args.device)
+    if n != 1 or not all(np.isfinite(v) for v in totals.values()):
+        raise AssertionError(f"eval {argv}: {totals}, {n} batches")
+    return totals, _read_launches(group, nn, sa)
+
+
+def _dp_rank(device: str, body_seed: int) -> dict:
+    """One of the two ranks of the data_parallel phase (both on the one
+    card, gloo on CUDA tensors): every case at the small widths through
+    `data_parallel_step` on its rows, and rank 0 again at one rank on the
+    global batches; then both evals at ``--mesh_devices 2``.  Each rank's
+    kernel launches by path."""
+    from interdiff_torch.cli import eval_skeleton, eval_smpl_short
+    from interdiff_torch.config import build_smpl_body
+    from interdiff_torch.ops import group, nn, sa
+    from interdiff_torch.parallel.mesh import DataMesh, make_mesh
+
+    mesh = make_mesh(device=device)
+    body = build_smpl_body(seed=body_seed, num_verts=256,
+                           device=mesh.device)
+    out = {"rank": mesh.rank, "size": mesh.size, "cases": {},
+           "world1": {}, "launches": {}}
+    for case in DP_CASES:
+        out["cases"][case] = _dp_run(case, mesh.device, mesh, small=True,
+                                     body=body)
+        out["launches"][case] = out["cases"][case]["launches"]
+        if mesh.rank == 0:
+            out["world1"][case] = _dp_run(case, mesh.device,
+                                          DataMesh(0, 1, mesh.device),
+                                          small=True, body=body)
+    for name, cli, argv in (("eval_smpl_short", eval_smpl_short,
+                             DP_EVAL_SMPL_SMALL),
+                            ("eval_skeleton", eval_skeleton,
+                             DP_EVAL_SKEL_SMALL)):
+        args = cli.build_parser().parse_args(
+            ["--device", device] + argv + ["--mesh_devices", "2"])
+        out[name], out["launches"][name] = _dp_eval(cli, argv, group, nn, sa,
+                                                    run_args=args)
+    return out
+
+
+def phase_data_parallel(group, nn, sa, body, gpu: str) -> dict:
+    """Data parallelism.  At one rank with NCCL on the card, through
+    `data_parallel_step` on a mesh of the process group: the four train
+    steps at full width, 3 dispatches each (SMPL with the EMA shadow, SMPL
+    under bn_train_mode, SMPL with the loss-second-moment resampler and 2
+    steps a dispatch, the skeleton step, the SMPL correction step on the
+    V=6890 body, the skeleton correction step), each held to the same
+    step without a mesh (loss 1e-5; weights within 2 * steps * lr; the
+    resampler's state equal) with the ms per dispatch of both; and
+    `eval_smpl_short.main(... --mesh_devices 1)` held to ``--mesh_devices
+    0`` (the same metrics and launches); the ms per dispatch of the two
+    sides timed in turns (plain, mesh, mesh, plain; dispatches 2-3 of each
+    run).  Then two ranks on the one card
+    over gloo on CUDA tensors (`_dp_rank`): the same steps at small widths
+    on batches whose halves differ, held to one rank on the global
+    batches (loss 1e-5, DP_BN_LOSS_TOL under bn_train_mode), the weights
+    bitwise equal on both ranks; both evals at
+    ``--mesh_devices 2`` within DP_METRIC_TOL of ``--mesh_devices 1``; the
+    kernels' launches per rank.  Returns the launches by path of the
+    one-rank runs."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from interdiff_torch.cli import eval_skeleton, eval_smpl_short
+    from interdiff_torch.parallel.mesh import launch, make_mesh
+
+    common = {"phase": "data_parallel", "gpu": gpu}
+    by_path = {"data_parallel_train": dict(NO_LAUNCHES)}
+    with tempfile.TemporaryDirectory() as rdv:
+        dist.init_process_group(
+            "nccl" if DEV == "cuda" else "gloo",
+            init_method=f"file://{rdv}/rendezvous", world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=60))
+        try:
+            mesh = make_mesh(device=DEV)
+            # what one collective of the mesh costs at one rank: the
+            # BatchNorms of a train-mode step call one each way
+            probe = torch.zeros(64, device=DEV)
+            wall0 = time.perf_counter()
+            device_ms = cuda_ms(lambda: mesh.all_reduce_(probe), runs=50,
+                                warmup=5)
+            emit({**common, "world": 1, "backend": dist.get_backend(),
+                  "all_reduce_ms_device": device_ms,
+                  "all_reduce_ms_wall_each_synchronised":
+                  (time.perf_counter() - wall0) * 1e3 / 55,
+                  "elements": 64})
+            for case in DP_CASES:
+                # in turns, plain, mesh, mesh, plain: the host's drift
+                # falls on both sides alike
+                runs = [_dp_run(case, DEV, m, small=False, body=body,
+                                timed=True) for m in (None, mesh, mesh, None)]
+                plain, meshed = runs[0], runs[1]
+                ms_plain = runs[0]["ms"] + runs[3]["ms"]
+                ms_mesh = runs[1]["ms"] + runs[2]["ms"]
+                launched = meshed["launches"]
+                rec = _dp_compare(case, meshed, plain, 1e-5)
+                # the same step twice without a mesh: how far the card's
+                # own run-to-run spread (atomic adds in a backward) goes
+                again = _dp_compare(case, runs[3], plain, 1e-5)
+                emit({**common, "world": 1, "backend": dist.get_backend(),
+                      **rec, "plain_twice": {
+                          k: again[k] for k in (
+                              "loss_max_abs_err", "param_max_abs_diff",
+                              "param_mean_abs_diff")},
+                      "ms_per_dispatch_mesh": ms_mesh,
+                      "ms_per_dispatch_plain": ms_plain,
+                      "ms_mesh_median": statistics.median(ms_mesh),
+                      "ms_plain_median": statistics.median(ms_plain),
+                      "launches": launched})
+                if launched != _dp_want_launches(case) or \
+                        plain["launches"] != launched:
+                    raise AssertionError(f"{case} at one rank launched "
+                                         f"{launched}")
+                for k, v in launched.items():
+                    by_path["data_parallel_train"][k] += v
+            none, none_l = _dp_eval(eval_smpl_short, DP_EVAL_SMPL
+                                    + ["--mesh_devices", "0"], group, nn, sa)
+            one, one_l = _dp_eval(eval_smpl_short, DP_EVAL_SMPL
+                                  + ["--mesh_devices", "1"], group, nn, sa)
+            err = max(abs(one[k] - none[k]) for k in none)
+            emit({**common, "world": 1, "entry": "eval_smpl_short.main",
+                  "argv": DP_EVAL_SMPL + ["--mesh_devices", "1"],
+                  "metrics": one, "max_abs_err_vs_no_mesh": err,
+                  "tolerance": 1e-5, "launches": one_l})
+            if err > 1e-5 or one_l != none_l or one_l["K1"] != 2 or min(
+                    one_l[k] for k in ("K2", "K3", "K4")) < 1:
+                raise AssertionError(f"eval at one rank: {one_l} vs "
+                                     f"{none_l}, err {err}")
+            by_path["data_parallel_eval"] = one_l
+            small = {name: _dp_eval(cli, argv + ["--mesh_devices", "1"],
+                                    group, nn, sa)
+                     for name, cli, argv in (
+                         ("eval_smpl_short", eval_smpl_short,
+                          DP_EVAL_SMPL_SMALL),
+                         ("eval_skeleton", eval_skeleton,
+                          DP_EVAL_SKEL_SMALL))}
+        finally:
+            dist.destroy_process_group()
+
+    t0 = time.perf_counter()
+    r0, r1 = launch(_dp_rank, 2, args=(DEV, SEED + 65), device=DEV,
+                    backend="gloo", timeout=600, collective_timeout=60)
+    wall = time.perf_counter() - t0
+    for case in DP_CASES:
+        rec = _dp_compare(case, r0["cases"][case], r0["world1"][case],
+                          DP_BN_LOSS_TOL if "bn" in case else 1e-5,
+                          exact_sampler=False)
+        for k, v in r0["cases"][case]["weights"].items():
+            if not torch.equal(r1["cases"][case]["weights"][k], v):
+                raise AssertionError(f"{case}: {k} differs between ranks")
+        if r0["cases"][case]["losses"] != r1["cases"][case]["losses"]:
+            raise AssertionError(f"{case}: the ranks' metrics differ")
+        want = _dp_want_launches(case)
+        if r0["launches"][case] != want or r1["launches"][case] != want:
+            raise AssertionError(f"{case} at two ranks launched "
+                                 f"{r0['launches'][case]}, "
+                                 f"{r1['launches'][case]}")
+        emit({**common, "world": 2, "backend": "gloo (CUDA tensors)",
+              **rec, "ranks_bitwise_equal": True,
+              "launches_per_rank": r0["launches"][case]})
+    for name in ("eval_smpl_short", "eval_skeleton"):
+        want, want_l = small[name]
+        err = max(abs(r0[name][k] - want[k]) for k in want)
+        emit({**common, "world": 2, "entry": f"{name} --mesh_devices 2",
+              "metrics": r0[name], "max_abs_err_vs_one_rank": err,
+              "tolerance": DP_METRIC_TOL,
+              "tolerance_reason": DP_METRIC_TOL_REASON,
+              "launches_rank0": r0["launches"][name],
+              "launches_rank1": r1["launches"][name],
+              "launches_one_rank": want_l})
+        if err > DP_METRIC_TOL or r0[name] != r1[name] or \
+                r0["launches"][name] != want_l or \
+                r1["launches"][name] != want_l:
+            raise AssertionError(f"{name} at two ranks: err {err}")
+    emit({**common, "world": 2, "wall_s_two_ranks": wall})
+    return by_path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5295,6 +5709,7 @@ def main() -> int:
     prepare_launches = phase_prepare(group, nn, sa, models, gpu)
     render_launches = phase_render(group, nn, sa, models, gpu)
     phase_diffusion_math(models, gpu)
+    dp_launches = phase_data_parallel(group, nn, sa, models[2], gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
@@ -5305,7 +5720,8 @@ def main() -> int:
                **skeleton_launches, **correction_launches,
                "refine": refine_launches, **behave_launches,
                "long_eval": long_launches, **option_launches,
-               **ckpt_launches, **prepare_launches, **render_launches}
+               **ckpt_launches, **prepare_launches, **render_launches,
+               **dp_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:

@@ -30,6 +30,13 @@ import torch
 
 from interdiff_torch.data.behave import BehaveSequence, load_behave_sequences
 from interdiff_torch.data.paths import load_paths
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    is_rank0,
+    launch,
+    local_devices,
+    wait_for_rank0,
+)
 from interdiff_torch.smpl.loader import smpl_model_from_pkl
 from interdiff_torch.smpl.model import SmplModel
 from interdiff_torch.utils.checkpoint import (
@@ -125,13 +132,15 @@ def batch_iterator(dataset, collate_fn, *, batch_size: int,
 def stack_batches(batches: Iterable[Dict[str, np.ndarray]], spd: int,
                   device, keys: Sequence[str],
                   section: Callable[[str], contextlib.AbstractContextManager]
-                  = lambda name: contextlib.nullcontext()
+                  = lambda name: contextlib.nullcontext(),
+                  place: Optional[Callable] = None
                   ) -> Iterator[Tuple[Dict[str, np.ndarray],
                                       Dict[str, torch.Tensor]]]:
     """(last raw batch, its ``keys`` as tensors on ``device``) per dispatch
     of a trainer: one batch, or ``spd`` batches stacked on a new leading
     axis (`train/trainer.py::chain_steps`), placed by
-    `utils/prefetch.py::place_batch` inside ``section("batch_place")``.  A
+    `utils/prefetch.py::place_batch` (or by ``place(stacked)``, a
+    data-parallel step's rows of it) inside ``section("batch_place")``.  A
     trailing partial stack is dropped with a warning; with no full stack at
     all the run stops."""
     buf, yielded = [], 0
@@ -142,7 +151,8 @@ def stack_batches(batches: Iterable[Dict[str, np.ndarray]], spd: int,
         with section("batch_place"):
             stacked = buf[0] if spd == 1 else {
                 k: np.stack([x[k] for x in buf]) for k in keys}
-            placed = place_batch(stacked, device, keys)
+            placed = place_batch(stacked, device, keys) if place is None \
+                else place(stacked)
         yield buf[-1], placed
         yielded += 1
         buf = []
@@ -165,6 +175,53 @@ def fit_batch_size(num_clips: int, batch_size: int) -> int:
               f"{batch_size} -> {num_clips}")
         return num_clips
     return batch_size
+
+
+def check_mesh_devices(parser: ArgumentParser, args: Namespace,
+                       device) -> None:
+    """The JAX evals' check of ``--mesh_devices`` once the device is known:
+    N is at most the devices there are (CUDA devices, or the CPU's cores
+    for gloo ranks)."""
+    available = local_devices(device)
+    if args.mesh_devices > available:
+        parser.error(f"--mesh_devices {args.mesh_devices} > {available} "
+                     "available devices")
+
+
+def _summary_of(run: Callable, args: Namespace, device) -> Dict:
+    return run(args, device)[1]
+
+
+def launch_trainer(run: Callable, args: Namespace, device) -> Tuple:
+    """Run a trainer's ``run(args, device) -> (state, summary)`` as the JAX
+    trainers run over every local device: one rank a visible card (one
+    rank on the CPU), each building its mesh with `parallel/mesh.py::
+    make_mesh(batch_size=...)`; under torchrun, as this process's rank.
+    Spawned ranks keep their states: then (None, rank 0's summary)."""
+    device = torch.device(device)
+    world = local_devices(device) if device.type == "cuda" else 1
+    if "WORLD_SIZE" in os.environ or world == 1:
+        return launch(run, world, args=(args, device), device=device)[0]
+    return None, launch(_summary_of, world, args=(run, args, device),
+                        device=device)[0]
+
+
+def snapshot_sources(results_dir: str, modules: Sequence[str]) -> None:
+    """Copy the given source modules into ``<results_dir>/src_snapshot``
+    (`interdiff_tpu/cli/common.py::snapshot_sources`, the reference's
+    ``on_train_start`` source snapshot); a module that does not import is
+    left out."""
+    import importlib
+    import shutil
+
+    dst = os.path.join(results_dir, "src_snapshot")
+    os.makedirs(dst, exist_ok=True)
+    for name in modules:
+        try:
+            path = importlib.import_module(name).__file__
+            shutil.copy(path, os.path.join(dst, os.path.basename(path)))
+        except Exception:  # noqa: BLE001 - a snapshot never stops a run
+            pass
 
 
 def _refuse_orbax(path: str) -> None:
@@ -331,7 +388,7 @@ def correction_train_loop(
     generator: Optional[torch.Generator] = None,
     on_step: Optional[Callable] = None, log: Optional[Sequence[str]] = None,
     profiler: Optional["TrainProfiler"] = None,
-    on_epoch: Optional[Callable] = None
+    on_epoch: Optional[Callable] = None, mesh: Optional[DataMesh] = None
 ) -> Tuple[object, Dict]:
     """The loop of the correction trainers
     (`interdiff_tpu/cli/train_correction_{smpl,skeleton}.py`): per epoch the
@@ -345,11 +402,18 @@ def correction_train_loop(
     ``profiler`` times the sections ``batch_place`` and ``train_step`` (no
     prefetch: the JAX correction trainers have none).  ``on_epoch(epoch,
     the epoch's last raw batch or None, state)`` runs after every epoch.
+    With a data ``mesh`` the steps are `train/trainer.py::
+    data_parallel_step`s, each rank places its rows of every batch, and
+    rank 0 alone logs, prints, saves and runs ``on_epoch`` while the other
+    ranks wait (`parallel/mesh.py::wait_for_rank0`).
     Returns (state, {"steps", "loss": the last step's})."""
     device = next(projector.parameters()).device
+    rank0 = is_rank0(mesh)
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
-    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
-    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
+    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt")) \
+        if rank0 else None
+    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl")) \
+        if rank0 else None
     i, metrics = 0, None
     try:
         for epoch in range(epochs):
@@ -357,11 +421,12 @@ def correction_train_loop(
             batch = None
             for batch in epoch_batches():
                 with prof.section("batch_place"):
-                    placed = place_batch(batch, device, keys)
+                    placed = place_batch(batch, device, keys) \
+                        if mesh is None else step.place_batch(batch, keys)
                 with prof.section("train_step"):
                     state, metrics = step(state, placed, generator,
                                           float(epoch))
-                if i % 10 == 0:
+                if i % 10 == 0 and rank0:
                     logger.log(i, {k: metrics[k] for k in (log or metrics)},
                                epoch=epoch)
                     print(f"step {i} loss {float(metrics['loss']):.4f}",
@@ -369,17 +434,21 @@ def correction_train_loop(
                 i += 1
                 if on_step is not None:
                     on_step(i, state, metrics)
-            if metrics is not None and ((epoch + 1) % ckpt_every == 0
-                                        or epoch + 1 == epochs):
+            if rank0 and metrics is not None and (
+                    (epoch + 1) % ckpt_every == 0 or epoch + 1 == epochs):
                 ckpt.save(i, projector.state_dict(),
                           val_loss=float(metrics["loss"]))
-            if on_epoch is not None:
+            if on_epoch is not None and rank0:
                 on_epoch(epoch, batch, state)
+            # the other ranks wait for rank 0's saves and renders outside
+            # the collectives of the next epoch's steps
+            wait_for_rank0(mesh)
     finally:
         prof.finish()
-    ckpt.wait()
-    logger.close()
-    print("done:", i, "steps", flush=True)
+    if rank0:
+        ckpt.wait()
+        logger.close()
+        print("done:", i, "steps", flush=True)
     return state, {"steps": i, "loss": None if metrics is None
                    else float(metrics["loss"])}
 

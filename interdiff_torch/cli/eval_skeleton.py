@@ -21,8 +21,15 @@ name the motion path in a YAML path config (PyYAML is imported only then).
 ``--render_dir`` writes a gif of the first clip of every batch, the
 prediction over the ground truth (`viz/skeleton_viz.py`, matplotlib on the
 host; without matplotlib the flag stops before anything is built).
-Several devices (``--mesh_devices``) are not ported yet, and the parser
-does not know that flag.
+
+``--mesh_devices N`` (N >= 1) shards each batch's rows over N ranks
+(`parallel/mesh.py`: one process a card, NCCL; with ``--device cpu`` N
+gloo ranks on the CPU): each rank encodes and samples its rows (the noise
+drawn for the whole batch, so the samples are those of one rank), its
+rollouts included, the first window's predictions are gathered in row
+order and scored, and rank 0 prints what a run of one rank prints.  As in
+the JAX package the batch must divide by N and N may not exceed the
+devices there are; 0 (the default) runs without a mesh.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any models and iterator of batches.
@@ -41,6 +48,7 @@ import torch
 from interdiff_torch import resolve_device
 from interdiff_torch.cli.common import (
     batch_iterator,
+    check_mesh_devices,
     load_correction_variables,
     load_mdm,
     seed_everything,
@@ -62,6 +70,17 @@ from interdiff_torch.eval.skeleton import (
 )
 from interdiff_torch.models.correction import ObjProjectorSkeleton
 from interdiff_torch.models.mdm_skeleton import MDMSkeleton
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    all_gather_rows,
+    is_rank0,
+    launch,
+    make_mesh,
+    process_device,
+    shard_batch,
+    wait_for_rank0,
+)
+from interdiff_torch.parallel.sample_parallel import data_parallel_sample
 from interdiff_torch.viz.skeleton_viz import require_matplotlib
 
 Noises = Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -83,7 +102,8 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
              timings: Optional[Dict[str, float]] = None,
              trace: Optional[List[Dict]] = None,
              forecasts: Optional[List[Dict[str, torch.Tensor]]] = None,
-             render_dir: Optional[str] = None
+             render_dir: Optional[str] = None,
+             mesh: Optional[DataMesh] = None
              ) -> Tuple[Dict[str, float], int]:
     """The evaluation loop (`interdiff_tpu/cli/eval_skeleton.py:149-197`) on
     the model's device; returns (the sum over batches of each metric, the
@@ -107,12 +127,21 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     synchronisation around every part (none without it).  With
     ``render_dir`` a gif of each batch's first clip goes there,
     ``batch<n>_<mode>.gif`` (part ``render``).
+
+    With a data ``mesh`` each rank takes its rows of every (global) batch,
+    encodes, samples (under the mesh: noise drawn for the global batch) and
+    rolls them out; ``noises`` yields and ``forecasts`` receives the rank's
+    rows.  The first window's predictions of every rank are gathered in row
+    order and scored against the whole batch; every rank returns the
+    totals, rank 0 alone reports and renders.
     """
     device = next(model.parameters()).device
     sample = make_skeleton_sampler(
         cfg, model, diffusion, projector=projector,
         use_correction=projector is not None, reuse_memory=True,
         trace=trace)
+    if mesh is not None:  # draws for the global batch, cut to the rows
+        sample = data_parallel_sample(sample, mesh)
 
     def timed(part: str, fn, *args, **kwargs):
         if timings is None:
@@ -142,34 +171,45 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
                 full[k] = torch.cat([full[k], v[:, cfg.past_len:]], dim=1)
         return full
 
+    rank0 = is_rank0(mesh)
     totals: Dict[str, float] = {}
     nb = 0
     with torch.no_grad():
         for batch in batches:
-            b = {k: torch.as_tensor(batch[k], device=device) for k in KEYS}
+            whole = {k: torch.as_tensor(batch[k], device=device)
+                     for k in KEYS}
+            b = shard_batch(whole, mesh)
             x = encode_and_sample(b)
             pred = split_skeleton_state(x, cfg)
             full = pred
             if rollouts:
                 full = rollout(x, b["zero_pose_obj"], pred)
-                print(f"rollout: {full['body'].shape[1]} frames total",
-                      flush=True)
+                if rank0:
+                    print(f"rollout: {full['body'].shape[1]} frames total",
+                          flush=True)
             if forecasts is not None:
                 forecasts.append(full)
+            if mesh is not None:  # every rank's rows, in row order
+                pred = {k: all_gather_rows(v, mesh) for k, v in pred.items()}
             m = timed("metrics", skeleton_metrics, pred["body"],
-                      b["skeleton"], pred["obj"], b["obj_points"],
-                      pred["pose"], b["poses"], start=cfg.past_len)
+                      whole["skeleton"], pred["obj"], whole["obj_points"],
+                      pred["pose"], whole["poses"], start=cfg.past_len)
             nb += 1
             # one read of the device per batch
             values = torch.stack(list(m.values())).tolist()
             for k, v in zip(m, values):
                 totals[k] = totals.get(k, 0.0) + v
-            report(nb, {k: v / nb for k, v in totals.items()})
-            if render_dir is not None:
-                mode = "correction" if projector is not None \
-                    else "no_correction"
-                timed("render", render_clip, b, pred, cfg.past_len,
-                      os.path.join(render_dir, f"batch{nb}_{mode}.gif"))
+            if rank0:
+                report(nb, {k: v / nb for k, v in totals.items()})
+                if render_dir is not None:
+                    mode = "correction" if projector is not None \
+                        else "no_correction"
+                    timed("render", render_clip, b, pred, cfg.past_len,
+                          os.path.join(render_dir,
+                                       f"batch{nb}_{mode}.gif"))
+            # the other ranks wait for rank 0's report and gif outside the
+            # next batch's gather
+            wait_for_rank0(mesh)
     return totals, nb
 
 
@@ -220,6 +260,10 @@ def build_parser() -> ArgumentParser:
                         help="autoregressive future windows after the first "
                              "(the reference's get_batch re-batching, "
                              "eval_skeleton.py:71-80)")
+    parser.add_argument("--mesh_devices", type=int, default=0,
+                        help="shard the sampling batch over N ranks, one a "
+                             "device (0 = no mesh); batch_size must divide "
+                             "by N")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -229,6 +273,8 @@ def build_parser() -> ArgumentParser:
 def main(argv=None) -> Tuple[Dict[str, float], int]:
     parser = build_parser()
     args = parser.parse_args(argv)
+    if args.mesh_devices > 1 and args.batch_size % args.mesh_devices:
+        parser.error("--batch_size must be divisible by --mesh_devices")
     if args.config:
         args.motion_path = args.motion_path or load_paths(
             args.config).motion_path
@@ -240,7 +286,21 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         except ImportError as e:
             parser.error(f"--render_dir: {e}")
     device = resolve_device(None if args.device == "cuda" else args.device)
+    check_mesh_devices(parser, args, device)
+    if args.mesh_devices < 1:
+        return run(args, device)
+    # rank 0's result (every rank's totals are the same)
+    return launch(run, args.mesh_devices, args=(args, device),
+                  device=device)[0]
 
+
+def run(args, device) -> Tuple[Dict[str, float], int]:
+    """One rank of :func:`main` (the whole run without a mesh)."""
+    device = process_device(device)
+    mesh = make_mesh(data=args.mesh_devices, device=device) \
+        if args.mesh_devices >= 1 else None
+    if args.mesh_devices >= 1 and mesh is None:
+        return {}, 0  # a rank of the process group beyond --mesh_devices
     rng = seed_everything(args.seed)
     cfg = SkeletonEvalConfig(past_len=args.past_len,
                              future_len=args.future_len)
@@ -274,7 +334,9 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         _, _, test_seen, test_unseen = load_skeleton_datasets(
             args.motion_path)
         for name, split in (("seen", test_seen), ("unseen", test_unseen)):
-            print(f"--- {name} split: {len(split)} clips ---", flush=True)
+            if is_rank0(mesh):
+                print(f"--- {name} split: {len(split)} clips ---",
+                      flush=True)
             yield from batch_iterator(split, collate_skeleton,
                                       batch_size=args.batch_size, rng=rng,
                                       shuffle=False)
@@ -282,7 +344,7 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
     generator = torch.Generator(device=device).manual_seed(args.seed)
     return evaluate(cfg, model, diffusion, batches(), projector=projector,
                     rollouts=args.rollouts, generator=generator,
-                    render_dir=args.render_dir)
+                    render_dir=args.render_dir, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -24,8 +24,17 @@ the first sample of every batch (the seam smoothed first, as the reference
 does), the object as the mesh of ``--obj_mesh`` under the predicted pose,
 or found beside a one-category corpus (``objects/<cat>/<cat>_f1000.ply``),
 else as point spheres of its template cloud; the gif is drawn on the host.
-Several devices (``--mesh_devices``) are not ported, and the parser does
-not know the flag.
+
+``--mesh_devices N`` (N >= 1) shards the tiled diverse batch's rows over N
+ranks (`parallel/mesh.py`: one process a card, NCCL; with ``--device cpu``
+N gloo ranks on the CPU; under torchrun the processes it started): each
+rank encodes, samples (the noise drawn for the whole batch and cut to its
+rows, so the samples are those of one rank), post-processes and scores its
+own rows, the per-sample metrics are gathered in row order, and rank 0
+prints what a run of one rank prints.  As in the JAX package the batch must
+divide by N, N may not exceed the devices there are, and a corpus-fitted
+batch shrinks to a multiple of N.  ``--mesh_devices 0`` (the default) runs
+without a mesh.
 
 ``main`` builds the objects from the flags; ``evaluate`` is the loop itself,
 on any body, models and iterator of batches.
@@ -46,6 +55,7 @@ from interdiff_torch.cli.common import (
     add_data_args,
     batch_iterator,
     check_data_args,
+    check_mesh_devices,
     check_obj_mesh,
     find_object_mesh,
     fit_batch_size,
@@ -75,8 +85,19 @@ from interdiff_torch.eval.smpl_short import (
 )
 from interdiff_torch.models.correction import ObjProjectorSmpl
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    all_gather_rows,
+    is_rank0,
+    launch,
+    make_mesh,
+    process_device,
+    shard_batch,
+    wait_for_rank0,
+)
 from interdiff_torch.parallel.sample_parallel import (
     best_of_n_metrics,
+    data_parallel_sample,
     tile_for_diverse_samples,
 )
 from interdiff_torch.smpl.model import SmplModel
@@ -101,7 +122,8 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
              report: Callable[[int, Dict[str, float]], None] = _print_running,
              timings: Optional[Dict[str, float]] = None,
              render_dir: Optional[str] = None,
-             obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None
+             obj_mesh: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+             mesh: Optional[DataMesh] = None
              ) -> Tuple[Dict[str, float], int]:
     """The evaluation loop (`interdiff_tpu/cli/eval_smpl_short.py:263-311`)
     on the model's device; returns (the sum over batches of each metric's
@@ -123,6 +145,14 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
     ``render_dir``, a gif ``batch<n>.gif`` of the last sampler call's first
     row goes there after each batch (`cli/common.py::render_smpl_sample`,
     part ``render``).
+
+    With a data ``mesh`` each rank takes its rows of the tiled batch
+    [fold * B] (``batches`` holds the global batches on every rank): it
+    encodes them, runs FK on their gt, samples them under the mesh (noise
+    drawn for the global batch), scores them, and the per-sample metrics
+    of every rank are gathered in row order before the best-of-N minimum;
+    ``noises`` then yields the rank's rows.  Every rank returns the totals;
+    rank 0 alone reports and renders.
     """
     if diverse_fold < 1 or diverse_samples % diverse_fold:
         raise ValueError("diverse_fold must be positive and divide "
@@ -132,6 +162,8 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
         cfg, model, diffusion, smpl=smpl, projector=projector,
         use_correction=projector is not None, markers_idx=markers_idx,
         reuse_memory=True, sampler=sampler)
+    if mesh is not None:  # draws for the global batch, cut to the rows
+        sample = data_parallel_sample(sample, mesh)
     p = cfg.past_len
 
     def timed(part: str, fn, *args, **kwargs):
@@ -154,14 +186,28 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
             out["verts"][:, p:], smpl.faces_idx, obj_pts3,
             nn_prune_delta=metrics_prune_delta, incident=smpl.incident)
 
+    def gathered(m: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        if mesh is None:
+            return m
+        rows = all_gather_rows(torch.stack(list(m.values()), dim=1), mesh)
+        return dict(zip(m, rows.unbind(1)))
+
+    rank0 = is_rank0(mesh)
+    keys = ("body_pose", "body_trans", "obj_angles", "obj_trans",
+            "obj_points", "body_betas")
     totals: Dict[str, float] = {}
     nb = 0
     with torch.no_grad():
         for batch in batches:
-            b = {k: torch.as_tensor(v, device=device)
-                 for k, v in batch.items()
-                 if k in ("body_pose", "body_trans", "obj_angles",
-                          "obj_trans", "obj_points", "body_betas")}
+            if mesh is None:
+                b = {k: torch.as_tensor(v, device=device)
+                     for k, v in batch.items() if k in keys}
+            else:
+                # this rank's rows of the tiled batch: sample i of clip c
+                # at row i * B + c
+                b = {k: shard_batch(tile_for_diverse_samples(
+                    torch.as_tensor(v), diverse_fold), mesh).to(device)
+                    for k, v in batch.items() if k in keys}
             gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
                                   b["obj_angles"], b["obj_trans"])
             obj_points6 = b["obj_points"][..., :6]
@@ -173,7 +219,7 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
             # ground-truth FK once on the untiled batch: it is deterministic
             gt_post = timed("postprocess", postprocess_sample, cfg, smpl, gt,
                             hand, betas)
-            if diverse_fold > 1:
+            if diverse_fold > 1 and mesh is None:
                 gt, obj_points6, hand, betas, memory = \
                     tile_for_diverse_samples(
                         (gt, obj_points6, hand, betas, memory), diverse_fold)
@@ -190,7 +236,7 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
                             hand, betas)
                 m = timed("metrics", metrics, out, gt_post,
                           obj_points6[..., :3])
-                m = best_of_n_metrics(m, diverse_fold)
+                m = best_of_n_metrics(gathered(m), diverse_fold)
                 best = m if best is None else {
                     k: torch.minimum(best[k], m[k]) for k in m}
             nb += 1
@@ -198,11 +244,15 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
             means = torch.stack([v.mean() for v in best.values()]).tolist()
             for k, v in zip(best, means):
                 totals[k] = totals.get(k, 0.0) + v
-            report(nb, {k: v / nb for k, v in totals.items()})
-            if render_dir is not None:
-                timed("render", render_smpl_sample, cfg, smpl, out,
-                      b["obj_points"][0, :, :3].cpu().numpy(), obj_mesh,
-                      os.path.join(render_dir, f"batch{nb}.gif"))
+            if rank0:
+                report(nb, {k: v / nb for k, v in totals.items()})
+                if render_dir is not None:
+                    timed("render", render_smpl_sample, cfg, smpl, out,
+                          b["obj_points"][0, :, :3].cpu().numpy(), obj_mesh,
+                          os.path.join(render_dir, f"batch{nb}.gif"))
+            # the other ranks wait for rank 0's report and gif outside the
+            # next batch's gather
+            wait_for_rank0(mesh)
     return totals, nb
 
 
@@ -249,6 +299,10 @@ def build_parser() -> ArgumentParser:
                         help="simplified object mesh (ply/obj) rendered "
                              "under the predicted pose; found beside "
                              "--motion_path when omitted (one category)")
+    parser.add_argument("--mesh_devices", type=int, default=0,
+                        help="shard the sampling, FK and metrics batch over "
+                             "N ranks, one a device (0 = no mesh); "
+                             "batch_size must divide by N")
     parser.add_argument("--device", default="cuda",
                         help="'cuda' (the default; stops without a CUDA "
                              "device) or 'cpu'")
@@ -263,10 +317,27 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         parser.error("--diverse_fold must be a positive integer")
     if args.diverse_samples % args.diverse_fold:
         parser.error("--diverse_fold must divide --diverse_samples")
+    if args.mesh_devices > 1 and args.batch_size % args.mesh_devices:
+        parser.error("--batch_size must be divisible by --mesh_devices "
+                     "(each rank takes an equal share of the batch)")
     check_obj_mesh(parser, args.obj_mesh)
     check_data_args(parser, args)
     device = resolve_device(None if args.device == "cuda" else args.device)
+    check_mesh_devices(parser, args, device)
+    if args.mesh_devices < 1:
+        return run(args, device)
+    # rank 0's result (every rank's totals are the same)
+    return launch(run, args.mesh_devices, args=(args, device),
+                  device=device)[0]
 
+
+def run(args, device) -> Tuple[Dict[str, float], int]:
+    """One rank of :func:`main` (the whole run without a mesh)."""
+    device = process_device(device)
+    mesh = make_mesh(data=args.mesh_devices, device=device) \
+        if args.mesh_devices >= 1 else None
+    if args.mesh_devices >= 1 and mesh is None:
+        return {}, 0  # a rank of the process group beyond --mesh_devices
     rng = seed_everything(args.seed)
     cfg = SmplEvalConfig(
         past_len=args.past_len, future_len=args.future_len,
@@ -308,9 +379,18 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         ds = BehaveDataset(seqs, past_len=args.past_len,
                            future_len=args.future_len, rng=rng,
                            fields="light")
-        batches = batch_iterator(
-            ds, collate, batch_size=fit_batch_size(len(ds), args.batch_size),
-            rng=rng, shuffle=False)
+        batch_size = fit_batch_size(len(ds), args.batch_size)
+        if mesh is not None and batch_size % mesh.size:
+            # keep the shrunk batch shardable over the ranks
+            batch_size -= batch_size % mesh.size
+            if batch_size == 0:
+                raise SystemExit(f"corpus too small to shard over "
+                                 f"{mesh.size} devices")
+            if is_rank0(mesh):
+                print(f"shrinking batch to {batch_size} (divisible by "
+                      f"--mesh_devices)", flush=True)
+        batches = batch_iterator(ds, collate, batch_size=batch_size,
+                                 rng=rng, shuffle=False)
     # the stand-in body has fewer vertices than the marker set's largest
     # index; the JAX package's gather clamps such indices, so do the same
     markers_idx = np.minimum(MARKERSET_SSM67_SMPLH, smpl.num_verts - 1)
@@ -323,7 +403,8 @@ def main(argv=None) -> Tuple[Dict[str, float], int]:
         if args.metrics_prune_delta > 0 else None,
         markers_idx=markers_idx, generator=generator,
         render_dir=args.render_dir,
-        obj_mesh=load_object_mesh(args.obj_mesh) if args.obj_mesh else None)
+        obj_mesh=load_object_mesh(args.obj_mesh) if args.obj_mesh else None,
+        mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,11 @@ name the motion path in a YAML path config (PyYAML is imported only then).
 ``--profiler simple|trace`` and ``--debug_nan`` as in the SMPL correction
 trainer.
 
+Data parallelism as in `cli/train_diffusion_smpl.py`: one rank a visible
+card (or a torchrun process), the mesh over the largest count of ranks that
+divides ``--batch_size``, `train/trainer.py::data_parallel_step`, rank 0
+alone writing.
+
 ``main`` builds the objects from the flags; ``train`` is the loop itself.
 It writes ``<results_dir>/ckpt/`` (the projector's state dict, BatchNorm
 statistics included, every 40 epochs and after the last) and
@@ -37,18 +42,30 @@ from interdiff_torch.cli.common import (
     TrainProfiler,
     add_profiler_args,
     correction_train_loop,
+    launch_trainer,
     seed_everything,
+    snapshot_sources,
     synthetic_skeleton_batches,
 )
 from interdiff_torch.data.paths import load_paths
 from interdiff_torch.models.correction import ObjProjectorSkeleton
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    is_rank0,
+    make_mesh,
+    process_device,
+    replicated,
+)
 from interdiff_torch.train.trainer import (
     CorrectionTrainState,
     adam,
+    data_parallel_step,
     make_correction_skeleton_train_step,
 )
 
 KEYS = ("skeleton", "poses")
+SNAPSHOT = ("interdiff_torch.models.correction",
+            "interdiff_torch.train.losses_correction")
 Batch = Dict[str, np.ndarray]
 
 
@@ -57,19 +74,25 @@ def train(projector: ObjProjectorSkeleton,
           epochs: int = 1, lr: float = 3e-4,
           generator: Optional[torch.Generator] = None,
           on_step: Optional[Callable] = None,
-          profiler: Optional[TrainProfiler] = None
+          profiler: Optional[TrainProfiler] = None,
+          mesh: Optional[DataMesh] = None
           ) -> Tuple[CorrectionTrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_correction_skeleton.py:
     96-118`) on the projector's device over ``epoch_batches()`` (raw
     batches with ``skeleton`` [B,T,21,3] and ``poses`` [B,T,7]; numpy).
-    Returns (the final state, {"steps", "loss"})."""
+    With a data ``mesh``, rank 0's weights go to every rank and each steps
+    its rows through `data_parallel_step`.  Returns (the final state,
+    {"steps", "loss"})."""
+    replicated(projector, mesh)
     state = CorrectionTrainState.create(projector, adam(lr))
     step = make_correction_skeleton_train_step(projector)
+    if mesh is not None:
+        step = data_parallel_step(step, mesh, extra_args=2)
     return correction_train_loop(
         projector, state, lambda epoch: step, epoch_batches, KEYS,
         results_dir=results_dir, epochs=epochs, ckpt_every=40,
         generator=generator, on_step=on_step, log=("loss",),
-        profiler=profiler)
+        profiler=profiler, mesh=mesh)
 
 
 def build_parser() -> ArgumentParser:
@@ -96,7 +119,9 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
+def main(argv=None) -> Tuple[Optional[CorrectionTrainState], Dict]:
+    """Parse the flags and train on one rank a visible card
+    (`cli/common.py::launch_trainer`)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.config:
@@ -105,12 +130,22 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
     if not args.synthetic and not args.motion_path:
         parser.error("--motion_path is required unless --synthetic is set")
     device = resolve_device(None if args.device == "cuda" else args.device)
+    return launch_trainer(run, args, device)
 
+
+def run(args, device) -> Tuple[Optional[CorrectionTrainState], Dict]:
+    """One rank of :func:`main` (the whole run at one rank)."""
+    device = process_device(device)
     rng = seed_everything(args.seed)
+    mesh = make_mesh(batch_size=args.batch_size, device=device)
+    if mesh is None:  # a rank the batch's divisor rule leaves out
+        return None, {}
     T = args.past_len + args.future_len
     projector = ObjProjectorSkeleton(past_len=args.past_len,
                                      future_len=args.future_len,
                                      device=device)
+    if is_rank0(mesh):
+        snapshot_sources(args.results_dir, SNAPSHOT)
     epochs = args.epochs
     if args.synthetic:
         epochs = 1  # one epoch, whatever --epochs
@@ -136,7 +171,8 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
                  generator=torch.Generator(device=device).manual_seed(
                      args.seed),
                  profiler=TrainProfiler.from_args(args, args.results_dir,
-                                                  device))
+                                                  device)
+                 if is_rank0(mesh) else None, mesh=mesh)
 
 
 if __name__ == "__main__":

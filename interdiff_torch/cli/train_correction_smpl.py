@@ -31,6 +31,12 @@ beside its body as two gifs in ``<results_dir>/render`` (the reference's
 validation renders); it needs the body's faces, so ``--synthetic`` ignores
 it, as the JAX package does.
 
+Data parallelism as in `cli/train_diffusion_smpl.py`: one rank a visible
+card (or a torchrun process), the mesh, built after the corpus-fitted batch
+size, over the largest count of ranks that divides it,
+`train/trainer.py::data_parallel_step`, rank 0 alone rendering and
+writing.
+
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
 any projector and any source of batches.  It writes ``<results_dir>/ckpt/``
 (the projector's state dict, BatchNorm statistics included, every 25 epochs
@@ -57,8 +63,10 @@ from interdiff_torch.cli.common import (
     add_profiler_args,
     correction_train_loop,
     fit_batch_size,
+    launch_trainer,
     load_smpl_models,
     seed_everything,
+    snapshot_sources,
     synthetic_smpl_batches,
 )
 from interdiff_torch.data.behave import (
@@ -72,14 +80,24 @@ from interdiff_torch.geometry.rotations import (
     rotation_6d_to_matrix,
 )
 from interdiff_torch.models.correction import ObjProjectorSmpl
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    is_rank0,
+    make_mesh,
+    process_device,
+    replicated,
+)
 from interdiff_torch.train.losses_correction import CorrectionLossWeights
 from interdiff_torch.train.trainer import (
     CorrectionTrainState,
     adam,
+    data_parallel_step,
     make_correction_smpl_train_step,
 )
 
 KEYS = ("obj_angles", "obj_trans", "markers", "human_verts", "obj_points")
+SNAPSHOT = ("interdiff_torch.models.correction",
+            "interdiff_torch.train.losses_correction")
 Batch = Dict[str, np.ndarray]
 
 
@@ -125,7 +143,8 @@ def train(projector: ObjProjectorSmpl,
           on_step: Optional[Callable] = None,
           profiler: Optional[TrainProfiler] = None,
           render_interval: int = 0,
-          render_faces: Optional[np.ndarray] = None
+          render_faces: Optional[np.ndarray] = None,
+          mesh: Optional[DataMesh] = None
           ) -> Tuple[CorrectionTrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_correction_smpl.py:190-
     262`) on the projector's device: epochs below ``initialize_epochs`` take
@@ -135,7 +154,9 @@ def train(projector: ObjProjectorSmpl,
     [B,T,67,7], ``human_verts`` [B,T,V,7], ``obj_points`` [B,P,>=3]; numpy).
     The marker draws (and dropout) come from ``generator``.  Every
     ``render_interval`` epochs (none at 0) `make_correction_render` draws
-    the epoch's last batch on the body faces ``render_faces``.  Returns (the
+    the epoch's last batch on the body faces ``render_faces``.  With a data
+    ``mesh``, rank 0's weights go to every rank, each steps its rows
+    through `data_parallel_step`, and rank 0 alone renders.  Returns (the
     final state, {"steps", "loss"})."""
     on_epoch = None
     if render_interval:
@@ -151,15 +172,19 @@ def train(projector: ObjProjectorSmpl,
                 else:
                     render(epoch, batch)
 
+    replicated(projector, mesh)
     state = CorrectionTrainState.create(projector, adam(lr))
     steps = {phase: make_correction_smpl_train_step(
         projector, weights=weights, initialize=phase)
         for phase in (True, False)}
+    if mesh is not None:
+        steps = {phase: data_parallel_step(step, mesh, extra_args=2)
+                 for phase, step in steps.items()}
     return correction_train_loop(
         projector, state, lambda epoch: steps[epoch < initialize_epochs],
         epoch_batches, KEYS, results_dir=results_dir, epochs=epochs,
         ckpt_every=25, generator=generator, on_step=on_step,
-        profiler=profiler, on_epoch=on_epoch)
+        profiler=profiler, on_epoch=on_epoch, mesh=mesh)
 
 
 def build_parser() -> ArgumentParser:
@@ -197,13 +222,20 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
+def main(argv=None) -> Tuple[Optional[CorrectionTrainState], Dict]:
+    """Parse the flags and train on one rank a visible card
+    (`cli/common.py::launch_trainer`)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_data_args(parser, args)
     check_render_interval(parser, args.render_interval)
     device = resolve_device(None if args.device == "cuda" else args.device)
+    return launch_trainer(run, args, device)
 
+
+def run(args, device) -> Tuple[Optional[CorrectionTrainState], Dict]:
+    """One rank of :func:`main` (the whole run at one rank)."""
+    device = process_device(device)
     rng = seed_everything(args.seed)
     T = args.past_len + args.future_len
     projector = ObjProjectorSmpl(n_pre=args.dct, past_len=args.past_len,
@@ -215,7 +247,7 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
         penetration=defaults.penetration if args.w_penetration is None
         else args.w_penetration)
 
-    render_faces = None
+    render_faces, batch_size = None, args.batch_size
     if args.synthetic:
         if args.render_interval:
             print("--render_interval needs real data (body faces); ignored "
@@ -241,6 +273,12 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
             return batch_iterator(ds, collate, batch_size=batch_size,
                                   rng=rng)
 
+    # the mesh after the corpus-fitted batch size: the ranks must divide it
+    mesh = make_mesh(batch_size=batch_size, device=device)
+    if mesh is None:  # a rank the batch's divisor rule leaves out
+        return None, {}
+    if is_rank0(mesh):
+        snapshot_sources(args.results_dir, SNAPSHOT)
     # a synthetic run is one epoch of the main phase, whatever --epochs
     return train(projector, epoch_batches, results_dir=args.results_dir,
                  epochs=1 if args.synthetic else args.epochs, lr=args.lr,
@@ -249,10 +287,11 @@ def main(argv=None) -> Tuple[CorrectionTrainState, Dict]:
                  generator=torch.Generator(device=device).manual_seed(
                      args.seed),
                  profiler=TrainProfiler.from_args(args, args.results_dir,
-                                                  device),
+                                                  device)
+                 if is_rank0(mesh) else None,
                  render_interval=0 if args.synthetic
                  else args.render_interval,
-                 render_faces=render_faces)
+                 render_faces=render_faces, mesh=mesh)
 
 
 if __name__ == "__main__":

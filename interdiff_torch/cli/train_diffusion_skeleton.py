@@ -27,6 +27,11 @@ gif in ``<results_dir>/render`` every N validations (every validation under
 ``--synthetic``; matplotlib on the host, without which the flag stops
 before anything is built).
 
+Data parallelism as in `cli/train_diffusion_smpl.py`: one rank a visible
+card (or a torchrun process), the mesh over the largest count of ranks that
+divides ``--batch_size``, `train/trainer.py::data_parallel_step`, and rank
+0 alone validating and writing.
+
 ``main`` builds the objects from the flags; ``train`` is the loop itself.
 It writes ``<results_dir>/ckpt/`` (the weights, the best three by the
 validation's ``mpjpe_h``), ``ckpt_ema/`` (the shadow, with
@@ -50,14 +55,25 @@ from interdiff_torch.cli.common import (
     batch_iterator,
     check_render_interval,
     fit_batch_size,
+    launch_trainer,
     load_weights,
     seed_everything,
+    snapshot_sources,
     stack_batches,
     synthetic_skeleton_batches,
 )
 from interdiff_torch.cli.eval_skeleton import render_clip
 from interdiff_torch.config import DiffusionConfig, SkeletonTrackConfig
 from interdiff_torch.data.paths import load_paths
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    is_rank0,
+    make_mesh,
+    process_device,
+    replicated,
+    sync_generator,
+    wait_for_rank0,
+)
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.eval.metrics import skeleton_metrics
 from interdiff_torch.eval.skeleton import (
@@ -71,10 +87,14 @@ from interdiff_torch.train.trainer import (
     TrainState,
     adamw,
     chain_steps,
+    data_parallel_step,
     make_skeleton_train_step,
 )
 from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
 
+SNAPSHOT = ("interdiff_torch.models.mdm_skeleton",
+            "interdiff_torch.train.trainer", "interdiff_torch.train.losses",
+            "interdiff_torch.diffusion.gaussian")
 KEYS = ("skeleton", "obj_points", "poses", "zero_pose_obj")
 Batch = Dict[str, np.ndarray]
 
@@ -115,7 +135,8 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
           generator: Optional[torch.Generator] = None,
           on_step: Optional[Callable] = None,
           profiler: Optional[TrainProfiler] = None,
-          render_interval: int = 0
+          render_interval: int = 0,
+          mesh: Optional[DataMesh] = None
           ) -> Tuple[TrainState, Dict]:
     """The training loop
     (`interdiff_tpu/cli/train_diffusion_skeleton.py:199-268`) on the model's
@@ -134,23 +155,34 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
     still on the device.  ``profiler`` times the sections ``batch_place``
     and ``train_step``.  Every ``render_interval`` validations (none at 0)
     `cli/eval_skeleton.py::render_clip` draws the first clip of the
-    validation batch to ``<results_dir>/render/epoch<e>.gif``.
+    validation batch to ``<results_dir>/render/epoch<e>.gif``.  With a
+    data ``mesh``, as `cli/train_diffusion_smpl.py::train`.
     """
     device = next(model.parameters()).device
+    rank0 = is_rank0(mesh)
+    replicated(model, mesh)
     spd = max(1, steps_per_dispatch)
     state = TrainState.create(dict(model.named_parameters()), adamw(lr),
                               ema_rate=ema_decay)
     step = make_skeleton_train_step(model, diffusion)
     if spd > 1:
         step = chain_steps(step)
+    place = None
+    if mesh is not None:
+        step = data_parallel_step(step, mesh, batch_axis=1 if spd > 1 else 0)
+        place = lambda stacked: step.place_batch(stacked, KEYS)  # noqa: E731
 
-    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
-    ckpt_ema = (CheckpointManager(os.path.join(results_dir, "ckpt_ema"))
-                if ema_decay > 0 else None)
-    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
-    # with EMA on, validation scores the shadow, loaded into a second module
-    val_model = copy.deepcopy(model) if ema_decay > 0 else model
-    run_validation = make_validation(val_model, val_diffusion or diffusion)
+    ckpt = ckpt_ema = logger = run_validation = None
+    if rank0:
+        ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
+        ckpt_ema = (CheckpointManager(os.path.join(results_dir, "ckpt_ema"))
+                    if ema_decay > 0 else None)
+        logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
+        # with EMA on, validation scores the shadow, loaded into a second
+        # module
+        val_model = copy.deepcopy(model) if ema_decay > 0 else model
+        run_validation = make_validation(val_model,
+                                         val_diffusion or diffusion)
 
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
     i, n_vals, summary = 0, 0, {"val": []}
@@ -158,17 +190,18 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
         for epoch in range(epochs):
             batch_np = None
             for batch_np, batch in stack_batches(
-                    epoch_batches(), spd, device, KEYS, prof.section):
+                    epoch_batches(), spd, device, KEYS, prof.section, place):
                 with prof.section("train_step"):
                     state, metrics = step(state, batch, generator)
-                if (i // spd) % max(1, 10 // spd) == 0:
+                if rank0 and (i // spd) % max(1, 10 // spd) == 0:
                     loss = float(metrics["loss"].mean())
                     logger.log(i, {"loss": loss}, epoch=epoch)
                     print(f"step {i} loss {loss:.4f}", flush=True)
                 i += spd
                 if on_step is not None:
                     on_step(i, state, metrics)
-            if (epoch + 1) % val_every == 0 or validate_every_epoch:
+            if ((epoch + 1) % val_every == 0 or validate_every_epoch) \
+                    and rank0:
                 if state.ema_params is not None:
                     val_model.load_state_dict(state.ema_params, strict=True)
                 val_b = batch_np if val_batch is None else val_batch
@@ -187,14 +220,21 @@ def train(model: MDMSkeleton, diffusion: GaussianDiffusion,
                                 val_pred, model.past_len, os.path.join(
                                     results_dir, "render",
                                     f"epoch{epoch}.gif"))
+            if (epoch + 1) % val_every == 0 or validate_every_epoch:
+                # the other ranks wait for rank 0's validation, outside the
+                # collectives; rank 0 drew the validation noise, so its
+                # generator state goes to every rank
+                wait_for_rank0(mesh)
+                sync_generator(generator, mesh)
     finally:
         prof.finish()
-    ckpt.wait()
-    if ckpt_ema is not None:
-        ckpt_ema.wait()
-    logger.close()
     summary["steps"] = i
-    print("done:", i, "steps", flush=True)
+    if rank0:
+        ckpt.wait()
+        if ckpt_ema is not None:
+            ckpt_ema.wait()
+        logger.close()
+        print("done:", i, "steps", flush=True)
     return state, summary
 
 
@@ -243,7 +283,9 @@ def build_parser() -> ArgumentParser:
     return parser
 
 
-def main(argv=None) -> Tuple[TrainState, Dict]:
+def main(argv=None) -> Tuple[Optional[TrainState], Dict]:
+    """Parse the flags and train on one rank a visible card
+    (`cli/common.py::launch_trainer`)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.config:
@@ -258,17 +300,28 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         except ImportError as e:
             parser.error(f"--render_interval: {e}")
     device = resolve_device(None if args.device == "cuda" else args.device)
+    return launch_trainer(run, args, device)
 
+
+def run(args, device) -> Tuple[Optional[TrainState], Dict]:
+    """One rank of :func:`main` (the whole run at one rank)."""
+    device = process_device(device)
     rng = seed_everything(args.seed)
+    mesh = make_mesh(batch_size=args.batch_size, device=device)
+    if mesh is None:  # a rank the batch's divisor rule leaves out
+        return None, {}
+    rank0 = is_rank0(mesh)
     track = SkeletonTrackConfig(past_len=args.past_len,
                                 future_len=args.future_len,
                                 embedding_dim=args.embedding_dim,
                                 ff_size=args.ff_size,
                                 num_layers=args.num_layers)
     model = track.build_model(device)
-    load_weights(model, args.resume_checkpoint)
-    if args.resume_checkpoint:
-        print(f"resumed parameters from {args.resume_checkpoint}")
+    if rank0:  # the other ranks receive rank 0's weights in `train`
+        load_weights(model, args.resume_checkpoint)
+        if args.resume_checkpoint:
+            print(f"resumed parameters from {args.resume_checkpoint}")
+        snapshot_sources(args.results_dir, SNAPSHOT)
     val_diffusion = None
     if args.val_respacing:
         val_diffusion = DiffusionConfig(
@@ -310,10 +363,11 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         validate_every_epoch=bool(args.synthetic),
         val_diffusion=val_diffusion, val_batch=val_batch,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        profiler=TrainProfiler.from_args(args, args.results_dir, device),
+        profiler=TrainProfiler.from_args(args, args.results_dir, device)
+        if rank0 else None,
         # every validation renders under --synthetic, as in JAX
         render_interval=(1 if args.synthetic else args.render_interval)
-        if args.render_interval else 0)
+        if args.render_interval else 0, mesh=mesh)
 
 
 if __name__ == "__main__":

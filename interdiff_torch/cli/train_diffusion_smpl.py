@@ -34,6 +34,16 @@ validation under ``--synthetic``, on the 128-vertex stand-in body there).
 ``--resume_checkpoint`` takes a state-dict file of the port
 (`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here).
 
+Data parallelism, as the JAX trainer runs over every local device: on a
+machine with several cards it spawns one rank a card (under ``torchrun``
+each process is a rank; ``torchrun --nproc_per_node 2 -m
+interdiff_torch.cli.train_diffusion_smpl --device cpu ...`` runs two gloo
+ranks on the CPU), the mesh takes the largest count of ranks that divides
+``--batch_size`` (`parallel/mesh.py::make_mesh`), every rank steps its rows
+of each batch through `train/trainer.py::data_parallel_step`, and rank 0
+alone validates, renders, profiles and writes ``ckpt/``, ``ckpt_ema/``,
+``metrics.jsonl`` and ``src_snapshot/``.  With one card it is one rank.
+
 ``main`` builds the objects from the flags; ``train`` is the loop itself, on
 any model and any source of batches.  It writes ``<results_dir>/ckpt/``
 (the weights), ``ckpt_ema/`` (the EMA shadow, with ``--ema_decay``) and
@@ -60,10 +70,12 @@ from interdiff_torch.cli.common import (
     batch_iterator,
     check_data_args,
     check_render_interval,
+    launch_trainer,
     load_smpl_models,
     load_weights,
     render_smpl_sample,
     seed_everything,
+    snapshot_sources,
     stack_batches,
     synthetic_smpl_batches,
     synthetic_smpl_body,
@@ -83,6 +95,15 @@ from interdiff_torch.eval.smpl_short import (
     state_to_axis_angle,
 )
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    is_rank0,
+    make_mesh,
+    process_device,
+    replicated,
+    sync_generator,
+    wait_for_rank0,
+)
 from interdiff_torch.parallel.sample_parallel import tile_for_diverse_samples
 from interdiff_torch.smpl.model import SmplModel
 from interdiff_torch.train.losses import (
@@ -93,6 +114,7 @@ from interdiff_torch.train.trainer import (
     TrainState,
     adamw,
     chain_steps,
+    data_parallel_step,
     make_smpl_train_step,
     merge_bn_state,
     split_bn_state,
@@ -100,6 +122,9 @@ from interdiff_torch.train.trainer import (
 from interdiff_torch.utils.train_io import CheckpointManager, MetricsLogger
 
 KEEP = ("body_pose", "body_trans", "obj_angles", "obj_trans", "obj_points")
+SNAPSHOT = ("interdiff_torch.models.mdm_smpl", "interdiff_torch.train.trainer",
+            "interdiff_torch.train.losses",
+            "interdiff_torch.diffusion.gaussian")
 Batch = Dict[str, np.ndarray]
 
 
@@ -189,7 +214,8 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
           on_step: Optional[Callable] = None,
           profiler: Optional[TrainProfiler] = None,
           render_interval: int = 0,
-          render_smpl: Optional[SmplModel] = None
+          render_smpl: Optional[SmplModel] = None,
+          mesh: Optional[DataMesh] = None
           ) -> Tuple[TrainState, Dict]:
     """The training loop (`interdiff_tpu/cli/train_diffusion_smpl.py:341-429`)
     on the model's device; returns (the final `TrainState`, a summary with
@@ -208,10 +234,19 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
     sections ``batch_place`` and ``train_step``.  Every ``render_interval``
     validations (none at 0) `make_validation_render` writes
     ``<results_dir>/render/epoch<e>.gif`` on the body ``render_smpl``.
+
+    With a data ``mesh`` rank 0's weights go to every rank, each rank steps
+    its rows of every batch (`data_parallel_step`), and rank 0 alone
+    prints, validates (as a run of one rank does, on the whole validation
+    batch; the generator's state is then broadcast, so the ranks keep
+    drawing alike), renders and writes; the other ranks' summaries hold no
+    validation.
     """
     if render_interval and render_smpl is None:
         raise ValueError("render_interval needs the body `render_smpl`")
     device = next(model.parameters()).device
+    rank0 = is_rank0(mesh)
+    replicated(model, mesh)
     spd = max(1, steps_per_dispatch)
     sampler_state = None
     if schedule_sampler == "loss-second-moment":
@@ -230,21 +265,27 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
                                 bn_train_mode=bn_train_mode)
     if spd > 1:
         step = chain_steps(step)
+    place = None
+    if mesh is not None:
+        step = data_parallel_step(step, mesh, batch_axis=1 if spd > 1 else 0)
+        place = lambda stacked: step.place_batch(stacked, KEEP)  # noqa: E731
 
-    ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
-    ckpt_ema = (CheckpointManager(os.path.join(results_dir, "ckpt_ema"))
-                if ema_decay > 0 else None)
-    logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
-    # with EMA on, validation (and so the choice of the best checkpoint)
-    # scores the shadow weights, loaded into a second module
-    val_model = copy.deepcopy(model) if ema_decay > 0 else model
-    run_validation = make_validation(
-        val_model, val_diffusion or diffusion, past_len=model.past_len,
-        future_len=model.future_len, val_diverse=val_diverse)
-    render = make_validation_render(
-        val_model, val_diffusion or diffusion, render_smpl,
-        past_len=model.past_len, future_len=model.future_len) \
-        if render_interval else None
+    ckpt = ckpt_ema = logger = run_validation = render = None
+    if rank0:
+        ckpt = CheckpointManager(os.path.join(results_dir, "ckpt"))
+        ckpt_ema = (CheckpointManager(os.path.join(results_dir, "ckpt_ema"))
+                    if ema_decay > 0 else None)
+        logger = MetricsLogger(os.path.join(results_dir, "metrics.jsonl"))
+        # with EMA on, validation (and so the choice of the best
+        # checkpoint) scores the shadow weights, loaded into a second module
+        val_model = copy.deepcopy(model) if ema_decay > 0 else model
+        run_validation = make_validation(
+            val_model, val_diffusion or diffusion, past_len=model.past_len,
+            future_len=model.future_len, val_diverse=val_diverse)
+        render = make_validation_render(
+            val_model, val_diffusion or diffusion, render_smpl,
+            past_len=model.past_len, future_len=model.future_len) \
+            if render_interval else None
 
     prof = profiler if profiler is not None else TrainProfiler(results_dir)
     i, n_vals, summary = 0, 0, {"val_loss": [], "val_terms": []}
@@ -252,10 +293,10 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
         for epoch in range(epochs):
             batch_np = None
             for batch_np, batch in stack_batches(
-                    epoch_batches(), spd, device, KEEP, prof.section):
+                    epoch_batches(), spd, device, KEEP, prof.section, place):
                 with prof.section("train_step"):
                     state, metrics = step(state, batch, generator)
-                if (i // spd) % max(1, 10 // spd) == 0:
+                if rank0 and (i // spd) % max(1, 10 // spd) == 0:
                     # chained dispatches return stacked [K] metrics: log the
                     # mean
                     loss = float(metrics["loss"].mean())
@@ -265,36 +306,43 @@ def train(model: MDMSmpl, diffusion: GaussianDiffusion,
                 if on_step is not None:
                     on_step(i, state, metrics)
             if (epoch + 1) % val_every == 0 or validate_every_epoch:
-                if state.ema_params is not None:
-                    val_model.load_state_dict(
-                        merge_bn_state(state.ema_params, state.model_state),
-                        strict=True)
-                val_loss, val_terms = run_validation(
-                    batch_np if val_batch is None else val_batch, generator)
-                logger.log(i, {"val_loss": val_loss, **val_terms},
-                           epoch=epoch)
-                print(f"epoch {epoch} val_loss {val_loss:.4f}", flush=True)
-                summary["val_loss"].append(val_loss)
-                summary["val_terms"].append(val_terms)
-                ckpt.save(i, merge_bn_state(state.params, state.model_state),
-                          val_loss=val_loss)
-                if ckpt_ema is not None:
-                    ckpt_ema.save(i, merge_bn_state(state.ema_params,
-                                                    state.model_state),
-                                  val_loss=val_loss)
-                n_vals += 1
-                if render is not None and n_vals % render_interval == 0:
-                    render(batch_np if val_batch is None else val_batch,
-                           generator, os.path.join(
-                               results_dir, "render", f"epoch{epoch}.gif"))
+                if rank0:
+                    vb = batch_np if val_batch is None else val_batch
+                    if state.ema_params is not None:
+                        val_model.load_state_dict(merge_bn_state(
+                            state.ema_params, state.model_state), strict=True)
+                    val_loss, val_terms = run_validation(vb, generator)
+                    logger.log(i, {"val_loss": val_loss, **val_terms},
+                               epoch=epoch)
+                    print(f"epoch {epoch} val_loss {val_loss:.4f}",
+                          flush=True)
+                    summary["val_loss"].append(val_loss)
+                    summary["val_terms"].append(val_terms)
+                    ckpt.save(i, merge_bn_state(state.params,
+                                                state.model_state),
+                              val_loss=val_loss)
+                    if ckpt_ema is not None:
+                        ckpt_ema.save(i, merge_bn_state(state.ema_params,
+                                                        state.model_state),
+                                      val_loss=val_loss)
+                    n_vals += 1
+                    if render is not None and n_vals % render_interval == 0:
+                        render(vb, generator, os.path.join(
+                            results_dir, "render", f"epoch{epoch}.gif"))
+                # the other ranks wait for rank 0's validation, outside the
+                # collectives; rank 0 drew the validation noise, so its
+                # generator state goes to every rank
+                wait_for_rank0(mesh)
+                sync_generator(generator, mesh)
     finally:
         prof.finish()
-    ckpt.wait()
-    if ckpt_ema is not None:
-        ckpt_ema.wait()
-    logger.close()
     summary["steps"] = i
-    print("done:", i, "steps", flush=True)
+    if rank0:
+        ckpt.wait()
+        if ckpt_ema is not None:
+            ckpt_ema.wait()
+        logger.close()
+        print("done:", i, "steps", flush=True)
     return state, summary
 
 
@@ -391,23 +439,37 @@ def dataset_batches(args, smpl_models, rng: np.random.Generator
     return epoch_batches, val_batch
 
 
-def main(argv=None) -> Tuple[TrainState, Dict]:
+def main(argv=None) -> Tuple[Optional[TrainState], Dict]:
+    """Parse the flags and train on one rank a visible card
+    (`cli/common.py::launch_trainer`); returns (the state, the summary), or
+    (None, rank 0's summary) from spawned ranks."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_data_args(parser, args)
     check_render_interval(parser, args.render_interval)
     device = resolve_device(None if args.device == "cuda" else args.device)
+    return launch_trainer(run, args, device)
 
+
+def run(args, device) -> Tuple[Optional[TrainState], Dict]:
+    """One rank of :func:`main` (the whole run at one rank)."""
+    device = process_device(device)
     rng = seed_everything(args.seed)
+    mesh = make_mesh(batch_size=args.batch_size, device=device)
+    if mesh is None:  # a rank the batch's divisor rule leaves out
+        return None, {}
+    rank0 = is_rank0(mesh)
     track = SmplTrackConfig(past_len=args.past_len,
                             future_len=args.future_len,
                             embedding_dim=args.embedding_dim,
                             ff_size=args.ff_size, num_layers=args.num_layers,
                             use_pointnet2=bool(args.use_pointnet2))
     model = track.build_model(device)
-    load_weights(model, args.resume_checkpoint)
-    if args.resume_checkpoint:
-        print(f"resumed parameters from {args.resume_checkpoint}")
+    if rank0:  # the other ranks receive rank 0's weights in `train`
+        load_weights(model, args.resume_checkpoint)
+        if args.resume_checkpoint:
+            print(f"resumed parameters from {args.resume_checkpoint}")
+        snapshot_sources(args.results_dir, SNAPSHOT)
     val_diffusion = None
     if args.val_respacing:
         val_diffusion = DiffusionConfig(
@@ -440,11 +502,12 @@ def main(argv=None) -> Tuple[TrainState, Dict]:
         val_diverse=args.val_diverse, val_diffusion=val_diffusion,
         val_batch=val_batch,
         generator=torch.Generator(device=device).manual_seed(args.seed),
-        profiler=TrainProfiler.from_args(args, args.results_dir, device),
+        profiler=TrainProfiler.from_args(args, args.results_dir, device)
+        if rank0 else None,
         # every validation renders under --synthetic, as in JAX
         render_interval=(1 if args.synthetic else args.render_interval)
         if args.render_interval else 0,
-        render_smpl=render_smpl)
+        render_smpl=render_smpl, mesh=mesh)
 
 
 if __name__ == "__main__":

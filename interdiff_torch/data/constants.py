@@ -120,3 +120,45 @@ OBJ_CONNECTS = {
 
 # Full-resolution object templates (`data/utils.py:42-62`).
 FULL_MESH = {k: f"{k}/{k}.obj" for k in SIMPLIFIED_MESH}
+
+
+# SMPL-H landmark vertices of the extra joints (`data/utils.py:150-162`).
+SMPLH_VERTEX_INDEX = {
+    "nose": 332, "reye": 6260, "leye": 2800, "rear": 4071, "lear": 583,
+    "rthumb": 6191, "rindex": 5782, "rmiddle": 5905, "rring": 6016,
+    "rpinky": 6133, "lthumb": 2746, "lindex": 2319, "lmiddle": 2445,
+    "lring": 2556, "lpinky": 2673, "LBigToe": 3216, "LSmallToe": 3226,
+    "LHeel": 3387, "RBigToe": 6617, "RSmallToe": 6624, "RHeel": 6787,
+}
+
+
+def vertex_joint_selector_ids(*, use_hands: bool = True,
+                              use_feet_keypoints: bool = True) -> np.ndarray:
+    """Extra-joint vertex ids in the reference's VertexJointSelector order
+    (`data/utils.py:164-215`): feet keypoints first, then the left and
+    right fingertips."""
+    ids: list = []
+    if use_feet_keypoints:
+        ids += [SMPLH_VERTEX_INDEX[k] for k in
+                ("LBigToe", "LSmallToe", "LHeel",
+                 "RBigToe", "RSmallToe", "RHeel")]
+    if use_hands:
+        ids += [SMPLH_VERTEX_INDEX[h + t] for h in ("l", "r")
+                for t in ("thumb", "index", "middle", "ring", "pinky")]
+    return np.asarray(ids, dtype=np.int32)
+
+
+def select_extra_joints(vertices, joints, *, use_hands: bool = True,
+                        use_feet_keypoints: bool = True):
+    """VertexJointSelector.forward (`data/utils.py:209-215`): the landmark
+    vertices appended to the joint set, [B, V, 3], [B, J, 3] -> [B, J+E, 3];
+    numpy arrays or torch tensors."""
+    ids = vertex_joint_selector_ids(
+        use_hands=use_hands, use_feet_keypoints=use_feet_keypoints)
+    if isinstance(joints, np.ndarray):
+        return np.concatenate([joints, vertices[:, ids]], axis=1)
+    import torch
+
+    extra = vertices[:, torch.as_tensor(ids, dtype=torch.int64,
+                                        device=vertices.device)]
+    return torch.cat([joints, extra], dim=1)

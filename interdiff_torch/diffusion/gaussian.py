@@ -34,6 +34,7 @@ from interdiff_torch.diffusion.losses import (
     mean_flat,
     normal_kl,
 )
+from interdiff_torch.parallel.mesh import randn_rows
 
 
 class ModelMeanType(enum.Enum):
@@ -352,8 +353,7 @@ class GaussianDiffusion:
                                    clip_denoised=clip_denoised,
                                    denoised_fn=denoised_fn, inpaint=inpaint)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+            noise = randn_rows(x.shape, generator, x.device, x.dtype)
         if const_noise:
             noise = noise[:1].expand(noise.shape)
         nonzero_mask = (t != 0).to(x.dtype).reshape(
@@ -371,7 +371,7 @@ class GaussianDiffusion:
         skipped), else a draw from ``generator`` with the overwrite."""
         if noise is not None:
             return noise
-        img = torch.randn(shape, generator=generator, device=self.device)
+        img = randn_rows(shape, generator, self.device)
         if inpaint is not None:
             img = torch.where(inpaint.mask, inpaint.motion, img)
         return img
@@ -438,8 +438,7 @@ class GaussianDiffusion:
                      + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
         sample = mean_pred
         if eta != 0.0:
-            noise = torch.randn(x.shape, generator=generator, device=x.device,
-                                dtype=x.dtype)
+            noise = randn_rows(x.shape, generator, x.device, x.dtype)
             nonzero_mask = (t != 0).to(x.dtype).reshape(
                 (-1,) + (1,) * (nd - 1))
             sample = mean_pred + nonzero_mask * sigma * noise

@@ -10,8 +10,12 @@ Its state is two small tensors (``loss_history`` [T, history] float32,
 ``(t, loss)`` at a time, in order, so two equal ``t`` in a batch land as in
 the JAX package's scan, and that sequential walk belongs on the host.  It
 costs one read of the batch's ``t`` and losses per train step.  Draws take
-an explicit `torch.Generator` and are made on that generator's device.
-The all-gather across replicas (``axis_name``) is not ported.
+an explicit `torch.Generator` and are made on that generator's device;
+under a data mesh they are made for the global batch and cut to the rank's
+rows (`parallel/mesh.py::draw_rows`).  On a mesh ``update`` first gathers
+every rank's ``t`` and losses in rank order, which is the global batch's
+row order (the JAX package's ``all_gather`` over ``axis_name``), so every
+rank folds in the same pairs in the same order and the states stay equal.
 """
 
 from __future__ import annotations
@@ -20,6 +24,12 @@ from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
+
+from interdiff_torch.parallel.mesh import (
+    active_mesh,
+    all_gather_rows,
+    draw_rows,
+)
 
 
 def _generator_device(generator: Optional[torch.Generator]) -> torch.device:
@@ -36,8 +46,9 @@ class UniformSampler:
         generator's when not given)."""
         if device is None:
             device = _generator_device(generator)
-        t = torch.randint(0, self.num_timesteps, (batch_size,),
-                          generator=generator, device=device)
+        t = draw_rows(lambda n: torch.randint(
+            0, self.num_timesteps, (n,), generator=generator, device=device),
+            batch_size)
         return t, torch.ones((batch_size,), dtype=torch.float32,
                              device=device)
 
@@ -87,15 +98,21 @@ class LossSecondMomentResampler:
         """t ~ p [batch] int64 and the weights 1 / (T * p[t]), on the
         generator's device."""
         p = self.weights(state).to(_generator_device(generator))
-        t = torch.multinomial(p, batch_size, replacement=True,
-                              generator=generator)
+        t = draw_rows(lambda n: torch.multinomial(
+            p, n, replacement=True, generator=generator), batch_size)
         return t, (1.0 / (self.num_timesteps * p[t])).to(torch.float32)
 
     def update(self, state: LossSecondMomentState, ts: torch.Tensor,
                losses: torch.Tensor) -> LossSecondMomentState:
         """Fold a batch of (t, loss) pairs into the history, in order:
-        append while a ring has room, else drop its oldest entry.  Returns
-        a new state; the old one is left as it was."""
+        append while a ring has room, else drop its oldest entry.  Under an
+        active data mesh (`parallel/mesh.py::use_mesh`), every rank's pairs
+        in rank order.  Returns a new state; the old one is left as it
+        was."""
+        mesh = active_mesh()
+        if mesh is not None:
+            ts = all_gather_rows(ts.detach(), mesh)
+            losses = all_gather_rows(losses.detach().to(torch.float32), mesh)
         hist = state.loss_history.clone()
         counts = state.loss_counts.clone()
         H = self.history_per_term

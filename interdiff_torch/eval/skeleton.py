@@ -32,6 +32,7 @@ from interdiff_torch.models.mdm_skeleton import (
     MDMSkeleton,
     rigid_keypoints_from_pose,
 )
+from interdiff_torch.parallel.mesh import randn_rows
 
 
 @dataclass(frozen=True)
@@ -157,8 +158,7 @@ def make_skeleton_sampler(
                 cfg, projector, gt=gt, zero_pose_obj=zero_pose_obj,
                 trace=trace)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device, dtype=gt.dtype)
+            noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
         kwargs = dict(noise=noise, generator=generator,
                       inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
 

@@ -35,6 +35,7 @@ from interdiff_torch.ops.signed_distance import (
     signed_nearest,
     signed_nearest_pruned,
 )
+from interdiff_torch.parallel.mesh import randn_rows
 from interdiff_torch.smpl.model import SmplModel, smpl_forward
 
 
@@ -241,8 +242,7 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
                 betas=betas, obj_points=obj_points6[..., :3],
                 markers_idx=markers_idx, trace=trace)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device, dtype=gt.dtype)
+            noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
         kwargs = dict(noise=noise, generator=generator,
                       inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
 

@@ -127,3 +127,19 @@ def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
     b2 = b2 / torch.linalg.norm(b2, dim=-1, keepdim=True)
     b3 = torch.linalg.cross(b1, b2, dim=-1)
     return torch.stack([b1, b2, b3], dim=-2)
+
+
+def batch_rodrigues_smpl(axis_angle: torch.Tensor) -> torch.Tensor:
+    """Axis-angle [..., 3] -> rotation matrix [..., 3, 3] with libsmpl's
+    arithmetic (`libsmpl/smplpytorch/pytorch/rodrigues_layer.py:41-52`):
+    the angle is the norm of ``aa + 1e-8`` (the bias added to every
+    component before the norm), the axis ``aa`` over that angle, through a
+    quaternion normalised again before the matrix, so that forward
+    kinematics agree with the reference to float32 rounding even at the
+    zero pose."""
+    angle = torch.linalg.norm(axis_angle + 1e-8, dim=-1, keepdim=True)
+    axis = axis_angle / angle
+    half = angle * 0.5
+    quat = torch.cat([torch.cos(half), torch.sin(half) * axis], dim=-1)
+    quat = quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
+    return quaternion_to_matrix(quat)

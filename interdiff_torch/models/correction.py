@@ -17,7 +17,9 @@ shapes do not depend on the data.
 ``train=True`` runs the ST-GCNN layers in train mode (batch statistics,
 the running ones moved by momentum; dropout from ``generator``) and, on the
 SMPL track, draws the marker multinomially instead of taking the first
-maximum.
+maximum.  Under a data mesh the statistics are the global batch's, the
+marker draw is made for the global batch and dropout draws from the rank's
+own stream (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from interdiff_torch.geometry.rotations import (
     rotation_6d_to_matrix,
 )
 from interdiff_torch.models.layers import STGCNNLayer
+from interdiff_torch.parallel.mesh import draw_rows
 
 
 def pad_future_with_last_past(x: torch.Tensor, past_len: int) -> torch.Tensor:
@@ -178,9 +181,13 @@ class ObjProjectorSmpl(nn.Module):
         elif train:
             # contact counts are never negative in real data; a random
             # batch's are clamped, where the JAX package's log turns them
-            # into NaN logits
-            idx = torch.multinomial(weights.clamp(min=0.0), 1,
-                                    generator=generator)[:, 0]
+            # into NaN logits.  The categorical draw is torch.multinomial's
+            # own for one sample, argmax(w / q) with q ~ Exp(1), its q drawn
+            # for the global batch under a data mesh (`draw_rows`)
+            q = draw_rows(lambda n: torch.empty(
+                (n,) + tuple(weights.shape[1:]), device=weights.device
+            ).exponential_(1.0, generator=generator), weights.shape[0])
+            idx = torch.argmax(weights.clamp(min=0.0) / q, dim=-1)
         else:
             idx = torch.argmax(weights, dim=-1)  # first maximum on ties
         B, T = results.shape[:2]

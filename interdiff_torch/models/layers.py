@@ -23,7 +23,7 @@ the JAX package's default diffusion train step optimises them.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from interdiff_torch.ops.attention import (
     banded_qan_attention,
     multi_head_attention,
 )
+from interdiff_torch.parallel.mesh import active_mesh, all_reduce_sum
 
 
 def dropout(x: torch.Tensor, rate: float, train: bool,
@@ -41,9 +42,15 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     """flax's ``nn.Dropout``: in train mode with ``rate`` > 0, each element
     kept with probability 1 - rate (a uniform draw from ``generator`` below
     it) and scaled by 1 / (1 - rate), the others zeroed; otherwise ``x``
-    itself, with no draw."""
+    itself, with no draw.  Under a data mesh of more than one rank the mask
+    comes from the rank's own stream (`DataMesh.rank_stream`): no two ranks
+    share masks.  At one rank it comes from ``generator``, as without a
+    mesh."""
     if not train or rate == 0.0:
         return x
+    mesh = active_mesh()
+    if mesh is not None and mesh.size > 1:
+        generator = mesh.rank_stream(generator, x.device)
     keep = 1.0 - rate
     mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, 0.0)
@@ -302,6 +309,16 @@ class BatchNormState(nn.Module):
     as max(0, E[x^2] - E[x]^2) (biased), gradients through both, and the
     running statistics moved in place to 0.9 * running + 0.1 * batch (the
     biased variance, where `torch.nn.BatchNorm` stores the unbiased one).
+
+    Under a data mesh of more than one rank (`parallel/mesh.py::use_mesh`)
+    the statistics are the global batch's, as under JAX's jit on a sharded
+    batch: the per-channel sum, sum of squares and count go through a
+    differentiable all-reduce (its backward all-reduces the cotangent, so
+    each rank's gradient holds the cross terms through every rank's rows),
+    the same arithmetic then gives mean and variance, and the running
+    statistics, moved by them, stay equal on every rank.  At one rank the
+    local statistics are the global ones: the arithmetic is that without a
+    mesh, bit for bit.
     """
 
     def __init__(self, channels: int, eps: float = 1e-5,
@@ -319,8 +336,18 @@ class BatchNormState(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             axes = tuple(range(x.ndim - 1))
-            mean = x.mean(dim=axes)
-            var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            mesh = active_mesh()
+            if mesh is None or mesh.size == 1:
+                mean = x.mean(dim=axes)
+                var = ((x * x).mean(dim=axes) - mean * mean).clamp(min=0.0)
+            else:
+                C = x.shape[-1]
+                count = x.new_full((1,), x.numel() // C)
+                sums = all_reduce_sum(torch.cat(
+                    [x.sum(dim=axes), (x * x).sum(dim=axes), count]), mesh)
+                mean = sums[:C] / sums[2 * C]
+                var = (sums[C:2 * C] / sums[2 * C]
+                       - mean * mean).clamp(min=0.0)
             with torch.no_grad():
                 for running, batch in ((self.running_mean, mean),
                                        (self.running_var, var)):
@@ -347,6 +374,52 @@ class BatchNorm(BatchNormState):
         for name in ("running_mean", "running_var"):
             value = self._buffers.pop(name)
             self.register_parameter(name, nn.Parameter(value))
+
+
+def nerf_embedder(multires: int, input_dims: int = 3, *,
+                  include_input: bool = True, log_sampling: bool = True
+                  ) -> Tuple[Callable[[torch.Tensor], torch.Tensor], int]:
+    """NeRF positional encoding factory (`interdiff/model/layers.py:48-96`,
+    unused by the main path): ``(embed, out_dim)`` with ``embed(x) = [x?,
+    sin(x f_0), cos(x f_0), ..., sin(x f_{L-1}), cos(x f_{L-1})]``, the
+    frequencies ``2 ** linspace(0, L-1, L)`` (log sampling) or linearly
+    spaced from 1 to ``2 ** (L-1)``, as float32; ``multires == -1`` is the
+    identity."""
+    if multires == -1:
+        return (lambda x: x), input_dims
+    max_freq = multires - 1
+    if log_sampling:
+        freqs = 2.0 ** np.linspace(0.0, max_freq, multires)
+    else:
+        freqs = np.linspace(2.0 ** 0.0, 2.0 ** max_freq, multires)
+    freqs = [float(f) for f in freqs.astype(np.float32)]
+    out_dim = (input_dims if include_input else 0) + 2 * multires * input_dims
+
+    def embed(x: torch.Tensor) -> torch.Tensor:
+        parts = [x] if include_input else []
+        for f in freqs:  # [sin, cos] per frequency
+            parts.append(torch.sin(x * f))
+            parts.append(torch.cos(x * f))
+        return torch.cat(parts, dim=-1)
+
+    return embed, out_dim
+
+
+class NormalDistDecoder(nn.Module):
+    """Feature -> diagonal-Normal head (`interdiff/model/layers.py:98-108`,
+    unused by the main path): ``(mu, sigma)`` with ``sigma = exp(0.5 *
+    logvar)``, the input flattened to [-1, num_feat_in]; the dense layers
+    keep the flax names ``mu`` and ``logvar``."""
+
+    def __init__(self, num_feat_in: int, latent_dim: int):
+        super().__init__()
+        self.num_feat_in = num_feat_in
+        self.mu = nn.Linear(num_feat_in, latent_dim)
+        self.logvar = nn.Linear(num_feat_in, latent_dim)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x.reshape(-1, self.num_feat_in)
+        return self.mu(x), torch.exp(0.5 * self.logvar(x))
 
 
 def _uniform(shape: Tuple[int, ...], bound: float) -> nn.Parameter:

@@ -6,8 +6,21 @@ correction networks' steps with Adam.
 Where the JAX package threads an immutable `TrainState` through a jitted
 function, the port updates in place: the parameters live in the `MDMSmpl`
 module, ``state.params`` names them, the optimiser steps them, and a step
-returns the same state object with its counter advanced.  The
-data-parallel wrapper (`data_parallel_step`) is not ported yet.
+returns the same state object with its counter advanced.
+
+Data parallelism (`data_parallel_step`, `interdiff_tpu/train/trainer.py:
+422-448`): each rank steps its own rows of the global batch inside
+`parallel/mesh.py::use_mesh`, where every step computes what the JAX
+package's jitted step computes on the whole sharded batch.  The timesteps,
+the noise and the SMPL projector's marker choice are drawn for the global
+batch from the shared generator (seeded alike on every rank) and cut to the
+rank's rows; each rank's loss is its share of the global mean (its local
+mean / W: every term is a mean over rows, and the shards are equal); the
+gradients are SUM all-reduced in one flattened buffer before the optimiser
+(so with the BatchNorm all-reduce's backward they are the global batch's,
+cross terms included); the metrics come back as global means and the
+loss-second-moment resampler folds in every rank's pairs in row order.  The
+optimiser, the EMA shadow and the resampler stay equal on every rank.
 
 BatchNorm modes.  Default: the encoder's BatchNorms normalise with their
 running statistics, which are parameters, are differentiated and are stepped
@@ -48,6 +61,15 @@ from interdiff_torch.models.correction import (
 )
 from interdiff_torch.models.mdm_skeleton import MDMSkeleton
 from interdiff_torch.models.mdm_smpl import MDMSmpl, smpl_gt_from_raw
+from interdiff_torch.parallel.mesh import (
+    DataMesh,
+    active_mesh,
+    all_reduce_grads,
+    mean_metrics,
+    randn_rows,
+    shard_batch,
+    use_mesh,
+)
 from interdiff_torch.train.losses import (
     SkeletonLossWeights,
     SmplLossWeights,
@@ -59,6 +81,7 @@ from interdiff_torch.train.losses_correction import (
     correction_skeleton_losses,
     correction_smpl_losses,
 )
+from interdiff_torch.utils.prefetch import place_batch
 from interdiff_torch.utils.train_io import quartile_metrics
 
 Params = Dict[str, torch.Tensor]
@@ -114,6 +137,28 @@ class TrainState:
             update_ema(self.ema_params, self.params, rate=self.ema_rate)
         self.step += 1
         return self
+
+
+def _optimise(state, loss: torch.Tensor) -> None:
+    """Backward and one optimiser step.  Under a data mesh of W ranks the
+    rank's loss is its share of the global mean (loss / W) and the
+    gradients are SUM all-reduced before the optimiser."""
+    mesh = active_mesh()
+    state.optimizer.zero_grad(set_to_none=True)
+    if mesh is None:
+        loss.backward()
+    else:
+        (loss / mesh.size).backward()
+        all_reduce_grads(state.params.values(), mesh)
+    state.apply_gradients()
+
+
+def _metrics(terms: Dict[str, torch.Tensor], loss: torch.Tensor
+             ) -> Dict[str, torch.Tensor]:
+    """The detached terms and ``loss``, as global means under a mesh."""
+    metrics = {k: v.detach() for k, v in terms.items()}
+    metrics["loss"] = loss.detach()
+    return mean_metrics(metrics, active_mesh())
 
 
 def sample_timesteps(generator: Optional[torch.Generator], batch: int,
@@ -175,8 +220,7 @@ def make_skeleton_train_step(
             t, _ = sample_timesteps(generator, gt.shape[0],
                                     diffusion.num_timesteps, gt.device)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device, dtype=gt.dtype)
+            noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
 
         def model_fn(x, ts):
             return model.denoise(x, ts, zero_pose, memory)
@@ -186,12 +230,8 @@ def make_skeleton_train_step(
             pred, target, past_len=model.past_len,
             num_joints=model.num_joints, num_points=model.num_points,
             weights=weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
-        metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["loss"] = loss.detach()
-        return state, metrics
+        _optimise(state, loss)
+        return state, _metrics(terms, loss)
 
     return step
 
@@ -292,8 +332,7 @@ def make_smpl_train_step(
                                             state.sampler_state)
             t, sampler_w = t.to(gt.device), sampler_w.to(gt.device)
         if noise is None:
-            noise = torch.randn(gt.shape, generator=generator,
-                                device=gt.device, dtype=gt.dtype)
+            noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
 
         def model_fn(x, ts):
             return model.denoise(x, ts, memory)
@@ -303,19 +342,16 @@ def make_smpl_train_step(
             pred, target, past_len=model.past_len, smpl_dim=model.smpl_dim,
             weights=weights)
         loss = (per_sample * sampler_w).mean()
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
+        _optimise(state, loss)
 
         per_sample = per_sample.detach()
-        metrics = {k: v.detach().mean() for k, v in terms.items()}
-        metrics["loss"] = loss.detach()
+        metrics = _metrics({k: v.mean() for k, v in terms.items()}, loss)
         for q, v in quartile_metrics(t, per_sample,
                                      diffusion.num_timesteps).items():
             metrics[f"loss_{q}"] = v
         if resampler is not None:
-            state.sampler_state = resampler.update(state.sampler_state, t,
-                                                   per_sample)
+            state.sampler_state = resampler.update(
+                state.sampler_state, t, per_sample)
         return state, metrics
 
     return step
@@ -409,12 +445,8 @@ def make_correction_smpl_train_step(
             obj_pred, obj_gt, past_len=projector.past_len,
             obj_points=batch["obj_points"], human_verts=batch["human_verts"],
             epoch=epoch, weights=weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
-        metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["loss"] = loss.detach()
-        return state, metrics
+        _optimise(state, loss)
+        return state, _metrics(terms, loss)
 
     return step
 
@@ -443,12 +475,8 @@ def make_correction_skeleton_train_step(
         obj_gt = torch.cat([quat_gt, trans_gt], dim=-1)
         loss, terms = correction_skeleton_losses(
             obj_pred, obj_gt, past_len=projector.past_len, weights=weights)
-        state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        state.apply_gradients()
-        metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["loss"] = loss.detach()
-        return state, metrics
+        _optimise(state, loss)
+        return state, _metrics(terms, loss)
 
     return step
 
@@ -475,3 +503,33 @@ def chain_steps(step_fn: Callable) -> Callable:
                        for name in rows[0]}
 
     return step_many
+
+
+def data_parallel_step(step_fn: Callable, mesh: Optional[DataMesh], *,
+                       extra_args: int = 1, batch_axis: int = 0) -> Callable:
+    """A train step ``(state, batch, *extras, **kwargs) -> (state,
+    metrics)`` over the data mesh (`interdiff_tpu/train/trainer.py:422-
+    448`): each rank calls it with its own rows of the global batch (and of
+    any explicit draw, ``t``, ``noise`` or ``marker_idx``), the state
+    replicated, and gets back the same state as every other rank and the
+    global batch's metrics (see the module's docstring).  ``extra_args``
+    counts the trailing positional arguments every rank passes alike (the
+    generator, the epoch).  ``batch_axis``: the rows' axis, 1 for a
+    `chain_steps` step's stacked batch [K, B, ...].
+
+    ``.place_batch(global batch, keys=None)`` cuts a host batch to this
+    rank's rows on its device (`parallel/mesh.py::shard_batch`).  At one
+    rank, with a process group or without, it computes what ``step_fn``
+    does, bit for bit."""
+
+    def step(state, batch, *extras, **kwargs):
+        if len(extras) > extra_args:
+            raise TypeError(f"{len(extras)} trailing arguments, the step "
+                            f"takes {extra_args}")
+        with use_mesh(mesh):
+            return step_fn(state, batch, *extras, **kwargs)
+
+    step.place_batch = lambda batch, keys=None: place_batch(
+        shard_batch(batch, mesh, axis=batch_axis),
+        mesh.device if mesh is not None else "cpu", keys)
+    return step

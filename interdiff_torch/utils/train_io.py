@@ -20,6 +20,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from interdiff_torch.parallel.mesh import active_mesh
 from interdiff_torch.utils.convert import load_state_dict, save_state_dict
 
 
@@ -99,11 +100,18 @@ class MetricsLogger:
 def quartile_metrics(t: torch.Tensor, per_sample_loss: torch.Tensor,
                      num_timesteps: int) -> Dict[str, torch.Tensor]:
     """Per-diffusion-timestep-quartile loss logging
-    (`train_diffusion_smpl.py:168-175`)."""
+    (`train_diffusion_smpl.py:168-175`).  Under an active data mesh
+    (`parallel/mesh.py::use_mesh`) each quartile's sum and count are
+    all-reduced first: the global batch's means."""
+    mesh = active_mesh()
     quartile = (4 * t) // num_timesteps
-    out = {}
+    sums, counts = [], []
     for q in range(4):
         mask = (quartile == q).to(torch.float32)
-        out[f"q{q}"] = ((per_sample_loss * mask).sum()
-                        / mask.sum().clamp(min=1.0))
-    return out
+        sums.append((per_sample_loss * mask).sum())
+        counts.append(mask.sum())
+    if mesh is not None and mesh.group is not None:
+        both = mesh.all_reduce_(torch.stack(sums + counts).to(mesh.device))
+        both = both.to(per_sample_loss.device)
+        sums, counts = list(both[:4]), list(both[4:])
+    return {f"q{q}": sums[q] / counts[q].clamp(min=1.0) for q in range(4)}

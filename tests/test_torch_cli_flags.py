@@ -11,12 +11,12 @@ import pytest
 
 pytest.importorskip("torch")
 
-# flags of the JAX package that the port's parser does not know yet; ROADMAP
-# Queue 1 names each (item 19, data parallel)
+# flags of the JAX package that the port's parser does not know yet (none
+# since both evals took --mesh_devices)
 TO_PORT = {
-    "eval_smpl_short": {"--mesh_devices"},
+    "eval_smpl_short": set(),
     "eval_smpl_long": set(),
-    "eval_skeleton": {"--mesh_devices"},
+    "eval_skeleton": set(),
     "train_diffusion_smpl": set(),
     "train_diffusion_skeleton": set(),
     "train_correction_smpl": set(),

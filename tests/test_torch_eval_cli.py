@@ -134,7 +134,7 @@ def test_default_device_stops_without_cuda(monkeypatch):
     ["--synthetic", "1", "--diverse_samples", "3", "--diverse_fold", "2"],
     ["--device", "cpu"],  # no --synthetic: real data is not ported
     ["--synthetic", "1", "--motion_path", "x"],
-    ["--synthetic", "1", "--mesh_devices", "2"],
+    ["--synthetic", "1", "--batch_size", "3", "--mesh_devices", "2"],
     ["--synthetic", "1", "--render_dir", "x", "--obj_mesh", "missing.ply"],
     ["--synthetic", "1", "--sampler", "euler"],
 ])

@@ -1,8 +1,9 @@
 """`interdiff_torch` stands alone: importing every module of it loads
 neither jax, flax, optax, orbax nor `interdiff_tpu` (nor PyYAML, which only
 reading a path config needs), nor does a run of its eval, training or
-checkpoint-conversion entry point, nor does `chip_smoke.py` import any of
-them,
+checkpoint-conversion entry point (an eval at two spawned ranks included,
+JAX blocked from import in every process), nor does `chip_smoke.py`
+import any of them,
 and an entry point asked for the default device with no CUDA device present
 raises instead of running on the CPU."""
 
@@ -36,7 +37,7 @@ def test_port_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 60
+    assert n_modules >= 75
     for module in ("cli.eval_smpl_short", "eval.metrics", "ops.sa",
                    "cli.train_diffusion_smpl", "train.trainer",
                    "train.losses", "diffusion.resample", "diffusion.nn",
@@ -53,7 +54,8 @@ def test_port_imports_no_jax():
                    "cli.convert_checkpoint", "data.mesh_io",
                    "data.prepare_behave", "ops.mesh_distance",
                    "utils.native", "viz.render3d", "viz.mesh_viz",
-                   "viz.skeleton_viz", "diffusion.losses"):
+                   "viz.skeleton_viz", "diffusion.losses", "parallel.mesh",
+                   "parallel.sample_parallel", "utils.fixtures"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -304,3 +306,45 @@ def test_convert_checkpoint_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "state_dict.pt" in out.stdout
+
+
+_RUN_TWO_RANKS = r"""
+import importlib.abc, sys
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "interdiff_tpu")
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+# at the top of the file, so that each spawned rank (which imports this
+# file as its main module) blocks them too
+sys.meta_path.insert(0, _Block())
+
+if __name__ == "__main__":
+    from interdiff_torch.cli import eval_skeleton
+    totals, n = eval_skeleton.main([
+        "--device", "cpu", "--synthetic", "1", "--batch_size", "2",
+        "--respacing", "2", "--mode", "no_correction", "--mesh_devices",
+        "2"])
+    banned = [m for m in sys.modules if m.split(".")[0] in BANNED]
+    assert n == 1 and len(totals) == 4 and not banned, (totals, banned)
+    print("two ranks done")
+"""
+
+
+def test_two_rank_entry_point_runs_without_jax(tmp_path):
+    """`eval_skeleton --mesh_devices 2 --device cpu`: two spawned gloo
+    ranks, JAX blocked from import in the parent and in both ranks."""
+    script = tmp_path / "two_ranks.py"
+    script.write_text(_RUN_TWO_RANKS)
+    out = subprocess.run([sys.executable, str(script)], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=ROOT))
+    assert out.returncode == 0, out.stderr
+    assert "two ranks done" in out.stdout
+    assert "blocked" not in out.stderr
