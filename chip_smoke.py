@@ -99,7 +99,9 @@ Phases, each printing JSON lines (any failure exits non-zero):
    2, 4 diverse samples (two sampler calls of 1000 DDPM steps with
    correction), gt and sampled FK, `smpl_metrics` with the full sweep: the
    six metrics, the wall time of each part, sampled sequences per second,
-   launches K1=2, K2=22, K4=22, K3=2, K5=0, K6=0.  Then one encode and one
+   the gate's mean shares over its 22 firings (corrected rows, penetrating
+   queries, flagged segments), launches K1=2, K2=22, K4=22, K3=2, K5=0,
+   K6=0.  Then one encode and one
    100-step corrected sampler call with INTERDIFF_FUSED_SA=1 (set and
    restored here): K6=2, K1=0, the memory within 1e-4 of the default
    route's, output finite.
@@ -208,8 +210,28 @@ Phases, each printing JSON lines (any failure exits non-zero):
    respacing from the `.ckpt` files (`cli/common.py::load_mdm`,
    `load_correction_variables`) and from the converted state-dict files,
    one seed: metrics bitwise equal, launches equal (SMPL: K1 2, K2 4, K4 4,
-   K3 2; skeleton: none).
-18. prepare_cpu_vs_gpu: the contact-label preprocessing's mesh signed
+   K3 2; skeleton: none); the same two routes of the long eval (``setup``
+   from its flags, one batch of 4 synthetic clips, one rollout, "100":
+   rollouts bitwise equal, K1 4, K2 4, K4 4) and of the refiner
+   (`cli/optimization.py::main`, generate-then-refine, 20 iterations: the
+   sampled clips' penetration equal, the refined within REFINE_TOL, K1 2,
+   K2 2, K3 = K4 = 20).
+18. trained: the JAX package's trained orbax saves of `artifacts/`, read by
+   `utils/orbax_read.py` (no JAX, no tensorstore): each of the four read on
+   the host (arrays, bytes, seconds) and loaded through the checkpoint
+   flags' route into the module its entry point builds (strict); the short
+   eval's `evaluate` at phase `eval`'s size on ``smpl_real_params`` and
+   ``correction_real_params`` (sequences/s, the gate's shares beside
+   phase `eval`'s seeded ones, launches K1 2, K2 22, K3 2, K4 22), then 2
+   clips at "10" on the card against the CPU from one noise (metrics
+   within 1e-4, trajectories within CORRECTED_TOL, the same rows
+   corrected); the skeleton eval on ``skeleton_params`` with a seeded
+   projector at "100" (no launch); the long eval from its flags on a
+   written corpus, 2 rollouts at "100" (drift per window; synthetic clips,
+   so not comparable with `artifacts/rollout_drift_metrics.json`); the
+   refiner's generate-then-refine at phase `refine`'s size on the trained
+   MDM (penetration before and after).
+19. prepare_cpu_vs_gpu: the contact-label preprocessing's mesh signed
    distance (`ops/mesh_distance.py`, plain PyTorch: no Pallas kernel stands
    behind it, so the port adds none) on the card against the CPU, 8 posed
    frames of the V=6890 stand-in body (13,776 faces) against 2048 points a
@@ -218,26 +240,26 @@ Phases, each printing JSON lines (any failure exits non-zero):
    at ties within 1e-6, labels equal except within 1e-5 of the 0.02 m
    threshold; the card against the host BVH (`utils/native.py`) within
    2e-4, with the count of labels that differ.
-19. prepare: `python -m interdiff_torch.data.prepare_behave`'s ``main()``
+20. prepare: `python -m interdiff_torch.data.prepare_behave`'s ``main()``
    at full width on a written corpus (one train and one test sequence of
    512 frames, 2048 points, stand-in object scans from
    `write_object_meshes`): seconds a frame split into FK, distance and
    labels, the face chunk, peak memory, no launch of K1-K6; the files read
    back by `data/behave.py` and one dataset-route eval batch on them with
    phase `behave`'s launches (K1 2, K2 4, K4 4, K3 2).
-20. render: `evaluate` of the SMPL eval entry point at full width ("100"
+21. render: `evaluate` of the SMPL eval entry point at full width ("100"
    respacing) with ``render_dir``, with a stand-in object mesh and with the
    point-sphere fallback, against the same call without it (launches
    equal); the skeleton eval's render (or, without matplotlib, its entry
    point refusing the flag before anything is built); the SMPL trainer's
    validation render (one more encode, K1 2, for its own sample).  Each
    gif's frames (`gif_frame_count`) and the render's seconds.
-21. diffusion_math: `calc_bpd_loop` of the full-width MDM on 32 clips at
+22. diffusion_math: `calc_bpd_loop` of the full-width MDM on 32 clips at
    "100" and `p_sample_loop` with ``skip_timesteps=900`` from an
    ``init_image`` (ms a step); the small MDM's bound at "20" and a skipped,
    inpainted, guided trajectory on the card against the CPU (1e-5 and
    1e-4).
-22. data_parallel: at one rank with NCCL on the card (a process group of
+23. data_parallel: at one rank with NCCL on the card (a process group of
    one), `train/trainer.py::data_parallel_step` of the four train steps at
    full width, 3 dispatches each (SMPL with the EMA shadow, SMPL under
    bn_train_mode, SMPL with the loss-second-moment resampler and 2 steps a
@@ -259,8 +281,8 @@ Then the card's name and power limit (nvidia-smi), the kernel table as one
 JSON line (launches: the eval phase's plus the train phase's, each also on
 its own, beside the skeleton paths' zeros, the correction trainers',
 the refiner's, the dataset routes', the long-term eval's, the train
-options' (none on the linear encoder's), the checkpoint route's, the
-preprocessing's (none), the render paths' and the data-parallel step's
+options' (none on the linear encoder's), the checkpoint routes', the
+trained weights' paths, the preprocessing's (none), the render paths' and the data-parallel step's
 and eval's at one rank; K6's of its
 opt-in routes, K5's of the backward with
 respect to the cloud; K3 and K4 also at this slice's shapes), and the
@@ -270,7 +292,8 @@ card: it sees only device 0 unless CUDA_VISIBLE_DEVICES says otherwise, and
 stops if that shows more than one.  A few minutes on an H100.  Depth cut to
 fit: the full-sweep sampler path runs 100 respaced steps, the fused-route
 sampler call 100, the validations inside the train phases 25, the
-dataset-mode eval 100, the long-term eval one batch of its three.
+dataset-mode eval 100, the long-term eval one batch of its three.  The
+trained saves are read from `artifacts/` of the checkout.
 """
 
 from __future__ import annotations
@@ -2210,6 +2233,59 @@ def _check_sample(x, gt, cfg, past_channels: int) -> None:
         raise AssertionError("past frames differ from gt")
 
 
+def _firing_records(trace, flag_shares) -> list:
+    """One record a firing of the corrected sampler: its t, the hook's ms
+    (CUDA events) and the shares of corrected rows, penetrating queries
+    and flagged segments (from K2's prologue)."""
+    return [{"t": e["t"], "hook_ms": e["start"].elapsed_time(e["end"]),
+             "corrected_rows": float(e["condition"].float().mean()),
+             "penetrating_queries": float(
+                 (e["o2h_dot"] < 0).float().mean()),
+             "flagged_segments": float(share)}
+            for e, share in zip(trace, flag_shares)]
+
+
+def _gate_means(firings: list) -> dict:
+    """The mean over firings of each share of `_firing_records`, and the
+    median of the hook's ms."""
+    keys = ("corrected_rows", "penetrating_queries", "flagged_segments")
+    return {"firings": len(firings),
+            "hook_ms_median": statistics.median(f["hook_ms"]
+                                                for f in firings),
+            **{k: statistics.fmean(f[k] for f in firings) for k in keys}}
+
+
+@contextlib.contextmanager
+def _recorded_gate(nn):
+    """While open, the samplers that `cli/eval_smpl_short.py::evaluate`
+    builds record every firing of the gate (their ``trace``) and K2's
+    share of flagged segments (no extra launch of any kernel); yields the
+    list that receives the `_firing_records` when the block ends."""
+    from interdiff_torch.cli import eval_smpl_short
+
+    build, pruned = eval_smpl_short.make_sampler, \
+        nn._signed_nearest_pruned_launch
+    trace, shares, firings = [], [], []
+
+    def tracing_build(*args, **kwargs):
+        return build(*args, trace=trace, **kwargs)
+
+    def recording_pruned(a, b, n, delta):
+        out = pruned(a, b, n, delta)
+        shares.append(out[4].sum() / out[3].numel())
+        return out
+
+    eval_smpl_short.make_sampler = tracing_build
+    nn._signed_nearest_pruned_launch = recording_pruned
+    try:
+        yield firings
+    finally:
+        eval_smpl_short.make_sampler = build
+        nn._signed_nearest_pruned_launch = pruned
+    torch.cuda.synchronize()
+    firings.extend(_firing_records(trace, shares))
+
+
 @torch.no_grad()
 def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
     """The three sampler paths at full width; returns the launches of each
@@ -2263,12 +2339,7 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
         raise AssertionError(f"launches on the corrected path: {launches}")
     _check_sample(x, tiled[0], cfg, 135)  # the blend may move the object
     steps = diffusion.num_timesteps
-    firings = [{"t": e["t"], "hook_ms": e["start"].elapsed_time(e["end"]),
-                "corrected_rows": float(e["condition"].float().mean()),
-                "penetrating_queries": float(
-                    (e["o2h_dot"] < 0).float().mean()),
-                "flagged_segments": float(share)}
-               for e, share in zip(trace, flag_shares)]
+    firings = _firing_records(trace, flag_shares)
     if [f["t"] for f in firings] != list(range(500, -1, -50)):
         raise AssertionError(f"the correction fired at {firings}")
     emit({**common, "path": "correction", "steps": steps,
@@ -2331,13 +2402,14 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
 
 
 @torch.no_grad()
-def phase_eval(group, nn, sa, models, gpu: str) -> dict:
+def phase_eval(group, nn, sa, models, gpu: str) -> tuple:
     """The eval entry point's loop at full width: `evaluate` on one batch of
     32 clips, fold 2, 4 diverse samples (two 1000-step sampler calls of 64
     rows with correction in the loop), `smpl_metrics` with the full sweep
-    (K3).  Then the opt-in route of the encoder: one encode and one 100-step
-    corrected sampler call with INTERDIFF_FUSED_SA=1 (K6 instead of K1).
-    Returns the launches of each kernel on the path that runs it."""
+    (K3), the gate's shares over its 22 firings.  Then the opt-in route of
+    the encoder: one encode and one 100-step corrected sampler call with
+    INTERDIFF_FUSED_SA=1 (K6 instead of K1).  Returns (the launches of each
+    kernel on the path that runs it, the gate's mean shares)."""
     from interdiff_torch.cli.eval_smpl_short import evaluate
     from interdiff_torch.config import DiffusionConfig
     from interdiff_torch.eval.smpl_short import SmplEvalConfig, make_sampler
@@ -2355,13 +2427,15 @@ def phase_eval(group, nn, sa, models, gpu: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _reset_launches(group, nn, sa)
     t0 = time.perf_counter()
-    totals, batches = evaluate(
-        cfg, model, diffusion, body, [batch], projector=projector,
-        diverse_samples=samples, diverse_fold=FOLD, generator=gen,
-        timings=timings, report=lambda nb, means: running.append(means))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with _recorded_gate(nn) as firings:
+        totals, batches = evaluate(
+            cfg, model, diffusion, body, [batch], projector=projector,
+            diverse_samples=samples, diverse_fold=FOLD, generator=gen,
+            timings=timings, report=lambda nb, means: running.append(means))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = _read_launches(group, nn, sa)
+    gate = _gate_means(firings)
     if launches != {"K1": 2, "K2": 22, "K3": 2, "K4": 22, "K5": 0, "K6": 0}:
         raise AssertionError(f"launches of the eval loop: {launches}")
     keys = {"global_mpjpe", "local_mpjpe", "body_translation",
@@ -2377,6 +2451,7 @@ def phase_eval(group, nn, sa, models, gpu: str) -> dict:
           "part_s": timings, "part_share": {k: v / wall
                                             for k, v in timings.items()},
           "seq_per_s": CLIPS * samples / wall, "launches": launches,
+          "gate_shares": gate,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30})
 
     # -- the encoder's opt-in route through K6
@@ -2415,7 +2490,7 @@ def phase_eval(group, nn, sa, models, gpu: str) -> dict:
     if not err <= FUSED_MEMORY_TOL:
         raise AssertionError(f"fused encode differs from the unfused by "
                              f"{err} > {FUSED_MEMORY_TOL}")
-    return {**launches, "K6": launches_fused["K6"]}
+    return {**launches, "K6": launches_fused["K6"]}, gate
 
 
 @contextlib.contextmanager
@@ -3329,6 +3404,12 @@ REFINE_TOL_REASON = ("started 0.01 off the anchors, no gradient sits on a "
                      "sign Adam turns into a step of lr), so the two "
                      "devices differ by rounding alone, as the CPU test "
                      "against the JAX refiner holds at 1e-4")
+# two runs of one refine on the card differ in the last bits: K3's and K4's
+# backwards add their gradients atomically, in an order that varies
+RERUN_REASON = ("K3's and K4's backwards add atomically, so two runs of one "
+                "refine on the card differ in the last bits (2e-8 in depth "
+                "after 20 iterations on an H100); held as the card against "
+                "the CPU is")
 # a sanity bound on the poses alone: Adam moves an entry by about lr a step
 REFINE_SANITY = 2 * REFINE_SMALL_ITERS * REFINE_LR
 
@@ -4502,11 +4583,23 @@ def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
     modules they make of the converted state-dict files (the MDM rebuilt
     from the ``hparams.json`` beside it, exact FPS as a `.ckpt` pins it),
     each given the module as the entry point builds it (grouped FPS), from
-    one seed: the metrics bitwise equal, the launches equal.  Returns the
+    one seed: the metrics bitwise equal, the launches equal.  Then the same
+    two routes of the other two entry points that take a ``.ckpt``, from
+    their parsed flags on the synthetic route (the 128-vertex body):
+    `cli/eval_smpl_long.py` (``setup`` and `evaluate_long` of one batch of
+    4 clips, one rollout, "100", correction: the rollouts bitwise equal)
+    and `cli/optimization.py::main`'s generate-then-refine (4 clips of 10 +
+    25 frames, "100", 20 iterations: the penetration of the sampled clips
+    equal, the refined within REFINE_TOL, see RERUN_REASON).  Returns the
     launches by path."""
     import tempfile
 
-    from interdiff_torch.cli import eval_skeleton, eval_smpl_short
+    from interdiff_torch.cli import (
+        eval_skeleton,
+        eval_smpl_long,
+        eval_smpl_short,
+        optimization,
+    )
     from interdiff_torch.cli.common import load_correction_variables, load_mdm
     from interdiff_torch.cli.convert_checkpoint import STATE_FILE, convert
     from interdiff_torch.config import (
@@ -4600,6 +4693,33 @@ def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
                 smpl=totals, smpl_launches=smpl_launched, smpl_s=smpl_s,
                 skeleton=skel_totals, skeleton_launches=skel_launched,
                 fps_groups=smpl_model.pcEmbedding.sa0.fps_groups)
+
+        # the .ckpt route of the long eval and of the refiner
+        flags = {}
+        for route, pick in (("ckpt", 0), ("state_dict", 1)):
+            ckpts = ["--diffusion_ckpt", files["mdm_smpl"][pick]]
+            args = eval_smpl_long.build_parser().parse_args(
+                ckpts + ["--correction_ckpt", files["correction_smpl"][pick],
+                         "--synthetic", "1", "--batch_size", "4",
+                         "--rollouts", "1", "--respacing", CKPT_RESPACING,
+                         "--mode", "correction", "--out_dir",
+                         os.path.join(root, f"long_{route}")])
+            outs = []
+            _reset_launches(group, nn, sa)
+            drift = eval_smpl_long.evaluate_long(
+                **eval_smpl_long.setup(args, DEV), max_batches=1,
+                outputs=outs)
+            long_launched = _read_launches(group, nn, sa)
+            _reset_launches(group, nn, sa)
+            refined = optimization.main(ckpts + [
+                "--device", DEV, "--synthetic", "1", "--future_len",
+                str(FUTURE), "--batch_size", "4", "--respacing",
+                CKPT_RESPACING, "--iters", "20", "--out_dir",
+                os.path.join(root, f"refine_{route}")])
+            flags[route] = dict(long=outs[0].cpu(), long_drift=drift,
+                                long_launches=long_launched,
+                                refine=refined,
+                                refine_launches=_read_launches(group, nn, sa))
     a, b = runs["ckpt"], runs["state_dict"]
     line = {"phase": "ckpt", "gpu": gpu, "respacing": CKPT_RESPACING,
             "clips": CLIPS, "skeleton_clips": SKEL_CLIPS,
@@ -4607,6 +4727,37 @@ def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
             "smpl_metrics_equal": a["smpl"] == b["smpl"],
             "skeleton_metrics_equal": a["skeleton"] == b["skeleton"]}
     emit(line)
+    fa, fb = flags["ckpt"], flags["state_dict"]
+    other = {"phase": "ckpt", "gpu": gpu, "entry_points": [
+                 "eval_smpl_long", "optimization"],
+             "respacing": CKPT_RESPACING,
+             "long_rollout_equal": bool(torch.equal(fa["long"], fb["long"])),
+             "long_drift_per_window": fa["long_drift"],
+             "long_launches": [fa["long_launches"], fb["long_launches"]],
+             "refine_summary": fa["refine"],
+             "refine_summary_state_dict": fb["refine"],
+             # the sampled clips equal; the descent may differ in the last
+             # bits, as two runs of one refine on the card do
+             "refine_before_equal": all(
+                 fa["refine"][k] == fb["refine"][k]
+                 for k in ("penetrate_before", "depth_before")),
+             "refine_after_within": all(
+                 abs(fa["refine"][k] - fb["refine"][k])
+                 <= REFINE_TOL * max(1.0, abs(fb["refine"][k]))
+                 for k in ("penetrate_after", "depth_after")),
+             "refine_tolerance": REFINE_TOL,
+             "refine_tolerance_reason": RERUN_REASON,
+             "refine_launches": [fa["refine_launches"],
+                                 fb["refine_launches"]]}
+    emit(other)
+    long_want = {**NO_LAUNCHES, "K1": 4, "K2": 4, "K4": 4}
+    refine_want = {**NO_LAUNCHES, "K1": 2, "K2": 2, "K3": 20, "K4": 20}
+    if not (other["long_rollout_equal"] and other["refine_before_equal"]
+            and other["refine_after_within"]
+            and fa["long_launches"] == fb["long_launches"] == long_want
+            and fa["refine_launches"] == fb["refine_launches"]
+            == refine_want and bool(torch.isfinite(fa["long"]).all())):
+        raise AssertionError(f"ckpt, long eval and refiner: {other}")
     calls = BEHAVE_DIVERSE // FOLD
     want = {**NO_LAUNCHES, "K1": 2, "K2": 2 * calls, "K4": 2 * calls,
             "K3": calls}
@@ -4618,7 +4769,328 @@ def phase_ckpt(group, nn, sa, models, gpu: str) -> dict:
         raise AssertionError(f"ckpt: {line}")
     by_path["ckpt_eval"] = a["smpl_launches"]
     by_path["ckpt_eval_state_dict"] = b["smpl_launches"]
+    by_path["ckpt_long_eval"] = fa["long_launches"]
+    by_path["ckpt_refine"] = fa["refine_launches"]
     return by_path
+
+
+# -- slice 14: the JAX package's trained orbax saves of `artifacts/`
+ARTIFACTS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "artifacts")
+TRAINED_SAVES = ("smpl_real_params", "smpl_params", "correction_real_params",
+                 "skeleton_params")
+# depth cut to fit: the card-against-CPU runs at "10", the skeleton eval
+# at "100", the long eval at "100" with 2 rollouts on a sequence of 720
+# frames
+TRAINED_CHECK_RESPACING, TRAINED_CHECK_CLIPS = "10", 2
+TRAINED_SKEL_RESPACING = "100"
+TRAINED_LONG_RESPACING, TRAINED_LONG_ROLLOUTS, TRAINED_LONG_FRAMES = \
+    "100", 2, 720
+
+
+def _trained_smpl(device, past_len: int = 10, future_len: int = FUTURE):
+    """`MDMSmpl` and `ObjProjectorSmpl` as the eval entry points build them
+    on ``device``, loaded from ``artifacts/smpl_real_params`` and
+    ``artifacts/correction_real_params`` through their checkpoint flags'
+    route (`cli/common.py::load_mdm`, `load_correction_variables`)."""
+    from interdiff_torch.cli.common import load_correction_variables, load_mdm
+    from interdiff_torch.config import CorrectionConfig, SmplTrackConfig
+
+    model = load_mdm(
+        os.path.join(ARTIFACTS, "smpl_real_params"), "smpl",
+        SmplTrackConfig(past_len=past_len, future_len=future_len)
+        .build_model(device), past_len=past_len, future_len=future_len)
+    projector = CorrectionConfig().build_model(device)
+    load_correction_variables(projector, os.path.join(
+        ARTIFACTS, "correction_real_params"))
+    return model, projector
+
+
+def _trained_check_run(device, batch: dict, noise, step_noise) -> tuple:
+    """The trained pair on ``device`` at "10" respacing over ``batch``
+    (fold 2, the V=6890 stand-in body), from the given noise: (the
+    `evaluate` metrics of one sampler call, the corrected sampler's
+    trajectories, the gate's (t, corrected rows) of each firing)."""
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.config import DiffusionConfig, build_smpl_body
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig, make_sampler
+    from interdiff_torch.models.mdm_smpl import smpl_gt_from_raw
+    from interdiff_torch.parallel.sample_parallel import (
+        tile_for_diverse_samples,
+    )
+
+    body = build_smpl_body(seed=SEED, num_verts=VERTS, device=device)
+    model, projector = _trained_smpl(device)
+    cfg = SmplEvalConfig()
+    diffusion = DiffusionConfig(
+        timestep_respacing=TRAINED_CHECK_RESPACING).build(device)
+    noise, step_noise = noise.to(device), step_noise.to(device)
+    totals, _ = evaluate(cfg, model, diffusion, body, [batch],
+                         projector=projector, diverse_samples=FOLD,
+                         diverse_fold=FOLD, noises=iter([(noise, step_noise)]),
+                         report=lambda nb, means: None)
+    trace = []
+    run = make_sampler(cfg, model, diffusion, smpl=body, projector=projector,
+                       use_correction=True, reuse_memory=True, trace=trace)
+    b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
+                          b["obj_angles"], b["obj_trans"])
+    with torch.no_grad():
+        memory = model.encode(gt, b["obj_points"])
+        x = run(*tile_for_diverse_samples(
+            (gt, b["obj_points"], b["body_pose"][..., 66:],
+             b["body_betas"], memory), FOLD),
+            noise=noise, step_noise=step_noise)
+    return totals, x.cpu(), [(e["t"], e["condition"].cpu()) for e in trace]
+
+
+def phase_trained(group, nn, sa, body, seeded_gate: dict, gpu: str) -> dict:
+    """The entry points on the JAX package's trained weights
+    (`artifacts/`), read by `utils/orbax_read.py` without JAX or
+    tensorstore: (a) each of the four saves read on the host (arrays,
+    bytes, seconds) and loaded by `cli/common.py::load_weights` into the
+    module its entry point builds (strict: every key and shape); (b) the
+    short eval's `evaluate` at full width on the trained pair, as phase
+    `eval` runs it (32 clips, fold 2, 4 diverse samples, 1000 steps,
+    launches K1 2, K2 22, K3 2, K4 22), sequences/s and the gate's shares
+    beside phase `eval`'s seeded ones, then 2 clips at "10" on the card
+    against the CPU from the same noise: metrics within 1e-4, corrected
+    trajectories within CORRECTED_TOL, the same rows corrected; (c) the
+    skeleton eval on ``skeleton_params`` with a seeded projector (no
+    trained one is in the repository) at "100", no launch; (d) the long
+    eval from its parsed flags (``--diffusion_ckpt``, ``--correction_ckpt``
+    on a written corpus of one test sequence), one batch, 2 rollouts at
+    "100": the drift of each window (synthetic clips: not comparable with
+    `artifacts/rollout_drift_metrics.json`, which is the real sequence's);
+    (e) the refiner's generate-then-refine as phase `refine` runs it, on
+    the trained MDM: the penetration before and after.  Returns the
+    launches by path."""
+    import tempfile
+
+    from interdiff_torch.cli import eval_skeleton, eval_smpl_long
+    from interdiff_torch.cli.common import load_mdm, load_weights
+    from interdiff_torch.cli.eval_smpl_short import evaluate
+    from interdiff_torch.cli.optimization import generate_and_refine
+    from interdiff_torch.config import (
+        CorrectionConfig,
+        DiffusionConfig,
+        SkeletonTrackConfig,
+        SmplTrackConfig,
+    )
+    from interdiff_torch.eval.optimization import OptimConfig
+    from interdiff_torch.eval.skeleton import SkeletonEvalConfig
+    from interdiff_torch.eval.smpl_short import SmplEvalConfig
+    from interdiff_torch.utils import orbax_read
+    from interdiff_torch.utils.convert import flax_to_torch_state_dict
+
+    t_phase = time.perf_counter()
+    skel_future = SKEL_FRAMES - SKEL_PAST
+    module_of = {
+        "smpl_real_params": lambda: SmplTrackConfig().build_model(DEV),
+        "smpl_params": lambda: SmplTrackConfig().build_model(DEV),
+        "correction_real_params":
+            lambda: CorrectionConfig().build_model(DEV),
+        "skeleton_params": lambda: SkeletonTrackConfig(
+            future_len=skel_future).build_model(DEV)}
+    reads = {}
+    for name in TRAINED_SAVES:
+        path = os.path.join(ARTIFACTS, name)
+        t0 = time.perf_counter()
+        state = flax_to_torch_state_dict(orbax_read.restore(path))
+        read_s = time.perf_counter() - t0
+        module = module_of[name]()
+        t0 = time.perf_counter()
+        load_weights(module, path)  # the flags' route: strict
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        own = module.state_dict()
+        reads[name] = {
+            "arrays": len(state),
+            "bytes": sum(v.numel() * v.element_size()
+                         for v in state.values()),
+            "read_s": read_s, "load_weights_s": load_s,
+            "equal_to_module": set(state) == set(own) and all(
+                torch.equal(state[k], own[k].cpu()) for k in own)}
+    emit({"phase": "trained", "part": "read", "gpu": gpu, "saves": reads})
+    if not all(r["equal_to_module"] for r in reads.values()) or [
+            r["arrays"] for r in reads.values()] != [290, 290, 172, 230]:
+        raise AssertionError(f"trained: the saves read {reads}")
+
+    # (b) the short eval at full width on the trained pair
+    model, projector = _trained_smpl(DEV)
+    batch = _main_path_batch(np.random.default_rng(SEED + 11), CLIPS,
+                             FRAMES, POINTS)  # phase eval's batch
+    timings, samples = {}, 2 * FOLD
+    torch.cuda.synchronize()
+    _reset_launches(group, nn, sa)
+    t0 = time.perf_counter()
+    with _recorded_gate(nn) as firings:
+        totals, batches = evaluate(
+            SmplEvalConfig(), model, DiffusionConfig().build(DEV), body,
+            [batch], projector=projector, diverse_samples=samples,
+            diverse_fold=FOLD,
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            timings=timings, report=lambda nb, means: None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = _read_launches(group, nn, sa)
+    line = {"phase": "trained", "part": "eval", "gpu": gpu,
+            "weights": ["smpl_real_params", "correction_real_params"],
+            "clips": CLIPS, "fold": FOLD, "diverse_samples": samples,
+            "steps": 1000, "metrics": totals, "wall_s": wall,
+            "part_s": timings, "seq_per_s": CLIPS * samples / wall,
+            "launches": launches, "gate_shares_trained": _gate_means(firings),
+            "gate_shares_seeded": seeded_gate,
+            "firings": [{k: round(v, 4) for k, v in f.items()}
+                        for f in firings]}
+    emit(line)
+    if launches != {"K1": 2, "K2": 22, "K3": 2, "K4": 22, "K5": 0,
+                    "K6": 0} or batches != 1 or not all(
+            np.isfinite(v) and v >= 0 for v in totals.values()) \
+            or not totals["penetrate"] <= 1.0:
+        raise AssertionError(f"trained eval: {line}")
+
+    # ... card against CPU on 2 clips at "10"
+    rng = np.random.default_rng(SEED + 93)
+    small = _main_path_batch(rng, TRAINED_CHECK_CLIPS, FRAMES, POINTS)
+    rows, steps = TRAINED_CHECK_CLIPS * FOLD, int(TRAINED_CHECK_RESPACING)
+    noise = torch.from_numpy(rng.standard_normal(
+        (rows, FRAMES, 144)).astype(np.float32))
+    step_noise = torch.from_numpy(rng.standard_normal(
+        (steps, rows, FRAMES, 144)).astype(np.float32))
+    cpu = _trained_check_run("cpu", small, noise, step_noise)
+    cuda = _trained_check_run(DEV, small, noise, step_noise)
+    errs = {k: abs(cpu[0][k] - cuda[0][k]) for k in cpu[0]}
+    traj_err = float((cpu[1] - cuda[1]).abs().max())
+    same_gate = [t for t, _ in cpu[2]] == [t for t, _ in cuda[2]] and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(cpu[2], cuda[2]))
+    line = {"phase": "trained", "part": "cpu_vs_gpu", "gpu": gpu,
+            "clips": TRAINED_CHECK_CLIPS, "fold": FOLD,
+            "respacing": TRAINED_CHECK_RESPACING, "metrics_cuda": cuda[0],
+            "metrics_max_abs_err": errs, "metrics_tolerance": 1e-4,
+            "fired_at": [t for t, _ in cuda[2]],
+            "corrected_rows": [float(c.float().mean()) for _, c in cuda[2]],
+            "same_rows_corrected": same_gate,
+            "trajectory_max_abs_err": traj_err,
+            "trajectory_tolerance": CORRECTED_TOL,
+            "tolerance_reason": CORRECTED_TOL_REASON}
+    emit(line)
+    if not (max(errs.values()) <= 1e-4 and traj_err <= CORRECTED_TOL
+            and same_gate and cuda[2]):
+        raise AssertionError(f"trained card vs CPU: {line}")
+
+    # (c) the skeleton eval on skeleton_params, a seeded projector
+    skel = load_mdm(os.path.join(ARTIFACTS, "skeleton_params"), "skeleton",
+                    SkeletonTrackConfig(future_len=skel_future)
+                    .build_model(DEV), past_len=SKEL_PAST,
+                    future_len=skel_future)
+    skel_projector = CorrectionConfig(
+        track="skeleton", num_nodes=21, future_len=skel_future
+    ).build_model(DEV)
+    skel_projector.load_state_dict(seeded_state(skel_projector, SEED + 6),
+                                   strict=True)
+    skel_batch = _skeleton_batch(np.random.default_rng(SEED + 95),
+                                 SKEL_CLIPS)
+    skel_timings = {}
+    torch.cuda.synchronize()
+    _reset_launches(group, nn, sa)
+    t0 = time.perf_counter()
+    skel_totals, skel_batches = eval_skeleton.evaluate(
+        SkeletonEvalConfig(past_len=SKEL_PAST, future_len=skel_future), skel,
+        DiffusionConfig(timestep_respacing=TRAINED_SKEL_RESPACING).build(
+            DEV), [skel_batch], projector=skel_projector,
+        generator=torch.Generator(device=DEV).manual_seed(SEED),
+        timings=skel_timings, report=lambda nb, means: None)
+    torch.cuda.synchronize()
+    skel_s = time.perf_counter() - t0
+    skel_launched = _read_launches(group, nn, sa)
+    line = {"phase": "trained", "part": "skeleton_eval", "gpu": gpu,
+            "weights": ["skeleton_params", "seeded projector"],
+            "clips": SKEL_CLIPS, "respacing": TRAINED_SKEL_RESPACING,
+            "metrics": skel_totals, "wall_s": skel_s,
+            "part_s": skel_timings, "seq_per_s": SKEL_CLIPS / skel_s,
+            "launches": skel_launched}
+    emit(line)
+    if skel_launched != NO_LAUNCHES or skel_batches != 1 or not all(
+            np.isfinite(v) for v in skel_totals.values()):
+        raise AssertionError(f"trained skeleton eval: {line}")
+
+    with tempfile.TemporaryDirectory() as root:
+        # (d) the long eval from its flags on a written corpus
+        motion_path, model_path = write_behave_corpus(
+            root, body, np.random.default_rng(SEED + 96), sequences=1,
+            frames=TRAINED_LONG_FRAMES, points=POINTS)
+        args = eval_smpl_long.build_parser().parse_args([
+            "--motion_path", motion_path, "--model_path", model_path,
+            "--mode", "correction", "--respacing", TRAINED_LONG_RESPACING,
+            "--rollouts", str(TRAINED_LONG_ROLLOUTS),
+            "--diffusion_ckpt", os.path.join(ARTIFACTS, "smpl_real_params"),
+            "--correction_ckpt", os.path.join(ARTIFACTS,
+                                              "correction_real_params"),
+            "--out_dir", os.path.join(root, "long")])
+        parts = eval_smpl_long.setup(args, DEV)
+        long_timings, outs = {}, []
+        torch.cuda.synchronize()
+        _reset_launches(group, nn, sa)
+        drift = eval_smpl_long.evaluate_long(
+            **parts, max_batches=1, timings=long_timings, outputs=outs)
+        long_launched = _read_launches(group, nn, sa)
+        calls = 1 + TRAINED_LONG_ROLLOUTS
+        long_want = {**NO_LAUNCHES, "K1": 2 * calls, "K2": 2 * calls,
+                     "K4": 2 * calls}
+        line = {"phase": "trained", "part": "long_eval", "gpu": gpu,
+                "weights": ["smpl_real_params", "correction_real_params"],
+                "clips": int(outs[0].shape[0]),
+                "rollouts": TRAINED_LONG_ROLLOUTS,
+                "respacing": TRAINED_LONG_RESPACING,
+                "part_s": long_timings,
+                "s_per_chunk": long_timings["rollout"]
+                / long_timings["chunks"],
+                "drift_per_window": drift,
+                "comparable_with_rollout_drift_metrics_json": False,
+                "why_not": "synthetic corpus and stand-in body; the "
+                           "artifact is the real BEHAVE sequence's",
+                "launches": long_launched, "launches_want": long_want}
+        emit(line)
+        if long_launched != long_want or len(drift) != calls or not all(
+                np.isfinite(v) for w in drift for v in w.values()) or \
+                not bool(torch.isfinite(outs[0]).all()):
+            raise AssertionError(f"trained long eval: {line}")
+
+        # (e) generate-then-refine on the trained MDM, phase refine's sizes
+        frames = REFINE_PAST + REFINE_FUTURE
+        refine_model, _ = _trained_smpl(DEV, REFINE_PAST, REFINE_FUTURE)
+        refine_batch = _main_path_batch(np.random.default_rng(SEED + 47),
+                                        REFINE_CLIPS, frames, POINTS)
+        refine_timings = {}
+        torch.cuda.synchronize()
+        _reset_launches(group, nn, sa)
+        summary = generate_and_refine(
+            SmplEvalConfig(past_len=REFINE_PAST, future_len=REFINE_FUTURE),
+            refine_model, DiffusionConfig(
+                timestep_respacing=REFINE_RESPACING).build(DEV), body,
+            [refine_batch], OptimConfig(iters=REFINE_ITERS, keep_after=150),
+            out_dir=os.path.join(root, "refine"),
+            generator=torch.Generator(device=DEV).manual_seed(SEED),
+            timings=refine_timings, extra={"respacing": REFINE_RESPACING})
+        refine_launched = _read_launches(group, nn, sa)
+    refine_want = {**NO_LAUNCHES, "K1": 2, "K2": 2, "K3": REFINE_ITERS,
+                   "K4": REFINE_ITERS}
+    line = {"phase": "trained", "part": "refine", "gpu": gpu,
+            "weights": ["smpl_real_params"], "clips": REFINE_CLIPS,
+            "frames": frames, "respacing": REFINE_RESPACING,
+            "iters": REFINE_ITERS, "summary": summary,
+            "part_s": refine_timings, "launches": refine_launched,
+            "phase_s": time.perf_counter() - t_phase}
+    emit(line)
+    if refine_launched != refine_want or not all(
+            np.isfinite(summary[k]) for k in (
+                "penetrate_before", "penetrate_after", "depth_before",
+                "depth_after")):
+        raise AssertionError(f"trained refine: {line}")
+    return {"trained_eval": launches, "trained_skeleton_eval": skel_launched,
+            "trained_long_eval": long_launched,
+            "trained_refine": refine_launched}
 
 
 # -- slice 12: contact-label preprocessing, renders, the rest of the engine
@@ -5692,7 +6164,7 @@ def main() -> int:
     phase_slice_options_cpu_vs_gpu(gpu)
     phase_skeleton_cpu_vs_gpu(group, nn, sa, gpu)
     phase_sampler(group, nn, sa, models, gpu)
-    eval_launches = phase_eval(group, nn, sa, models, gpu)
+    eval_launches, seeded_gate = phase_eval(group, nn, sa, models, gpu)
     train_launches, option_launches = phase_train(group, nn, sa, gather, gpu)
     phase_profile(models, gpu)
     phase_profile_train(gpu)
@@ -5705,6 +6177,8 @@ def main() -> int:
     behave_launches = phase_behave(group, nn, sa, models, gpu)
     long_launches = phase_long_eval(group, nn, sa, models, gpu)
     ckpt_launches = phase_ckpt(group, nn, sa, models, gpu)
+    trained_launches = phase_trained(group, nn, sa, models[2], seeded_gate,
+                                     gpu)
     phase_prepare_cpu_vs_gpu(gpu)
     prepare_launches = phase_prepare(group, nn, sa, models, gpu)
     render_launches = phase_render(group, nn, sa, models, gpu)
@@ -5720,8 +6194,8 @@ def main() -> int:
                **skeleton_launches, **correction_launches,
                "refine": refine_launches, **behave_launches,
                "long_eval": long_launches, **option_launches,
-               **ckpt_launches, **prepare_launches, **render_launches,
-               **dp_launches}
+               **ckpt_launches, **trained_launches, **prepare_launches,
+               **render_launches, **dp_launches}
     launches = {k: sum(n[k] for n in by_path.values())
                 for k in by_path["eval"]}
     if min(launches.values()) < 1:
@@ -5729,7 +6203,8 @@ def main() -> int:
     if any(by_path["train_linear_encoder"][k] for k in ("K1", "K6")):
         raise AssertionError(f"K1 or K6 ran on the linear encoder's path: "
                              f"{by_path}")
-    no_kernel = list(skeleton_launches) + ["correction_train_skeleton"]
+    no_kernel = list(skeleton_launches) + ["correction_train_skeleton",
+                                           "trained_skeleton_eval"]
     if any(by_path[p] != NO_LAUNCHES for p in no_kernel):
         raise AssertionError(f"a kernel ran on a skeleton path: {by_path}")
     for key in ("K3", "K4"):

@@ -5,8 +5,11 @@ own state-dict files and the reference's Lightning ``.ckpt`` files), the
 trainers' profiler flags, the loop of the two correction trainers, and the
 data route of the SMPL entry points: the flags ``--motion_path``,
 ``--model_path``, ``--config`` and ``--synthetic_body``, the SMPL-H bodies
-and the BEHAVE splits.  An orbax directory of the JAX package is refused:
-`scripts/torch_convert_orbax.py` writes it as a state-dict file once.
+and the BEHAVE splits.  Every checkpoint flag also takes an orbax directory
+of the JAX package (a flat save such as ``artifacts/smpl_real_params`` or a
+trainer's ``CheckpointManager`` directory), read without JAX by
+`utils/orbax_read.py`; `scripts/torch_convert_orbax.py` is the tests'
+oracle of that route through JAX and orbax.
 """
 
 from __future__ import annotations
@@ -47,7 +50,11 @@ from interdiff_torch.utils.checkpoint import (
     mdm_smpl_from_checkpoint,
     mdm_smpl_from_hparams,
 )
-from interdiff_torch.utils.convert import load_state_dict
+from interdiff_torch.utils import orbax_read
+from interdiff_torch.utils.convert import (
+    flax_to_torch_state_dict,
+    load_state_dict,
+)
 from interdiff_torch.utils.prefetch import place_batch
 from interdiff_torch.utils.profiling import (
     StepTimer,
@@ -224,25 +231,25 @@ def snapshot_sources(results_dir: str, modules: Sequence[str]) -> None:
             pass
 
 
-def _refuse_orbax(path: str) -> None:
-    if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (an orbax save of the JAX package?): "
-            "the port reads state-dict files; write one with "
-            "scripts/torch_convert_orbax.py")
-
-
 def _is_lightning(path: Optional[str]) -> bool:
     return bool(path) and path.endswith(".ckpt") and os.path.isfile(path)
 
 
 def load_weights(module: torch.nn.Module, path: Optional[str]) -> None:
-    """Load a `utils/convert.py::save_state_dict` file into ``module``, every
-    key matched; without a path the module keeps its initial weights."""
+    """Load weights into ``module``, every key matched and every shape
+    checked (a mismatch raises and names the key): from a
+    `utils/convert.py::save_state_dict` file, or from a directory, which
+    must be an orbax save of the JAX package (`utils/orbax_read.py::
+    restore`, then `flax_to_torch_state_dict`, as JAX restores into the
+    CLI's module); without a path the module keeps its initial weights."""
     if path:
-        _refuse_orbax(path)
         device = next(module.parameters()).device
-        module.load_state_dict(load_state_dict(path, device), strict=True)
+        if os.path.isdir(path):
+            state = {k: v.to(device) for k, v in flax_to_torch_state_dict(
+                orbax_read.restore(path)).items()}
+        else:
+            state = load_state_dict(path, device)
+        module.load_state_dict(state, strict=True)
 
 
 def load_mdm(diffusion_ckpt: Optional[str], track: str,
@@ -255,8 +262,9 @@ def load_mdm(diffusion_ckpt: Optional[str], track: str,
     ``model``'s device), and so does a state-dict file that
     `cli/convert_checkpoint.py` wrote with its ``hparams.json`` beside it
     (the same module, exact FPS included, then the state dict); any other
-    state-dict file of the port is loaded into ``model``; without a path
-    ``model`` keeps its weights.  Returns the module to run.
+    state-dict file of the port, and an orbax directory of the JAX package,
+    is loaded into ``model`` (`load_weights`); without a path ``model``
+    keeps its weights.  Returns the module to run.
 
     The rebuilt routes check the embedded window sizes against
     ``past_len``/``future_len``: the data windows and inpainting masks are
@@ -299,8 +307,9 @@ def load_correction_variables(projector: torch.nn.Module,
     """Load ``--correction_ckpt`` into ``projector``
     (`interdiff_tpu/cli/common.py::load_correction_variables`): a reference
     Lightning ``.ckpt`` file through `utils/checkpoint.py` (``kind`` 'smpl'
-    or 'skeleton'), or a state-dict file of the port; without a path the
-    projector keeps its weights."""
+    or 'skeleton'), a state-dict file of the port or an orbax directory of
+    the JAX package (`load_weights`); without a path the projector keeps
+    its weights."""
     if not _is_lightning(path):
         load_weights(projector, path)
         return

@@ -14,10 +14,12 @@ device and without ``--device`` it stops.  ``--motion_path`` reads the
 HO-GCN sequence pickles (`data/skeleton.py`) and evaluates the seen and the
 unseen test splits; ``--synthetic N`` evaluates N random batches instead.
 The checkpoints are state dicts written by
-`utils/convert.py::save_state_dict` or the reference's Lightning ``.ckpt``
-files (the denoiser then built from the file's hyper_parameters); without
-them the weights are the modules' seeded initial ones.  ``--config`` may
-name the motion path in a YAML path config (PyYAML is imported only then).
+`utils/convert.py::save_state_dict`, the reference's Lightning ``.ckpt``
+files (the denoiser then built from the file's hyper_parameters) or the
+JAX package's orbax directories (``artifacts/skeleton_params``;
+`utils/orbax_read.py`); without them the weights are the modules' seeded
+initial ones.  ``--config`` may name the motion path in a YAML path config
+(PyYAML is imported only then).
 ``--render_dir`` writes a gif of the first clip of every batch, the
 prediction over the ground truth (`viz/skeleton_viz.py`, matplotlib on the
 host; without matplotlib the flag stops before anything is built).
@@ -239,10 +241,12 @@ def build_parser() -> ArgumentParser:
                         choices=["correction", "no_correction"])
     parser.add_argument("--diffusion_ckpt", default=None,
                         help="state dict of MDMSkeleton (save_state_dict), "
-                             "or a reference Lightning .ckpt")
+                             "a reference Lightning .ckpt, or an orbax "
+                             "directory of the JAX package")
     parser.add_argument("--correction_ckpt", default=None,
-                        help="state dict of ObjProjectorSkeleton, or a "
-                             "reference Lightning .ckpt")
+                        help="state dict of ObjProjectorSkeleton, a "
+                             "reference Lightning .ckpt, or an orbax "
+                             "directory of the JAX package")
     parser.add_argument("--config", default=None,
                         help="YAML path config (BEHAVE.yml/HOI.yml style; "
                              "needs PyYAML): its motion path")

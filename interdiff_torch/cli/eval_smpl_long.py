@@ -18,9 +18,10 @@ horizon, ``past + (1 + rollouts) * future`` frames, so that every window can
 be scored; the sampler conditions on the first one only.  At most three
 batches are rolled out, each written to ``<out_dir>/rollout_<i>.npy``, and
 the per-window means to ``<out_dir>/drift_metrics.json``.  The checkpoints
-are state dicts (`utils/convert.py::save_state_dict`) or the reference's
-Lightning ``.ckpt`` files (`cli/common.py::load_mdm`); without them the
-weights are the modules' seeded initial ones.  ``--render_dir`` writes a
+are state dicts (`utils/convert.py::save_state_dict`), the reference's
+Lightning ``.ckpt`` files (`cli/common.py::load_mdm`) or the JAX package's
+orbax directories (`utils/orbax_read.py`); without them the weights are
+the modules' seeded initial ones.  ``--render_dir`` writes a
 four-view gif of each batch's first rollout over the whole horizon
 (``rollout<i>.gif``; the hand poses and betas beyond the first window held
 at its last frame), the object as ``--obj_mesh`` (or the mesh found beside
@@ -284,9 +285,13 @@ def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diffusion_ckpt", default=None,
-                        help="state dict of MDMSmpl (save_state_dict)")
+                        help="state dict of MDMSmpl (save_state_dict), a "
+                             "reference Lightning .ckpt, or an orbax "
+                             "directory of the JAX package")
     parser.add_argument("--correction_ckpt", default=None,
-                        help="state dict of ObjProjectorSmpl")
+                        help="state dict of ObjProjectorSmpl, a reference "
+                             "Lightning .ckpt, or an orbax directory of the "
+                             "JAX package")
     parser.add_argument("--mode", default="no_correction",
                         choices=["correction", "no_correction"])
     parser.add_argument("--rollouts", type=int, default=4,

@@ -16,14 +16,17 @@ split of ``--motion_path`` (the train split when it has no Date03*
 sequence; ``--config`` may name both paths, ``--synthetic_body`` stands in
 for the pkls) and scores every clip on the male body, as the JAX CLI does.
 The checkpoints are state dicts written by
-`utils/convert.py::save_state_dict` or the reference's Lightning ``.ckpt``
+`utils/convert.py::save_state_dict`, the reference's Lightning ``.ckpt``
 files (the denoiser then built from the file's hyper_parameters, with
-exact FPS: `cli/common.py::load_mdm`); without them the weights are the
-modules' seeded initial ones.  ``--render_dir`` writes a four-view gif of
-the first sample of every batch (the seam smoothed first, as the reference
-does), the object as the mesh of ``--obj_mesh`` under the predicted pose,
-or found beside a one-category corpus (``objects/<cat>/<cat>_f1000.ply``),
-else as point spheres of its template cloud; the gif is drawn on the host.
+exact FPS: `cli/common.py::load_mdm`) or the JAX package's orbax
+directories (``artifacts/smpl_real_params``,
+``artifacts/correction_real_params``; `utils/orbax_read.py`); without them
+the weights are the modules' seeded initial ones.  ``--render_dir`` writes
+a four-view gif of the first sample of every batch (the seam smoothed
+first, as the reference does), the object as the mesh of ``--obj_mesh``
+under the predicted pose, or found beside a one-category corpus
+(``objects/<cat>/<cat>_f1000.ply``), else as point spheres of its template
+cloud; the gif is drawn on the host.
 
 ``--mesh_devices N`` (N >= 1) shards the tiled diverse batch's rows over N
 ranks (`parallel/mesh.py`: one process a card, NCCL; with ``--device cpu``
@@ -259,11 +262,13 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diffusion_ckpt", default=None,
-                        help="state dict of MDMSmpl (save_state_dict), or "
-                             "a reference Lightning .ckpt")
+                        help="state dict of MDMSmpl (save_state_dict), a "
+                             "reference Lightning .ckpt, or an orbax "
+                             "directory of the JAX package")
     parser.add_argument("--correction_ckpt", default=None,
-                        help="state dict of ObjProjectorSmpl, or a "
-                             "reference Lightning .ckpt")
+                        help="state dict of ObjProjectorSmpl, a reference "
+                             "Lightning .ckpt, or an orbax directory of the "
+                             "JAX package")
     parser.add_argument("--mode", default="correction",
                         choices=["correction", "no_correction"])
     parser.add_argument("--batch_size", type=int, default=32)

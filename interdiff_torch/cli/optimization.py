@@ -19,8 +19,9 @@ Four modes:
   random batches on the stand-in body), every sampled clip of a batch is
   refined at once (`refine_batch`), and the penetration of the future
   frames is reported before and after in ``<out_dir>/summary.json``.
-  ``FILE`` is a state dict of `MDMSmpl` (`utils/convert.py::save_state_dict`)
-  or a reference Lightning ``.ckpt`` (`cli/common.py::load_mdm`); an empty
+  ``FILE`` is a state dict of `MDMSmpl` (`utils/convert.py::save_state_dict`),
+  a reference Lightning ``.ckpt`` (`cli/common.py::load_mdm`) or an orbax
+  directory of the JAX package (``artifacts/smpl_real_params``); an empty
   string keeps the model's seeded initial weights.
 
 Usage:
@@ -355,7 +356,9 @@ def run_synthetic(n: int, ocfg: OptimConfig, *, past_len: int,
 def build_parser() -> ArgumentParser:
     parser = ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--diffusion_ckpt", default=None,
-                        help="state dict of MDMSmpl: refine SAMPLED futures "
+                        help="MDMSmpl weights (a state dict, a reference "
+                             "Lightning .ckpt or an orbax directory of the "
+                             "JAX package): refine SAMPLED futures "
                              "and report penetration before and after ('' "
                              "keeps the seeded initial weights)")
     parser.add_argument("--past_len", type=int, default=10)

@@ -18,8 +18,10 @@ validation.  Validation runs the full inpainting sampler
 (``--val_respacing``) and scores `skeleton_metrics` (the reference's
 `validation_step`, `train_diffusion_skeleton.py:272-295`), on the EMA
 shadow when there is one.  ``--resume_checkpoint`` takes a state-dict file
-of the port (`utils/convert.py::save_state_dict`).  ``--config`` may name
-the motion path in a YAML path config (PyYAML is imported only then).  The
+of the port (`utils/convert.py::save_state_dict`) or the JAX trainer's
+orbax ``ckpt`` directory, weights only, at its latest step
+(`utils/orbax_read.py`).  ``--config`` may name the motion path in a YAML
+path config (PyYAML is imported only then).  The
 batches are built on the main thread between steps, as in the SMPL
 trainer; ``--profiler`` and ``--debug_nan`` as there.  ``--render_interval
 N`` draws validation sample 0, the prediction over the ground truth, as a
@@ -264,7 +266,10 @@ def build_parser() -> ArgumentParser:
                         "(train/trainer.py::chain_steps)")
     parser.add_argument("--seed", type=int, default=233)
     parser.add_argument("--resume_checkpoint", default=None,
-                        help="state-dict file of the port to start from")
+                        help="weights to start from: a state-dict file of "
+                             "the port, or an orbax directory of the JAX "
+                             "package (its trainer's CheckpointManager "
+                             "directory at the latest step, or a flat save)")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="train on N synthetic batches (no dataset)")
     parser.add_argument("--val_every", type=int, default=10)

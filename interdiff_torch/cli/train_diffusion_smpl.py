@@ -32,7 +32,9 @@ gif of validation sample 0 every N validations into
 ``<results_dir>/render`` (the reference's validation gifs; every
 validation under ``--synthetic``, on the 128-vertex stand-in body there).
 ``--resume_checkpoint`` takes a state-dict file of the port
-(`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here).
+(`utils/convert.py::save_state_dict`, as ``ckpt/step_<n>.pt`` here) or the
+JAX trainer's orbax ``ckpt`` directory, weights only, at its latest step
+(`utils/orbax_read.py`).
 
 Data parallelism, as the JAX trainer runs over every local device: on a
 machine with several cards it spawns one rank a card (under ``torchrun``
@@ -383,7 +385,10 @@ def build_parser() -> ArgumentParser:
                         "steps")
     parser.add_argument("--seed", type=int, default=233)
     parser.add_argument("--resume_checkpoint", default=None,
-                        help="state-dict file of the port to start from")
+                        help="weights to start from: a state-dict file of "
+                             "the port, or an orbax directory of the JAX "
+                             "package (its trainer's CheckpointManager "
+                             "directory at the latest step, or a flat save)")
     parser.add_argument("--synthetic", type=int, default=0,
                         help="train on N synthetic batches (no dataset)")
     parser.add_argument("--synthetic_points", type=int, default=512,

@@ -11,6 +11,11 @@ initialised tree, as `tests/test_artifacts.py` does), ``correction``
 through `interdiff_torch/utils/convert.py::flax_to_torch_state_dict` into a
 `save_state_dict` file, which the port's ``--diffusion_ckpt``,
 ``--correction_ckpt`` and ``--resume_checkpoint`` read.
+
+The port's flags read the orbax directories themselves
+(`interdiff_torch/utils/orbax_read.py`, without JAX or tensorstore); this
+script is the tests' oracle of that route: the same save through JAX and
+orbax (`tests/test_torch_orbax_read.py`, `tests/test_torch_eval_cli.py`).
 """
 
 from __future__ import annotations

@@ -1,11 +1,18 @@
 """Hold the port's long-term rollout against the JAX package's at full width.
 
-    JAX_PLATFORMS=cpu python scripts/torch_rollout_drift_check.py [--out F]
+    JAX_PLATFORMS=cpu python scripts/torch_rollout_drift_check.py [--out F] \
+        [--diffusion_ckpt artifacts/smpl_real_params] \
+        [--correction_ckpt artifacts/correction_real_params]
 
 On the CPU only: it imports both packages.  It builds the serving models of
 `chip_smoke.full_width_models` (the seeded `MDMSmpl` and `ObjProjectorSmpl`
 at their default widths, the V=6890 stand-in body), carries the weights into
-flax with `utils/convert.py::torch_to_flax_variables`, and runs
+flax with `utils/convert.py::torch_to_flax_variables` (with
+``--diffusion_ckpt`` / ``--correction_ckpt``, an orbax save of the JAX
+package, each package reads it its own way: the port through
+`cli/common.py::load_mdm` / `load_correction_variables`, JAX through
+`interdiff_tpu/cli/common.py::restore_params` / `load_correction_variables`),
+and runs
 `interdiff_tpu/eval/smpl_long.py::rollout` and
 `interdiff_torch/eval/smpl_long.py::rollout` for the first window and
 ``--chunks`` (4) chunks after it: correction in the loop, ``--respacing``
@@ -40,6 +47,7 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke  # noqa: E402
+from interdiff_tpu.cli import common as jcommon  # noqa: E402
 from interdiff_tpu.cli import eval_smpl_long as jcli  # noqa: E402
 from interdiff_tpu.cli.common import synthetic_smpl_body as j_body  # noqa: E402
 from interdiff_tpu.config import DiffusionConfig as JDiffCfg  # noqa: E402
@@ -48,6 +56,10 @@ from interdiff_tpu.eval import smpl_long as jlong  # noqa: E402
 from interdiff_tpu.eval import smpl_short as jss  # noqa: E402
 from interdiff_tpu.models.correction import ObjProjectorSmpl as JProj  # noqa: E402
 from interdiff_torch.cli import eval_smpl_long as tcli  # noqa: E402
+from interdiff_torch.cli.common import (  # noqa: E402
+    load_correction_variables,
+    load_mdm,
+)
 from interdiff_torch.config import DiffusionConfig  # noqa: E402
 from interdiff_torch.eval import smpl_long as tlong  # noqa: E402
 from interdiff_torch.eval import smpl_short as tss  # noqa: E402
@@ -89,6 +101,13 @@ def main(argv=None) -> dict:
     parser.add_argument("--clips", type=int, default=2)
     parser.add_argument("--seed", type=int, default=5)
     parser.add_argument("--out", default=None, help="JSON file to write")
+    parser.add_argument("--diffusion_ckpt", default=None,
+                        help="orbax save of MDMSmpl (e.g. artifacts/"
+                             "smpl_real_params) in place of the seeded "
+                             "weights")
+    parser.add_argument("--correction_ckpt", default=None,
+                        help="orbax save of ObjProjectorSmpl (e.g. "
+                             "artifacts/correction_real_params)")
     args = parser.parse_args(argv)
     rng = np.random.default_rng(args.seed)
     cfg_t, cfg_j = tss.SmplEvalConfig(), jss.SmplEvalConfig()
@@ -100,8 +119,15 @@ def main(argv=None) -> dict:
         "cpu")
     jtrack = JTrack(diffusion=JDiffCfg(timestep_respacing=args.respacing))
     jmodel, jdiff = jtrack.build_model(), jtrack.diffusion.build()
-    variables = torch_to_flax_variables(model.state_dict())
-    proj_vars = torch_to_flax_variables(projector.state_dict())
+    model = load_mdm(args.diffusion_ckpt, "smpl", model,
+                     past_len=cfg_t.past_len, future_len=cfg_t.future_len)
+    load_correction_variables(projector, args.correction_ckpt)
+    variables = (jcommon.restore_params(args.diffusion_ckpt)
+                 if args.diffusion_ckpt
+                 else torch_to_flax_variables(model.state_dict()))
+    proj_vars = (jcommon.load_correction_variables(args.correction_ckpt)
+                 if args.correction_ckpt
+                 else torch_to_flax_variables(projector.state_dict()))
     jproj = JProj()
     jbody = j_body(np.random.default_rng(chip_smoke.SEED),
                    num_verts=chip_smoke.VERTS)
@@ -168,6 +194,8 @@ def main(argv=None) -> dict:
     drift_j = [{k: float(v) for k, v in w.items()} for w in drift_j]
     diff = np.abs(got - want)
     report = {
+        "weights": {"diffusion": args.diffusion_ckpt or "seeded",
+                    "correction": args.correction_ckpt or "seeded"},
         "clips": B, "windows": n, "respacing": args.respacing,
         "horizon": H, "calls": [len(jcalls), len(tcalls)],
         "drift_jax": drift_j, "drift_torch": drift_t,

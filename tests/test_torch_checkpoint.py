@@ -327,12 +327,14 @@ def test_convert_checkpoint_round_trips(ckpts, tmp_path, capsys, case):
 
 
 def test_orbax_directories_are_refused(tmp_path):
+    """A directory that is not an orbax save is refused by every loader
+    (orbax saves themselves are read: `tests/test_torch_orbax_read.py`)."""
     module = CorrectionConfig().build_model("cpu")
     for load in (lambda p: tcommon.load_weights(module, p),
                  lambda p: tcommon.load_correction_variables(module, p),
                  lambda p: tcommon.load_mdm(p, "smpl", module, past_len=10,
                                             future_len=25)):
-        with pytest.raises(ValueError, match="torch_convert_orbax"):
+        with pytest.raises(ValueError, match="is not an orbax save"):
             load(str(tmp_path))
 
 

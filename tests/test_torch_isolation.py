@@ -1,9 +1,10 @@
 """`interdiff_torch` stands alone: importing every module of it loads
-neither jax, flax, optax, orbax nor `interdiff_tpu` (nor PyYAML, which only
-reading a path config needs), nor does a run of its eval, training or
-checkpoint-conversion entry point (an eval at two spawned ranks included,
-JAX blocked from import in every process), nor does `chip_smoke.py`
-import any of them,
+neither jax, flax, optax, orbax, tensorstore nor `interdiff_tpu` (nor
+PyYAML, which only reading a path config needs), nor does a run of its
+eval, training or checkpoint-conversion entry point (an eval at two spawned
+ranks included, JAX blocked from import in every process; an eval on the
+trained orbax saves of `artifacts/` with JAX, flax, orbax and tensorstore
+blocked), nor does `chip_smoke.py` import any of them,
 and an entry point asked for the default device with no CUDA device present
 raises instead of running on the CPU."""
 
@@ -26,7 +27,7 @@ for name in names:
     importlib.import_module(name)
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu", "yaml")]
+                                 "tensorstore", "interdiff_tpu", "yaml")]
 print(len(names), banned)
 assert not banned, banned
 """
@@ -55,7 +56,8 @@ def test_port_imports_no_jax():
                    "data.prepare_behave", "ops.mesh_distance",
                    "utils.native", "viz.render3d", "viz.mesh_viz",
                    "viz.skeleton_viz", "diffusion.losses", "parallel.mesh",
-                   "parallel.sample_parallel", "utils.fixtures"):
+                   "parallel.sample_parallel", "utils.fixtures",
+                   "utils.zstd", "utils.ocdbt", "utils.orbax_read"):
         assert os.path.exists(os.path.join(
             ROOT, "interdiff_torch", *module.split(".")) + ".py")
 
@@ -68,7 +70,7 @@ totals, batches = main(["--device", "cpu", "--synthetic", "1", "--batch_size",
                         "--sampler", "plms"])
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax",
-                                 "interdiff_tpu")]
+                                 "tensorstore", "interdiff_tpu")]
 assert batches == 1 and len(totals) == 6 and not banned, (totals, banned)
 """
 
@@ -92,7 +94,7 @@ with tempfile.TemporaryDirectory() as results:
         results])
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu")]
+                                 "tensorstore", "interdiff_tpu")]
 assert summary["steps"] == 2 and not banned, (summary, banned)
 """
 
@@ -118,7 +120,7 @@ def test_chip_smoke_imports_nothing_of_jax():
             roots.add(node.module.split(".")[0])
     assert "interdiff_torch" in roots and "torch" in roots
     assert not roots & {"jax", "jaxlib", "flax", "optax", "orbax",
-                        "interdiff_tpu"}
+                        "tensorstore", "interdiff_tpu"}
 
 
 def test_train_entry_point_stops_without_a_card():
@@ -211,7 +213,7 @@ with tempfile.TemporaryDirectory() as results:
         "--past_len", "3", "--future_len", "3", "--out_dir", results])
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu")]
+                                 "tensorstore", "interdiff_tpu")]
 assert summary["steps"] == 1 and refined["batches"] == 1 and not banned, (
     summary, refined, banned)
 """
@@ -258,7 +260,7 @@ with tempfile.TemporaryDirectory() as out:
         "--rollouts", "1", "--respacing", "2", "--out_dir", out]) is None
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu")]
+                                 "tensorstore", "interdiff_tpu")]
 assert not banned, banned
 """
 
@@ -296,7 +298,7 @@ with tempfile.TemporaryDirectory() as root:
                              "--out", os.path.join(root, "out")])
 banned = [m for m in sys.modules
           if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
-                                 "interdiff_tpu", "yaml")]
+                                 "tensorstore", "interdiff_tpu", "yaml")]
 assert not banned, banned
 """
 
@@ -311,7 +313,8 @@ def test_convert_checkpoint_runs_without_jax():
 _RUN_TWO_RANKS = r"""
 import importlib.abc, sys
 
-BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "interdiff_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+          "interdiff_tpu")
 
 
 class _Block(importlib.abc.MetaPathFinder):
@@ -347,4 +350,41 @@ def test_two_rank_entry_point_runs_without_jax(tmp_path):
                          env=dict(os.environ, PYTHONPATH=ROOT))
     assert out.returncode == 0, out.stderr
     assert "two ranks done" in out.stdout
+    assert "blocked" not in out.stderr
+
+
+_RUN_ORBAX = r"""
+import importlib.abc, sys
+
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "tensorstore",
+          "interdiff_tpu")
+
+
+class _Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BANNED:
+            raise ImportError(f"blocked: {name}")
+        return None
+
+
+sys.meta_path.insert(0, _Block())
+from interdiff_torch.cli.eval_smpl_short import main
+totals, batches = main([
+    "--device", "cpu", "--synthetic", "1", "--batch_size", "2",
+    "--diverse_samples", "2", "--respacing", "3",
+    "--diffusion_ckpt", "artifacts/smpl_real_params",
+    "--correction_ckpt", "artifacts/correction_real_params"])
+banned = [m for m in sys.modules if m.split(".")[0] in BANNED]
+assert batches == 1 and len(totals) == 6 and not banned, (totals, banned)
+print("trained weights read")
+"""
+
+
+def test_eval_on_the_orbax_saves_runs_without_jax_or_tensorstore():
+    if not os.path.isdir(os.path.join(ROOT, "artifacts", "smpl_real_params")):
+        pytest.skip("artifacts/ not present")
+    out = subprocess.run([sys.executable, "-c", _RUN_ORBAX], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "trained weights read" in out.stdout
     assert "blocked" not in out.stderr
