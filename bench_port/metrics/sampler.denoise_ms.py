@@ -1,0 +1,13 @@
+"""Milliseconds of the denoiser a DDPM step: the mean device interval of
+the program's ``sampler.denoise`` spans (its CUDA events around
+``model_fn`` in `p_mean_variance`) over the traced window's session."""
+
+from interdiff_torch.utils import profiling
+
+
+def read(rec):
+    last = getattr(profiling, "last_session", None)
+    s = last() if last else None
+    ms = [p.device_ms for p in s.spans if p.name == "sampler.denoise"
+          and p.device_ms is not None] if s else []
+    return sum(ms) / len(ms) if ms else None

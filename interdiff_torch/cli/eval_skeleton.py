@@ -39,8 +39,8 @@ on any models and iterator of batches.
 
 from __future__ import annotations
 
+import functools
 import os
-import time
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
@@ -83,6 +83,7 @@ from interdiff_torch.parallel.mesh import (
     wait_for_rank0,
 )
 from interdiff_torch.parallel.sample_parallel import data_parallel_sample
+from interdiff_torch.utils import profiling
 from interdiff_torch.viz.skeleton_viz import require_matplotlib
 
 Noises = Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]
@@ -126,7 +127,10 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     ``noises`` yields one ``(noise, step_noise)`` pair per sampler call.
     ``timings`` collects the wall seconds of ``encode``, ``sampler`` (the
     rollouts' calls included) and ``metrics``, with a device
-    synchronisation around every part (none without it).  With
+    synchronisation around every part (none without it), and opens a
+    session of `utils/profiling.py` unless one is open: the traced mode.
+    Every batch is a span ``eval.batch`` (attribute ``b``) holding the
+    parts' spans ``eval.<part>``.  With
     ``render_dir`` a gif of each batch's first clip goes there,
     ``batch<n>_<mode>.gif`` (part ``render``).
 
@@ -145,23 +149,14 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     if mesh is not None:  # draws for the global batch, cut to the rows
         sample = data_parallel_sample(sample, mesh)
 
-    def timed(part: str, fn, *args, **kwargs):
-        if timings is None:
-            return fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
-        return out
+    timed = functools.partial(profiling.timed, timings, device)
+    cuda = device.type == "cuda"
 
     def encode_and_sample(b):
-        memory, gt = timed("encode", model.encode, b["skeleton"],
+        memory, gt = timed("eval.encode", model.encode, b["skeleton"],
                            b["obj_points"], b["poses"], b["zero_pose_obj"])
         noise, step_noise = (None, None) if noises is None else next(noises)
-        return timed("sampler", sample, b["skeleton"], b["obj_points"],
+        return timed("eval.sampler", sample, b["skeleton"], b["obj_points"],
                      b["poses"], b["zero_pose_obj"], memory, gt, noise=noise,
                      step_noise=step_noise, generator=generator)
 
@@ -176,42 +171,47 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     rank0 = is_rank0(mesh)
     totals: Dict[str, float] = {}
     nb = 0
-    with torch.no_grad():
+    with torch.no_grad(), profiling.session(timings is not None):
         for batch in batches:
-            whole = {k: torch.as_tensor(batch[k], device=device)
-                     for k in KEYS}
-            b = shard_batch(whole, mesh)
-            x = encode_and_sample(b)
-            pred = split_skeleton_state(x, cfg)
-            full = pred
-            if rollouts:
-                full = rollout(x, b["zero_pose_obj"], pred)
+            with profiling.span("eval.batch", cuda=cuda, cpu=True,
+                                b=nb):
+                whole = {k: torch.as_tensor(batch[k], device=device)
+                         for k in KEYS}
+                b = shard_batch(whole, mesh)
+                x = encode_and_sample(b)
+                pred = split_skeleton_state(x, cfg)
+                full = pred
+                if rollouts:
+                    full = rollout(x, b["zero_pose_obj"], pred)
+                    if rank0:
+                        print(f"rollout: {full['body'].shape[1]} frames "
+                              "total", flush=True)
+                if forecasts is not None:
+                    forecasts.append(full)
+                if mesh is not None:  # every rank's rows, in row order
+                    pred = {k: all_gather_rows(v, mesh)
+                            for k, v in pred.items()}
+                m = timed("eval.metrics", skeleton_metrics, pred["body"],
+                          whole["skeleton"], pred["obj"],
+                          whole["obj_points"], pred["pose"], whole["poses"],
+                          start=cfg.past_len)
+                nb += 1
+                # one read of the device per batch
+                values = torch.stack(list(m.values())).tolist()
+                for k, v in zip(m, values):
+                    totals[k] = totals.get(k, 0.0) + v
                 if rank0:
-                    print(f"rollout: {full['body'].shape[1]} frames total",
-                          flush=True)
-            if forecasts is not None:
-                forecasts.append(full)
-            if mesh is not None:  # every rank's rows, in row order
-                pred = {k: all_gather_rows(v, mesh) for k, v in pred.items()}
-            m = timed("metrics", skeleton_metrics, pred["body"],
-                      whole["skeleton"], pred["obj"], whole["obj_points"],
-                      pred["pose"], whole["poses"], start=cfg.past_len)
-            nb += 1
-            # one read of the device per batch
-            values = torch.stack(list(m.values())).tolist()
-            for k, v in zip(m, values):
-                totals[k] = totals.get(k, 0.0) + v
-            if rank0:
-                report(nb, {k: v / nb for k, v in totals.items()})
-                if render_dir is not None:
-                    mode = "correction" if projector is not None \
-                        else "no_correction"
-                    timed("render", render_clip, b, pred, cfg.past_len,
-                          os.path.join(render_dir,
-                                       f"batch{nb}_{mode}.gif"))
-            # the other ranks wait for rank 0's report and gif outside the
-            # next batch's gather
-            wait_for_rank0(mesh)
+                    report(nb, {k: v / nb for k, v in totals.items()})
+                    if render_dir is not None:
+                        mode = "correction" if projector is not None \
+                            else "no_correction"
+                        timed("eval.render", render_clip, b, pred,
+                              cfg.past_len,
+                              os.path.join(render_dir,
+                                           f"batch{nb}_{mode}.gif"))
+                # the other ranks wait for rank 0's report and gif outside
+                # the next batch's gather
+                wait_for_rank0(mesh)
     return totals, nb
 
 

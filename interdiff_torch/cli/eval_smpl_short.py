@@ -45,8 +45,8 @@ on any body, models and iterator of batches.
 
 from __future__ import annotations
 
+import functools
 import os
-import time
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
@@ -104,6 +104,7 @@ from interdiff_torch.parallel.sample_parallel import (
     tile_for_diverse_samples,
 )
 from interdiff_torch.smpl.model import SmplModel
+from interdiff_torch.utils import profiling
 
 Noises = Iterator[Tuple[torch.Tensor, Optional[torch.Tensor]]]
 
@@ -144,7 +145,10 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
     is drawn from ``generator`` unless ``noises`` yields one
     ``(noise, step_noise)`` pair per sampler call (replay across devices and
     packages).  ``timings`` collects the wall seconds of each part, with a
-    device synchronisation around every part (none without it).  With
+    device synchronisation around every part (none without it), and opens
+    a session of `utils/profiling.py` unless one is open: the traced mode.
+    Every batch is a span ``eval.batch`` (attribute ``b``) holding the
+    parts' spans ``eval.<part>``.  With
     ``render_dir``, a gif ``batch<n>.gif`` of the last sampler call's first
     row goes there after each batch (`cli/common.py::render_smpl_sample`,
     part ``render``).
@@ -169,17 +173,8 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
         sample = data_parallel_sample(sample, mesh)
     p = cfg.past_len
 
-    def timed(part: str, fn, *args, **kwargs):
-        if timings is None:
-            return fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
-        return out
+    timed = functools.partial(profiling.timed, timings, device)
+    cuda = device.type == "cuda"
 
     def metrics(out, gt_post, obj_pts3):
         return smpl_metrics(
@@ -200,62 +195,69 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
             "obj_points", "body_betas")
     totals: Dict[str, float] = {}
     nb = 0
-    with torch.no_grad():
+    with torch.no_grad(), profiling.session(timings is not None):
         for batch in batches:
-            if mesh is None:
-                b = {k: torch.as_tensor(v, device=device)
-                     for k, v in batch.items() if k in keys}
-            else:
-                # this rank's rows of the tiled batch: sample i of clip c
-                # at row i * B + c
-                b = {k: shard_batch(tile_for_diverse_samples(
-                    torch.as_tensor(v), diverse_fold), mesh).to(device)
-                    for k, v in batch.items() if k in keys}
-            gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
-                                  b["obj_angles"], b["obj_trans"])
-            obj_points6 = b["obj_points"][..., :6]
-            hand = b["body_pose"][..., 66:]
-            betas = b["body_betas"] if "body_betas" in b else gt.new_zeros(
-                gt.shape[:2] + (10,))
+            with profiling.span("eval.batch", cuda=cuda, cpu=True,
+                                b=nb):
+                if mesh is None:
+                    b = {k: torch.as_tensor(v, device=device)
+                         for k, v in batch.items() if k in keys}
+                else:
+                    # this rank's rows of the tiled batch: sample i of clip
+                    # c at row i * B + c
+                    b = {k: shard_batch(tile_for_diverse_samples(
+                        torch.as_tensor(v), diverse_fold), mesh).to(device)
+                        for k, v in batch.items() if k in keys}
+                gt = smpl_gt_from_raw(b["body_pose"][..., :66],
+                                      b["body_trans"], b["obj_angles"],
+                                      b["obj_trans"])
+                obj_points6 = b["obj_points"][..., :6]
+                hand = b["body_pose"][..., 66:]
+                betas = b["body_betas"] if "body_betas" in b \
+                    else gt.new_zeros(gt.shape[:2] + (10,))
 
-            memory = timed("encode", model.encode, gt, obj_points6)
-            # ground-truth FK once on the untiled batch: it is deterministic
-            gt_post = timed("postprocess", postprocess_sample, cfg, smpl, gt,
-                            hand, betas)
-            if diverse_fold > 1 and mesh is None:
-                gt, obj_points6, hand, betas, memory = \
-                    tile_for_diverse_samples(
-                        (gt, obj_points6, hand, betas, memory), diverse_fold)
-                gt_post = {k: tile_for_diverse_samples(v, diverse_fold)
-                           for k, v in gt_post.items()}
-            best = None
-            for _ in range(diverse_samples // diverse_fold):
-                noise, step_noise = (None, None) if noises is None \
-                    else next(noises)
-                x = timed("sampler", sample, gt, obj_points6, hand, betas,
-                          memory, noise=noise, step_noise=step_noise,
-                          generator=generator)
-                out = timed("postprocess", postprocess_sample, cfg, smpl, x,
-                            hand, betas)
-                m = timed("metrics", metrics, out, gt_post,
-                          obj_points6[..., :3])
-                m = best_of_n_metrics(gathered(m), diverse_fold)
-                best = m if best is None else {
-                    k: torch.minimum(best[k], m[k]) for k in m}
-            nb += 1
-            # one read of the device per batch
-            means = torch.stack([v.mean() for v in best.values()]).tolist()
-            for k, v in zip(best, means):
-                totals[k] = totals.get(k, 0.0) + v
-            if rank0:
-                report(nb, {k: v / nb for k, v in totals.items()})
-                if render_dir is not None:
-                    timed("render", render_smpl_sample, cfg, smpl, out,
-                          b["obj_points"][0, :, :3].cpu().numpy(), obj_mesh,
-                          os.path.join(render_dir, f"batch{nb}.gif"))
-            # the other ranks wait for rank 0's report and gif outside the
-            # next batch's gather
-            wait_for_rank0(mesh)
+                memory = timed("eval.encode", model.encode, gt, obj_points6)
+                # ground-truth FK once on the untiled batch: it is
+                # deterministic
+                gt_post = timed("eval.postprocess", postprocess_sample, cfg,
+                                smpl, gt, hand, betas)
+                if diverse_fold > 1 and mesh is None:
+                    gt, obj_points6, hand, betas, memory = \
+                        tile_for_diverse_samples(
+                            (gt, obj_points6, hand, betas, memory),
+                            diverse_fold)
+                    gt_post = {k: tile_for_diverse_samples(v, diverse_fold)
+                               for k, v in gt_post.items()}
+                best = None
+                for _ in range(diverse_samples // diverse_fold):
+                    noise, step_noise = (None, None) if noises is None \
+                        else next(noises)
+                    x = timed("eval.sampler", sample, gt, obj_points6, hand,
+                              betas, memory, noise=noise,
+                              step_noise=step_noise, generator=generator)
+                    out = timed("eval.postprocess", postprocess_sample, cfg,
+                                smpl, x, hand, betas)
+                    m = timed("eval.metrics", metrics, out, gt_post,
+                              obj_points6[..., :3])
+                    m = best_of_n_metrics(gathered(m), diverse_fold)
+                    best = m if best is None else {
+                        k: torch.minimum(best[k], m[k]) for k in m}
+                nb += 1
+                # one read of the device per batch
+                means = torch.stack([v.mean() for v in best.values()]
+                                    ).tolist()
+                for k, v in zip(best, means):
+                    totals[k] = totals.get(k, 0.0) + v
+                if rank0:
+                    report(nb, {k: v / nb for k, v in totals.items()})
+                    if render_dir is not None:
+                        timed("eval.render", render_smpl_sample, cfg, smpl,
+                              out, b["obj_points"][0, :, :3].cpu().numpy(),
+                              obj_mesh,
+                              os.path.join(render_dir, f"batch{nb}.gif"))
+                # the other ranks wait for rank 0's report and gif outside
+                # the next batch's gather
+                wait_for_rank0(mesh)
     return totals, nb
 
 

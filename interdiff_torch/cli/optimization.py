@@ -42,9 +42,9 @@ a remote TPU worker's watchdog, and the port's descent has no counterpart
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-import time
 from argparse import ArgumentParser
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -85,6 +85,7 @@ from interdiff_torch.ops.signed_distance import (
     signed_nearest_pruned,
 )
 from interdiff_torch.smpl.model import SmplModel, smpl_forward
+from interdiff_torch.utils import profiling
 
 PENETRATION_KEYS = ("penetrate_before", "penetrate_after", "depth_before",
                     "depth_after")
@@ -151,17 +152,7 @@ def generate_and_refine(
     penetration = make_penetration_fn(smpl, cfg.past_len)
     os.makedirs(out_dir, exist_ok=True)
 
-    def timed(part: str, fn, *args, **kwargs):
-        if timings is None:
-            return fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
-        return out
+    timed = functools.partial(profiling.timed, timings, device)
 
     tot = dict.fromkeys(PENETRATION_KEYS, 0.0)
     nb = 0
@@ -181,19 +172,19 @@ def generate_and_refine(
             x = sample(gt, obj_points6, hand, betas, generator=generator)
             return postprocess_sample(cfg, smpl, x, hand, betas)
 
-        out = timed("sample", sample_post)
+        out = timed("opt.sample", sample_post)
         body_pred, obj_pred = out["body_pred"], out["obj_pred"]
         frac_b, depth_b = timed(
-            "penetration", penetration, body_pred[..., :156],
+            "opt.penetration", penetration, body_pred[..., :156],
             body_pred[..., 156:], betas, obj_pred[..., :3],
             obj_pred[..., 3:], pts3)
         refined = timed(
-            "refine", refine_batch, smpl, body_pose=body_pred[..., :66],
+            "opt.refine", refine_batch, smpl, body_pose=body_pred[..., :66],
             hand_pose=body_pred[..., 66:156], body_trans=body_pred[..., 156:],
             betas=betas, obj_angles=obj_pred[..., :3],
             obj_trans=obj_pred[..., 3:], obj_points=pts3, cfg=ocfg)
         frac_a, depth_a = timed(
-            "penetration", penetration, refined["pose"], refined["trans"],
+            "opt.penetration", penetration, refined["pose"], refined["trans"],
             betas, refined["obj_angles"], refined["obj_trans"], pts3)
 
         nb += 1
@@ -247,21 +238,10 @@ def refine_dataset(smpl_models: Dict[str, SmplModel], dataset,
     os.makedirs(out_dir, exist_ok=True)
     pen_fns: Dict[str, Callable] = {}
 
-    def timed(part: str, device, fn, *args, **kwargs):
-        if timings is None:
-            return fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        timings[part] = timings.get(part, 0.0) + time.perf_counter() - t0
-        return out
-
     def refine(ids, clips, gender):
         smpl = smpl_models[gender]
         device = smpl.v_template.device
+        timed = functools.partial(profiling.timed, timings, device)
         if gender not in pen_fns:
             pen_fns[gender] = make_penetration_fn(smpl, past_len)
         penetration = pen_fns[gender]
@@ -276,15 +256,15 @@ def refine_dataset(smpl_models: Dict[str, SmplModel], dataset,
         obj_aa, obj_tr = stack("obj_angles"), stack("obj_trans")
         obj_pts = stack("obj_points", slice(0, 3))
         frac_b, depth_b = timed(
-            "penetration", device, penetration,
+            "opt.penetration", penetration,
             torch.cat([body_pose, hand_pose], dim=-1), trans, betas, obj_aa,
             obj_tr, obj_pts)
-        out = timed("refine", device, refine_batch, smpl,
+        out = timed("opt.refine", refine_batch, smpl,
                     body_pose=body_pose, hand_pose=hand_pose,
                     body_trans=trans, betas=betas, obj_angles=obj_aa,
                     obj_trans=obj_tr, obj_points=obj_pts, cfg=ocfg)
         frac_a, depth_a = timed(
-            "penetration", device, penetration, out["pose"], out["trans"],
+            "opt.penetration", penetration, out["pose"], out["trans"],
             betas, out["obj_angles"], out["obj_trans"], obj_pts)
         # one read of the device per batch
         rows = torch.stack([frac_b, frac_a, depth_b, depth_a,

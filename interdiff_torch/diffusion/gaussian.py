@@ -35,6 +35,7 @@ from interdiff_torch.diffusion.losses import (
     normal_kl,
 )
 from interdiff_torch.parallel.mesh import randn_rows
+from interdiff_torch.utils import profiling
 
 
 class ModelMeanType(enum.Enum):
@@ -270,7 +271,8 @@ class GaussianDiffusion:
         overwrites the model output.
         """
         nd = x.ndim
-        model_output = model_fn(x, self.model_timesteps(t))
+        with profiling.span("sampler.denoise", cuda=x.is_cuda):
+            model_output = model_fn(x, self.model_timesteps(t))
         if inpaint is not None:
             if self.model_mean_type != ModelMeanType.START_X:
                 raise ValueError("inpainting needs an x0-predicting model")
@@ -407,13 +409,14 @@ class GaussianDiffusion:
                 (B,), first, dtype=torch.int64, device=img.device), img)
         hook_at = _step_hook(denoised_fn)
         for n, i in enumerate(range(first, skip_timesteps - 1, -1)):
-            t = torch.full((B,), i, dtype=torch.int64, device=img.device)
-            img = self.p_sample(
-                model_fn, img, t,
-                noise=None if step_noise is None else step_noise[n],
-                generator=generator, clip_denoised=clip_denoised,
-                denoised_fn=hook_at(i), cond_fn=cond_fn, inpaint=inpaint,
-                const_noise=const_noise)["sample"]
+            with _step_span(n, i, img.is_cuda):
+                t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+                img = self.p_sample(
+                    model_fn, img, t,
+                    noise=None if step_noise is None else step_noise[n],
+                    generator=generator, clip_denoised=clip_denoised,
+                    denoised_fn=hook_at(i), cond_fn=cond_fn, inpaint=inpaint,
+                    const_noise=const_noise)["sample"]
         return img
 
     # -- DDIM -------------------------------------------------------------------
@@ -455,12 +458,13 @@ class GaussianDiffusion:
         img = self._initial(shape, noise, generator, inpaint)
         B = img.shape[0]
         hook_at = _step_hook(denoised_fn)
-        for i in range(self.num_timesteps - 1, -1, -1):
-            t = torch.full((B,), i, dtype=torch.int64, device=img.device)
-            img = self.ddim_sample(model_fn, img, t, generator=generator,
-                                   clip_denoised=clip_denoised,
-                                   denoised_fn=hook_at(i), cond_fn=cond_fn,
-                                   inpaint=inpaint, eta=eta)["sample"]
+        for n, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            with _step_span(n, i, img.is_cuda):
+                t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+                img = self.ddim_sample(
+                    model_fn, img, t, generator=generator,
+                    clip_denoised=clip_denoised, denoised_fn=hook_at(i),
+                    cond_fn=cond_fn, inpaint=inpaint, eta=eta)["sample"]
         return img
 
     def ddim_reverse_sample(self, model_fn, x, t, *, clip_denoised=False,
@@ -516,29 +520,30 @@ class GaussianDiffusion:
 
         hist = []  # earlier eps predictions, newest first, order - 1 kept
         for count, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            t = torch.full((B,), i, dtype=torch.int64, device=img.device)
-            eps, x0 = model_eps(img, t, i)
-            alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
-            if count == 0 and order > 1:
-                mean1 = (x0 * torch.sqrt(alpha_bar_prev)
-                         + torch.sqrt(1 - alpha_bar_prev) * eps)
-                eps2, _ = model_eps(mean1, (t - 1).clamp(min=0),
-                                    max(i - 1, 0))
-                eps_prime = (eps + eps2) / 2.0
-            else:
-                w = ab[min(count + 1, order) - 1]
-                eps_prime = float(w[0]) * eps
-                # slots the history has not filled yet hold zeros on the
-                # JAX side: adding nothing is the same
-                for k, old in enumerate(hist, start=1):
-                    eps_prime = eps_prime + float(w[k]) * old
-            pred_prime = self.predict_xstart_from_eps(img, t, eps_prime)
-            mean_pred = (pred_prime * torch.sqrt(alpha_bar_prev)
-                         + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
-            # at t = 0 the sample is the x0 prediction itself
-            img = mean_pred if i != 0 else x0
-            if order > 1:
-                hist = [eps] + hist[:order - 2]
+            with _step_span(count, i, img.is_cuda):
+                t = torch.full((B,), i, dtype=torch.int64, device=img.device)
+                eps, x0 = model_eps(img, t, i)
+                alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
+                if count == 0 and order > 1:
+                    mean1 = (x0 * torch.sqrt(alpha_bar_prev)
+                             + torch.sqrt(1 - alpha_bar_prev) * eps)
+                    eps2, _ = model_eps(mean1, (t - 1).clamp(min=0),
+                                        max(i - 1, 0))
+                    eps_prime = (eps + eps2) / 2.0
+                else:
+                    w = ab[min(count + 1, order) - 1]
+                    eps_prime = float(w[0]) * eps
+                    # slots the history has not filled yet hold zeros on the
+                    # JAX side: adding nothing is the same
+                    for k, old in enumerate(hist, start=1):
+                        eps_prime = eps_prime + float(w[k]) * old
+                pred_prime = self.predict_xstart_from_eps(img, t, eps_prime)
+                mean_pred = (pred_prime * torch.sqrt(alpha_bar_prev)
+                             + torch.sqrt(1 - alpha_bar_prev) * eps_prime)
+                # at t = 0 the sample is the x0 prediction itself
+                img = mean_pred if i != 0 else x0
+                if order > 1:
+                    hist = [eps] + hist[:order - 2]
         return img
 
     # -- variational bound (diagnostics) ----------------------------------------
@@ -599,6 +604,15 @@ class GaussianDiffusion:
         return {"total_bpd": vb.sum(dim=1) + prior, "prior_bpd": prior,
                 "vb": vb, "xstart_mse": torch.stack(xstart_mse, dim=1),
                 "mse": torch.stack(mse, dim=1)}
+
+
+def _step_span(n: int, i: int, cuda: bool):
+    """The span ``sampler.step`` of a loop's ``n``-th step, at timestep
+    ``i``.  A call's second step (t = T-2, on which no hook fires) counts
+    its aten operators as ``sampler.ops``: the host's dispatch work of one
+    plain step."""
+    return profiling.span("sampler.step", cuda=cuda,
+                          ops="sampler.ops" if n == 1 else None, t=i)
 
 
 def _step_hook(denoised_fn: Optional[Callable]) -> Callable:

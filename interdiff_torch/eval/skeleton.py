@@ -33,6 +33,7 @@ from interdiff_torch.models.mdm_skeleton import (
     rigid_keypoints_from_pose,
 )
 from interdiff_torch.parallel.mesh import randn_rows
+from interdiff_torch.utils import profiling
 
 
 @dataclass(frozen=True)
@@ -74,7 +75,8 @@ def make_correction_denoised_fn(
     ``step`` is the loop's index as a Python int (the loops pass it); a
     caller with only ``t`` pays one read of ``t[0]``.  ``trace`` receives a
     dict per firing: ``t`` and, on the card, the CUDA events ``start`` and
-    ``end`` around the firing."""
+    ``end`` of the firing's span ``hook.firing``, whose children are
+    ``hook.projector`` and ``hook.blend`` (the keypoints and the blend)."""
     bd = cfg.num_joints * 3
     od = cfg.num_points * 3
     pose_gt = gt[..., bd + od:]
@@ -83,15 +85,17 @@ def make_correction_denoised_fn(
     def correct(x: torch.Tensor, step: int) -> torch.Tensor:
         B, T = x.shape[:2]
         body = x[..., :bd]
-        quat_p, trans_p = projector.sample(quat_gt, trans_gt,
-                                           body.reshape(B, T, -1, 3))
-        pose_proj = torch.cat([trans_p, quat_p], dim=-1)
-        obj_proj = rigid_keypoints_from_pose(
-            pose_proj, zero_pose_obj).reshape(B, T, od)
-        x_corr = torch.cat([body, obj_proj, pose_proj], dim=-1)
-        # the blend weights rounded as float32, as the JAX package's are
-        frac = np.float32(step) / np.float32(1000.0)
-        return float(frac) * x + float(np.float32(1.0) - frac) * x_corr
+        with profiling.span("hook.projector", cuda=x.is_cuda):
+            quat_p, trans_p = projector.sample(quat_gt, trans_gt,
+                                               body.reshape(B, T, -1, 3))
+        with profiling.span("hook.blend", cuda=x.is_cuda):
+            pose_proj = torch.cat([trans_p, quat_p], dim=-1)
+            obj_proj = rigid_keypoints_from_pose(
+                pose_proj, zero_pose_obj).reshape(B, T, od)
+            x_corr = torch.cat([body, obj_proj, pose_proj], dim=-1)
+            # the blend weights rounded as float32, as the JAX package's are
+            frac = np.float32(step) / np.float32(1000.0)
+            return float(frac) * x + float(np.float32(1.0) - frac) * x_corr
 
     def denoised_fn(x: torch.Tensor, t: torch.Tensor,
                     step: Optional[int] = None) -> torch.Tensor:
@@ -99,17 +103,11 @@ def make_correction_denoised_fn(
             step = int(t[0])
         if step > cfg.correction_t_max or step % cfg.correction_every != 0:
             return x
-        if trace is None:
-            return correct(x, step)
-        entry = {"t": step}
-        if x.is_cuda:
-            entry["start"] = torch.cuda.Event(enable_timing=True)
-            entry["end"] = torch.cuda.Event(enable_timing=True)
-            entry["start"].record()
-        out = correct(x, step)
-        if x.is_cuda:
-            entry["end"].record()
-        trace.append(entry)
+        with profiling.span("hook.firing", cuda=x.is_cuda,
+                            keep=trace is not None, t=step) as firing:
+            out = correct(x, step)
+        if trace is not None:
+            trace.append(profiling.firing_entry(step, firing))
         return out
 
     return denoised_fn

@@ -37,6 +37,8 @@ from interdiff_torch.ops.signed_distance import (
 )
 from interdiff_torch.parallel.mesh import randn_rows
 from interdiff_torch.smpl.model import SmplModel, smpl_forward
+from interdiff_torch.utils import profiling
+from interdiff_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -93,7 +95,12 @@ def make_correction_denoised_fn(
     and ``distance`` [B], which the gate holds against 0.002 and 0.02;
     ``marker_d`` [B,T,M], held against 0.02 for the contact labels;
     ``o2h_sq`` and ``o2h_dot`` [B*Tf,P] of the sweep) and, on the card, the
-    CUDA events ``start`` and ``end`` around the firing.
+    CUDA events ``start`` and ``end`` of the firing's span ``hook.firing``.
+    A firing's spans (`utils/profiling.py`): ``hook.gate`` (``hook.fk``,
+    ``hook.normals``, ``hook.k2``, ``hook.k4``: everything up to the
+    decision), ``hook.projector`` and ``hook.blend``; in a session it
+    counts the rows gated (``hook.rows``) and corrected
+    (``hook.rows_corrected``, summed on the device).
     """
     D = cfg.smpl_dim + 3  # body block
     markers_idx = torch.as_tensor(
@@ -108,63 +115,81 @@ def make_correction_denoised_fn(
         B, T = x.shape[:2]
         body = x[..., :D]
         obj = x[..., D:]
+        cuda = x.is_cuda
 
-        obj_rot = rotation_6d_to_matrix(obj[..., :6])
-        pose_full = torch.cat([_body_axis_angle(body), hand_padded], dim=-1)
-        verts, _, _, _ = smpl_forward(
-            smpl, pose_full.reshape(B * T, -1), betas.reshape(B * T, -1),
-            body[..., -3:].reshape(B * T, 3))
-        verts = verts.reshape(B, T, -1, 3)
-        markers = verts[:, :, markers_idx]  # [B, T, M, 3]
+        with span("hook.gate", cuda=cuda):
+            with span("hook.fk", cuda=cuda):
+                obj_rot = rotation_6d_to_matrix(obj[..., :6])
+                pose_full = torch.cat([_body_axis_angle(body), hand_padded],
+                                      dim=-1)
+                verts, _, _, _ = smpl_forward(
+                    smpl, pose_full.reshape(B * T, -1),
+                    betas.reshape(B * T, -1),
+                    body[..., -3:].reshape(B * T, 3))
+                verts = verts.reshape(B, T, -1, 3)
+                markers = verts[:, :, markers_idx]  # [B, T, M, 3]
 
-        obj_points_pred = (torch.einsum("btij,bpj->btpi", obj_rot, obj_points)
-                           + obj[..., None, -3:])
+            obj_points_pred = (torch.einsum("btij,bpj->btpi", obj_rot,
+                                            obj_points)
+                               + obj[..., None, -3:])
 
-        # the penetration gate (`:107-110`) reads future frames only, so
-        # the object->body sweep and the normals run on the future slice
-        Tf = T - cfg.past_len
-        verts_fut = verts[:, cfg.past_len:].reshape(B * Tf, -1, 3)
-        obj_fut = obj_points_pred[:, cfg.past_len:].reshape(B * Tf, -1, 3)
-        normals_fut = vertex_normals(verts_fut, smpl.faces_idx, smpl.incident)
-        if cfg.nn_prune_delta is not None:
-            # beyond delta the pair is forced to the true (positive) sign,
-            # where the full sweep's far-field pseudonormal sign is an
-            # artifact of the nearest vertex
-            o2h_sq, o2h_dot = signed_nearest_pruned(
-                obj_fut, verts_fut, normals_fut, delta=cfg.nn_prune_delta,
-                chunk=cfg.nn_chunk)
-        else:
-            o2h_sq, o2h_dot = signed_nearest(
-                obj_fut, verts_fut, normals_fut, chunk=cfg.nn_chunk)
-        o2h_signed = (torch.sqrt(o2h_sq) * torch.sign(o2h_dot)
-                      ).reshape(B, Tf, -1)
+            # the penetration gate (`:107-110`) reads future frames only,
+            # so the object->body sweep and the normals run on the future
+            # slice
+            Tf = T - cfg.past_len
+            verts_fut = verts[:, cfg.past_len:].reshape(B * Tf, -1, 3)
+            obj_fut = obj_points_pred[:, cfg.past_len:].reshape(B * Tf, -1,
+                                                                3)
+            with span("hook.normals", cuda=cuda):
+                normals_fut = vertex_normals(verts_fut, smpl.faces_idx,
+                                             smpl.incident)
+            with span("hook.k2", cuda=cuda):
+                if cfg.nn_prune_delta is not None:
+                    # beyond delta the pair is forced to the true (positive)
+                    # sign, where the full sweep's far-field pseudonormal
+                    # sign is an artifact of the nearest vertex
+                    o2h_sq, o2h_dot = signed_nearest_pruned(
+                        obj_fut, verts_fut, normals_fut,
+                        delta=cfg.nn_prune_delta, chunk=cfg.nn_chunk)
+                else:
+                    o2h_sq, o2h_dot = signed_nearest(
+                        obj_fut, verts_fut, normals_fut, chunk=cfg.nn_chunk)
+            o2h_signed = (torch.sqrt(o2h_sq) * torch.sign(o2h_dot)
+                          ).reshape(B, Tf, -1)
 
-        w = torch.where(o2h_signed < 0, 20.0, 0.0)  # (`:107-110`)
-        loss_dist_o = o2h_signed.abs() * w  # [B, Tf, P]
+            w = torch.where(o2h_signed < 0, 20.0, 0.0)  # (`:107-110`)
+            loss_dist_o = o2h_signed.abs() * w  # [B, Tf, P]
 
-        # min over the object points per marker is a nearest-neighbour
-        # query of the markers against the points
-        md2, _ = nearest_neighbor(
-            markers.reshape(B * T, -1, 3),
-            obj_points_pred.reshape(B * T, -1, 3), chunk=cfg.nn_chunk)
-        marker_d = torch.sqrt(md2.clamp(min=0.0)).reshape(B, T, -1)
-        distance = marker_d.amin(dim=2).mean(dim=1)  # [B]
-        penetration = loss_dist_o.mean(dim=(1, 2))  # [B]
-        good = (penetration < 0.002) & (distance < 0.02)
-        condition = ~good  # [B] True -> apply the correction
+            # min over the object points per marker is a nearest-neighbour
+            # query of the markers against the points
+            with span("hook.k4", cuda=cuda):
+                md2, _ = nearest_neighbor(
+                    markers.reshape(B * T, -1, 3),
+                    obj_points_pred.reshape(B * T, -1, 3),
+                    chunk=cfg.nn_chunk)
+            marker_d = torch.sqrt(md2.clamp(min=0.0)).reshape(B, T, -1)
+            distance = marker_d.amin(dim=2).mean(dim=1)  # [B]
+            penetration = loss_dist_o.mean(dim=(1, 2))  # [B]
+            good = (penetration < 0.002) & (distance < 0.02)
+            condition = ~good  # [B] True -> apply the correction
+        if profiling.recording():
+            profiling.count("hook.rows", B)
+            profiling.count("hook.rows_corrected", condition.sum())
 
-        contact_label = marker_d < 0.02  # [B, T, M]
-        contact = contact_label[:, cfg.past_len:].sum(dim=1)  # [B, M]
+        with span("hook.projector", cuda=cuda):
+            contact_label = marker_d < 0.02  # [B, T, M]
+            contact = contact_label[:, cfg.past_len:].sum(dim=1)  # [B, M]
+            # the projector reads the gt object stream (its future frames
+            # are padded inside) and the denoised markers (`:125`)
+            obj_proj = projector.sample(obj_gt9, markers,
+                                        contact.to(torch.float32))
 
-        # the projector reads the gt object stream (its future frames are
-        # padded inside) and the denoised markers (`:125`)
-        obj_proj = projector.sample(obj_gt9, markers,
-                                    contact.to(torch.float32))
-
-        x_corr = torch.cat([body, obj_proj], dim=-1)
-        frac = float(np.float32(step) / np.float32(1000.0))
-        x_blend = frac * x + (1.0 - frac) * x_corr
-        return torch.where(condition[:, None, None], x_blend, x), {
+        with span("hook.blend", cuda=cuda):
+            x_corr = torch.cat([body, obj_proj], dim=-1)
+            frac = float(np.float32(step) / np.float32(1000.0))
+            x_blend = frac * x + (1.0 - frac) * x_corr
+            out = torch.where(condition[:, None, None], x_blend, x)
+        return out, {
             "condition": condition, "penetration": penetration,
             "distance": distance, "marker_d": marker_d, "o2h_sq": o2h_sq,
             "o2h_dot": o2h_dot}
@@ -175,18 +200,11 @@ def make_correction_denoised_fn(
             step = int(t[0])
         if step > cfg.correction_t_max or step % cfg.correction_every != 0:
             return x
-        if trace is None:
-            return correct(x, step)[0]
-        entry = {"t": step}
-        if x.is_cuda:
-            entry["start"] = torch.cuda.Event(enable_timing=True)
-            entry["end"] = torch.cuda.Event(enable_timing=True)
-            entry["start"].record()
-        out, gate = correct(x, step)
-        entry.update(gate)
-        if x.is_cuda:
-            entry["end"].record()
-        trace.append(entry)
+        with span("hook.firing", cuda=x.is_cuda, keep=trace is not None,
+                  t=step) as firing:
+            out, gate = correct(x, step)
+        if trace is not None:
+            trace.append(profiling.firing_entry(step, firing, gate))
         return out
 
     return denoised_fn

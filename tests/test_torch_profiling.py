@@ -3,13 +3,12 @@
 `StepTimer` summary is the JAX package's, line for line, on one clock;
 `trace` writes a Chrome trace of the CPU's operations; ``--debug_nan``
 makes a backward that returns NaN raise, and is off again after the run;
-`slope_time` measures a per-call cost; a trainer's ``main`` with
-``--profiler simple`` prints both sections, one with ``--profiler trace``
-writes ``<results_dir>/trace``, and the flags are the JAX package's."""
+a trainer's ``main`` with ``--profiler simple`` prints both sections, one
+with ``--profiler trace`` writes ``<results_dir>/trace``, and the flags are
+the JAX package's."""
 
 import json
 import os
-import time
 from argparse import ArgumentParser
 
 import pytest
@@ -90,12 +89,6 @@ def test_debug_nan_raises_at_a_nan_backward():
     finally:
         prof.finish()
     assert not torch.is_anomaly_enabled()
-
-
-def test_slope_time_measures_a_call():
-    ms = profiling.slope_time(lambda x: (time.sleep(0.004), x + 1)[1],
-                              torch.zeros(()), k_lo=1, k_hi=5, reps=3)
-    assert 3.0 < ms < 60.0
 
 
 def test_profiler_flags_are_the_jax_packages():
