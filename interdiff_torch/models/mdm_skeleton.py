@@ -25,6 +25,7 @@ from interdiff_torch.geometry.rotations import (
     quat_xyzw_to_wxyz,
     quaternion_to_matrix,
 )
+from interdiff_torch.models.denoise_graph import GraphedDenoiser
 from interdiff_torch.models.layers import (
     PositionalEncoding,
     TimestepEmbedder,
@@ -45,7 +46,7 @@ def rigid_keypoints_from_pose(pose: torch.Tensor,
             + pose[:, :, None, :3])
 
 
-class MDMSkeleton(nn.Module):
+class MDMSkeleton(GraphedDenoiser):
     """MDM denoiser for the skeleton (HO-GCN) track.
 
     Defaults mirror `train_diffusion_skeleton.py:355-366`: d_model 256, 4
@@ -150,7 +151,19 @@ class MDMSkeleton(nn.Module):
         """One denoiser call: x [B,T,106], timesteps [B] -> x0 [B,T,106].
         The decoder embeds the body and keypoint blocks (the pose block is
         not read, as in the reference, `diffusion_skeleton.py:236-239`).  A
-        missing ``cond`` is the null condition (zeroed memory [B,1,E])."""
+        missing ``cond`` is the null condition (zeroed memory [B,1,E]).
+
+        Without a gradient, ``train`` and ``generator``, on CUDA, the call
+        is replayed from a CUDA graph (`models/denoise_graph.py`).  Either
+        way no tensor handed in is written, and no tensor handed out is
+        ever written again by a later call."""
+        return self.replayed(self._denoise, (x, timesteps, zero_pose_obj,
+                                             cond), train, generator,
+                             force_mask=force_mask)
+
+    def _denoise(self, x, timesteps, zero_pose_obj, cond=None, *,
+                 force_mask=False, train=False, generator=None):
+        """The eager body of :meth:`denoise`."""
         bd, od = self.body_dim, self.points_dim
         h = (self.bodyEmbedding(x[..., :bd])
              + self.objEmbedding(x[..., bd:bd + od])

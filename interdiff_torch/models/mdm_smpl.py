@@ -22,6 +22,7 @@ from interdiff_torch.geometry.rotations import (
     axis_angle_to_matrix,
     matrix_to_rotation_6d,
 )
+from interdiff_torch.models.denoise_graph import GraphedDenoiser
 from interdiff_torch.models.layers import (
     PositionalEncoding,
     TimestepEmbedder,
@@ -45,7 +46,7 @@ def smpl_gt_from_raw(body_pose_aa: torch.Tensor, body_trans: torch.Tensor,
     return torch.cat([body6d, body_trans, obj6d, obj_trans], dim=-1)
 
 
-class MDMSmpl(nn.Module):
+class MDMSmpl(GraphedDenoiser):
     """MDM denoiser for the SMPL (BEHAVE) track.
 
     Defaults mirror `train_diffusion_smpl.py:538-604`: smpl_dim 132, d_model
@@ -162,7 +163,18 @@ class MDMSmpl(nn.Module):
         """One denoiser call: x [B,T,144], timesteps [B] -> x0 [B,T,144].
         A missing ``cond`` is the null condition (zeroed memory).
         ``train`` applies dropout and the condition mask, drawn from
-        ``generator``."""
+        ``generator``.
+
+        Without a gradient, ``train`` and ``generator``, on CUDA, the call
+        is replayed from a CUDA graph (`models/denoise_graph.py`).  Either
+        way no tensor handed in is written, and no tensor handed out is
+        ever written again by a later call."""
+        return self.replayed(self._denoise, (x, timesteps, cond), train,
+                             generator, force_mask=force_mask)
+
+    def _denoise(self, x, timesteps, cond=None, *, force_mask=False,
+                 train=False, generator=None):
+        """The eager body of :meth:`denoise`."""
         t_emb = self.embedTimeStep(timesteps)  # [B, 1, E]
         h = (self.bodyEmbedding(x[..., : self.body_dim])
              + self.objEmbedding(x[..., self.body_dim:]) + t_emb)
