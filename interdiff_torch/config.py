@@ -1,4 +1,6 @@
-"""Typed configuration of both tracks (`interdiff_tpu/config.py:16-123`).
+"""Typed configuration of both tracks (`interdiff_tpu/config.py:16-123`)
+and of MDM's text-to-motion model (``TextTrackConfig``, no JAX
+counterpart).
 
 The defaults are the reference's training-time values; ``build``,
 ``build_model`` and ``build_smpl_body`` return the port's objects on
@@ -93,6 +95,44 @@ class SkeletonTrackConfig:
             dropout=self.dropout, activation=self.activation,
             past_len=self.past_len, cond_mask_prob=self.cond_mask_prob,
             latent_usage=self.latent_usage, device=device)
+
+
+@dataclass(frozen=True)
+class TextTrackConfig:
+    """MDM text-to-motion on HumanML3D (github.com/GuyTevet/
+    motion-diffusion-model `utils/parser_util.py` defaults with
+    ``arch='trans_enc'``, `model/mdm.py`) and CLIP ViT-B/32's text tower
+    (`clip/model.py`)."""
+
+    njoints: int = 263  # HumanML3D's features a frame
+    latent_dim: int = 512
+    ff_size: int = 1024
+    num_layers: int = 8
+    num_heads: int = 4
+    dropout: float = 0.1
+    activation: str = "gelu"
+    cond_mask_prob: float = 0.1
+    clip_dim: int = 512
+    vocab_size: int = 49408
+    context_length: int = 77
+    transformer_width: int = 512
+    transformer_layers: int = 12
+    transformer_heads: int = 8
+    diffusion: DiffusionConfig = DiffusionConfig()
+
+    def build_model(self, device=None):
+        from interdiff_torch.models.mdm_text import MDMText
+
+        return MDMText(
+            njoints=self.njoints, latent_dim=self.latent_dim,
+            ff_size=self.ff_size, num_layers=self.num_layers,
+            num_heads=self.num_heads, dropout=self.dropout,
+            activation=self.activation, cond_mask_prob=self.cond_mask_prob,
+            clip_dim=self.clip_dim, vocab_size=self.vocab_size,
+            context_length=self.context_length,
+            transformer_width=self.transformer_width,
+            transformer_layers=self.transformer_layers,
+            transformer_heads=self.transformer_heads, device=device)
 
 
 @dataclass(frozen=True)

@@ -6,13 +6,15 @@ Submodule and parameter names follow the flax modules so that the weight
 bridge (`utils/convert.py`) is a renaming: dense layers are ``nn.Linear``
 (flax ``kernel`` is the transposed ``weight``), ``TorchMHA`` keeps the
 packed ``in_proj_kernel`` [D, 3D] layout, QaN layers keep ``queries``
-[N, D] and ``wk`` [N, 1].  Every layer is post-norm, LayerNorm eps is 1e-5,
-GELU is the exact erf form.  Dropout sits where the JAX package puts it
-(after the positional encoding, inside the feed-forward block, on each
-sublayer's output before its residual; not inside attention) and acts in
-train mode only (``train=True``), its mask drawn from an explicit
-``torch.Generator`` (:func:`dropout`); at rate 0 or in eval mode a layer
-computes exactly what it does without dropout and draws nothing.  Both
+[N, D] and ``wk`` [N, 1].  Every layer here is post-norm (the text tower's
+pre-norm layer is `models/clip_text.py`'s), LayerNorm eps is 1e-5, GELU is
+the exact erf form (``quick_gelu`` is CLIP's, by name).  Dropout sits where
+the JAX package puts it (after the positional encoding, inside the
+feed-forward block, on each sublayer's output before its residual; not
+inside attention) and acts in train mode only (``train=True``), its mask
+drawn from an explicit ``torch.Generator`` (:func:`dropout`); at rate 0
+or in eval mode a layer computes exactly what it does without dropout and
+draws nothing.  Both
 BatchNorms have flax's train mode: ``BatchNormState`` (the correction
 networks) keeps its running statistics as buffers, state that
 the correction trainers move by momentum and never optimise;
@@ -115,14 +117,22 @@ class TorchMHA(nn.Module):
         nn.init.uniform_(self.in_proj_kernel, -bound, bound)
         self.out_proj = nn.Linear(d_model, d_model)
 
-    def forward(self, query, key, value):
+    def forward(self, query, key, value, mask=None):
+        """``mask``: an additive [Tq, Tk] mask on the scores (none:
+        unmasked)."""
         d = self.in_proj_bias.shape[0] // 3
         w, b = self.in_proj_kernel, self.in_proj_bias
         q = query @ w[:, :d] + b[:d]
         k = key @ w[:, d:2 * d] + b[d:2 * d]
         v = value @ w[:, 2 * d:] + b[2 * d:]
         return self.out_proj(
-            multi_head_attention(q, k, v, num_heads=self.num_heads))
+            multi_head_attention(q, k, v, num_heads=self.num_heads,
+                                 mask=mask))
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """CLIP's ``QuickGELU``: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(1.702 * x)
 
 
 def _activation(name: str):
@@ -130,7 +140,9 @@ def _activation(name: str):
         return F.relu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="none")  # exact erf form
-    raise ValueError(f"activation must be relu/gelu, got {name}")
+    if name == "quick_gelu":
+        return quick_gelu
+    raise ValueError(f"activation must be relu/gelu/quick_gelu, got {name}")
 
 
 class FeedForward(nn.Module):

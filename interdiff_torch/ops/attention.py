@@ -5,7 +5,9 @@
   depth-scaled, attend over a tridiagonal band (|t - j| <= 1) with rotary
   position embedding over the full ``d_model`` on q and k, and scores scaled
   by ``D**-0.5`` on top of the query depth-scaling.
-* Dense multi-head attention with ``torch.nn.MultiheadAttention`` math.
+* Dense multi-head attention with ``torch.nn.MultiheadAttention`` math,
+  optionally under an additive mask (the text tower's causal mask,
+  :func:`causal_mask`).
 
 Sequences are 20-35 tokens, so the band is a dense T x T mask.
 """
@@ -13,6 +15,7 @@ Sequences are 20-35 tokens, so the band is a dense T x T mask.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -72,10 +75,18 @@ def banded_qan_attention(queries: torch.Tensor, x: torch.Tensor, *,
     return torch.einsum("bntj,bjd->bntd", probs, x)
 
 
+def causal_mask(seq_len: int) -> torch.Tensor:
+    """The additive causal mask [T, T]: 0 on and below the diagonal, -inf
+    above it (CLIP's ``build_attention_mask``)."""
+    return torch.full((seq_len, seq_len), float("-inf")).triu_(1)
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         num_heads: int) -> torch.Tensor:
-    """Unmasked scaled dot-product MHA on projected q [B, Tq, D] and
-    k/v [B, Tk, D], per-head scale 1/sqrt(D/H)."""
+                         num_heads: int,
+                         mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Scaled dot-product MHA on projected q [B, Tq, D] and k/v [B, Tk, D],
+    per-head scale 1/sqrt(D/H); ``mask`` [Tq, Tk] is added to the scores
+    before the softmax (none: unmasked)."""
     B, Tq, D = q.shape
     Tk = k.shape[1]
     H = num_heads
@@ -84,6 +95,8 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kh = k.reshape(B, Tk, H, hd).transpose(1, 2)
     vh = v.reshape(B, Tk, H, hd).transpose(1, 2)
     scores = torch.matmul(qh, kh.transpose(-1, -2)) / math.sqrt(hd)
+    if mask is not None:
+        scores = scores + mask
     probs = torch.softmax(scores, dim=-1)
     out = torch.matmul(probs, vh)
     return out.transpose(1, 2).reshape(B, Tq, D)
