@@ -60,7 +60,17 @@ Phases, each printing JSON lines (any failure exits non-zero):
    every output compared as bits (+0.0 against -0.0); each scale's
    registers, waves, issue floor and one call in a CUDA graph; K1's edge
    rows at C=4 also with the encoder's chains (the kernel's lane-per-slot
-   path).
+   path).  K7 (`phase_kernels_attention`): MDM's attention at the cell's
+   guided shape (B=64, T=197, H=4, hd=128) and ragged T, each unmasked
+   and causal, within `K7_TOL` of its plain version; its
+   registers and waves; one call in a CUDA graph; its time one launch and
+   replayed from a graph beside the bound, the plain version and
+   `scaled_dot_product_attention` in float32 (`library_ms`, a yardstick the
+   port never calls).  Its launches on the MDM cell's main path
+   (`phase_text_eval`: `cli/eval_text.evaluate` at the cell's batch on a
+   4-step schedule, the count set to 0 just before) and on each InterDiff
+   phase on its own (0; every InterDiff path's read of K1-K6's counts
+   also checks that K7 stayed at 0 since its reset).
 3. grads: the `torch.autograd.Function` around each kernel on the card, its
    backward against autograd through the kernel's plain version on the same
    inputs and cotangents: K5, K1 (through K5), K6 (W, a, b, the inputs, and
@@ -999,6 +1009,149 @@ def phase_kernels_sa(sa, group, pointcloud, gpu: str) -> dict:
     total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_PER_S
                          >= total["ops"] / F32_OPS_PER_S else "operations")
     return total
+
+
+# MDM's attention at the cell's guided shape: 2 x 32 captions, 196 frames
+# and the condition token, 4 heads of 128
+K7_SHAPE = (64, 197, 4, 128)
+# K7's block (`csrc/attention.cu`): query rows, keys a tile, threads
+K7_BLOCK = (64, 32, 128)
+# K7 against its plain version: the same float32 products summed in
+# another order, with an online softmax, over up to 200 terms
+K7_TOL = 2e-6
+
+
+def _k7_rel(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_kernels_attention(gpu: str) -> dict:
+    """K7 at the MDM cell's shape (B=64, T=197, H=4, hd=128) against
+    `packed_attention_plain`, unmasked and under the causal mask, and at
+    ragged T (35, 200, 97 at 8 heads), each within `K7_TOL` of the largest
+    output; its registers, shared memory and waves; one call captured in a
+    CUDA graph.  Its time for one launch between two events (`ms`) and
+    replayed from a graph (`device_ms`, 50 launches), beside the bound,
+    the plain version's and `library_ms`, the one PyTorch call
+    `torch.nn.functional.scaled_dot_product_attention` in float32 on the
+    [B, H, T, hd] views of the same tensor (a yardstick the port never
+    calls)."""
+    from interdiff_torch.ops import _build
+    from interdiff_torch.ops import packed_attention as k7
+    from interdiff_torch.ops.attention import causal_mask
+
+    k7.build()
+    B, T, H, hd = K7_SHAPE
+    D = H * hd
+    rng = np.random.default_rng(SEED + 21)
+
+    def packed(b, t, h, d):
+        return torch.from_numpy(rng.standard_normal(
+            (b, t, 3 * h * d)).astype(np.float32)).to(DEV)
+
+    errs = {}
+    with torch.no_grad():
+        for b, t, h, d in (K7_SHAPE, (3, 35, 4, 128), (2, 200, 4, 128),
+                           (4, 97, 8, 128)):
+            qkv = packed(b, t, h, d)
+            for name, mask in (("unmasked", None),
+                               ("causal", causal_mask(t).to(DEV))):
+                err = _k7_rel(k7.packed_attention_cuda(qkv, h, mask),
+                              k7.packed_attention_plain(qkv, h, mask))
+                errs[f"B{b}_T{t}_H{h}_hd{d}_{name}"] = err
+                if not err <= K7_TOL:
+                    raise AssertionError(f"K7 differs from its plain version "
+                                         f"at {(b, t, h, d)} {name}: {err}")
+        qkv = packed(B, T, H, hd)
+        capture, graph = _graph_capture(
+            "K7", lambda: k7.packed_attention_cuda(qkv, H),
+            lambda: k7.launches, k7.packed_attention_cuda(qkv, H))
+        del graph
+        kernel = _launch_times(lambda: k7.packed_attention_cuda(qkv, H))
+        views = [qkv[..., i * D:(i + 1) * D].view(B, T, H, hd).transpose(1, 2)
+                 for i in range(3)]
+        library = _launch_times(
+            lambda: torch.nn.functional.scaled_dot_product_attention(*views))
+        lib_err = _k7_rel(torch.nn.functional.scaled_dot_product_attention(
+            *views).transpose(1, 2).reshape(B, T, D),
+            k7.packed_attention_plain(qkv, H))
+        plain_ms = cuda_ms(lambda: k7.packed_attention_plain(qkv, H))
+    flops = 4 * B * H * T * T * hd
+    n_bytes = qkv.numel() * 4 + B * T * D * 4
+    bound_ms = max(flops / F32_OPS_PER_S, n_bytes / HBM_BYTES_PER_S) * 1e3
+    report = {r["kernel"]: r for r in _build.ptxas_report(k7.SOURCE)}
+    rows, keys, threads = K7_BLOCK
+    blocks = -(-T // rows) * H * B
+    smem = 4 * ((rows + 2 * keys) * (hd + 4) + rows * (keys + 8))
+    occupancy = [_occupancy(r, threads, blocks, smem)
+                 for r in report.values()]
+
+    out = {"ms": kernel["one_launch"], "device_ms": kernel["graph_replay"],
+           "ms_back_to_back": kernel["back_to_back"], "plain_ms": plain_ms,
+           "library_ms": library["one_launch"],
+           "library_device_ms": library["graph_replay"],
+           "bound_ms": bound_ms, "bound_by": (
+               "operations" if flops / F32_OPS_PER_S
+               >= n_bytes / HBM_BYTES_PER_S else "bytes"),
+           "max_rel_err": max(errs.values())}
+    emit({"phase": "kernels", "gpu": gpu, "kernels": "K7",
+          "shape": list(K7_SHAPE), "flops": flops, "bytes": n_bytes,
+          "rel_err_vs_plain": errs, "tolerance": K7_TOL,
+          "library": "scaled_dot_product_attention, float32, [B, H, T, hd] "
+                     "views", "library_rel_err_vs_plain": lib_err,
+          "share_of_f32_peak": flops / F32_OPS_PER_S * 1e3
+          / kernel["graph_replay"],
+          "ptxas": occupancy, "graph_capture": capture, **out})
+    return out
+
+
+def phase_text_eval(gpu: str) -> dict:
+    """The MDM cell's main path, `cli/eval_text.evaluate`, at its batch (32
+    captions, 196 frames, guidance 2.5: 64 rows a denoiser call) on a
+    4-step schedule, K7's count set to 0 just before: the first denoiser
+    call warms up and captures the graph, eager, (`WARMUP` + 1) x 8
+    launches; the other calls replay it, launching nothing from the host.
+    The session's counters: every one of the 4 calls counts 8 layers, all
+    8 served by K7, and is a replay."""
+    from interdiff_torch.cli.eval_text import evaluate, synthetic_captions
+    from interdiff_torch.config import DiffusionConfig, TextTrackConfig
+    from interdiff_torch.eval.text import TextEvalConfig
+    from interdiff_torch.models.denoise_graph import WARMUP
+    from interdiff_torch.ops import packed_attention as k7
+    from interdiff_torch.utils import profiling
+
+    steps, captions = 4, 32
+    cfg = TextEvalConfig()
+    model = TextTrackConfig().build_model(DEV)
+    diffusion = DiffusionConfig(timestep_respacing=str(steps)).build(DEV)
+    batches = synthetic_captions(np.random.default_rng(SEED + 22),
+                                 batch_size=captions, steps=1)
+    torch.cuda.synchronize()
+    k7.launches = 0
+    t0 = time.perf_counter()
+    g = torch.Generator(device=DEV).manual_seed(SEED)
+    totals, nb = evaluate(cfg, model, diffusion, batches, generator=g,
+                          report=lambda nb, m: None, timings={})
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launched = k7.launches
+    counters = {k: v for k, v in profiling.last_session().counters.items()
+                if k.startswith(("attention.", "denoise.", "guidance."))}
+    want = {"attention.layers": 8 * steps,
+            "attention.fused_layers": 8 * steps, "denoise.calls": steps,
+            "denoise.replays": steps, "denoise.captures": 1,
+            "guidance.calls": steps}
+    line = {"phase": "text_eval", "gpu": gpu, "captions": captions,
+            "frames": cfg.num_frames, "guidance": cfg.guidance_param,
+            "steps": steps, "batches": nb, "launches": {"K7": launched},
+            "want_launches": {"K7": (WARMUP + 1) * 8}, "counters": counters,
+            "want_counters": want, "wall_s": wall_s,
+            "finite": all(np.isfinite(v) for v in totals.values())}
+    emit(line)
+    if launched != (WARMUP + 1) * 8 or counters != want or nb != 1 \
+            or not line["finite"]:
+        raise AssertionError(f"text_eval: {line}")
+    return {"K7": launched}
 
 
 def _nn_geometry(rng, frames: int, points: int, body):
@@ -2207,16 +2360,23 @@ def write_behave_corpus(root: str, body, rng, *, sequences: int = 2,
 
 
 def _reset_launches(group, nn, sa) -> None:
-    from interdiff_torch.ops import gather
+    from interdiff_torch.ops import gather, packed_attention
 
     group.launches = 0
     gather.launches = 0
     sa.launches = 0
+    packed_attention.launches = 0
     for name in nn.launches:
         nn.launches[name] = 0
 
 
 def _read_launches(group, nn, sa) -> dict:
+    from interdiff_torch.ops import packed_attention
+
+    # every caller reads an InterDiff path, which never launches K7
+    if packed_attention.launches:
+        raise AssertionError(f"K7 ran on an InterDiff path: "
+                             f"{packed_attention.launches}")
     return {"K1": group.launches, "K2": nn.launches["signed_nearest_pruned"],
             "K3": nn.launches["signed_nearest"],
             "K4": nn.launches["nearest_neighbor"],
@@ -6146,44 +6306,65 @@ def main() -> int:
         print(f"chip_smoke: sees {torch.cuda.device_count()} devices, runs "
               "on one: set CUDA_VISIBLE_DEVICES to one card", file=sys.stderr)
         return 2
-    from interdiff_torch.ops import gather, group, nn, pointcloud, sa
+    from interdiff_torch.ops import (
+        gather,
+        group,
+        nn,
+        packed_attention,
+        pointcloud,
+        sa,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_name_and_power()
-    phase_build(group, nn, sa, gather, gpu)
+    # K7's launches in each phase on its own, the count set to 0 just
+    # before it
+    k7_by_phase = {}
+
+    def run(phase, *args):
+        packed_attention.launches = 0
+        out = phase(*args)
+        k7_by_phase[phase.__name__] = packed_attention.launches
+        return out
+
+    run(phase_build, group, nn, sa, gather, gpu)
     models = full_width_models()
-    timed = {"K1": phase_kernels(group, pointcloud, gpu),
-             **phase_kernels_nn(nn, models[2], gpu),
-             "K5": phase_kernels_gather(gather, group, pointcloud, gpu),
-             "K6": phase_kernels_sa(sa, group, pointcloud, gpu)}
-    phase_grads(gather, group, sa, nn, pointcloud, models[2], gpu)
-    phase_slice_cpu_vs_gpu(gpu)
-    phase_slice_eval_cpu_vs_gpu(gpu)
-    phase_slice_train_cpu_vs_gpu(group, sa, gpu)
-    phase_slice_options_cpu_vs_gpu(gpu)
-    phase_skeleton_cpu_vs_gpu(group, nn, sa, gpu)
-    phase_sampler(group, nn, sa, models, gpu)
-    eval_launches, seeded_gate = phase_eval(group, nn, sa, models, gpu)
-    train_launches, option_launches = phase_train(group, nn, sa, gather, gpu)
-    phase_profile(models, gpu)
-    phase_profile_train(gpu)
-    skeleton_launches = phase_skeleton(group, nn, sa, gpu)
-    phase_correction_cpu_vs_gpu(gpu)
-    correction_launches, at_train = phase_correction_train(
-        group, nn, sa, models[2], gpu)
-    refine_launches, at_refine = phase_refine(group, nn, sa, models[2], gpu)
-    phase_behave_cpu_vs_gpu(gpu)
-    behave_launches = phase_behave(group, nn, sa, models, gpu)
-    long_launches = phase_long_eval(group, nn, sa, models, gpu)
-    ckpt_launches = phase_ckpt(group, nn, sa, models, gpu)
-    trained_launches = phase_trained(group, nn, sa, models[2], seeded_gate,
+    timed = {"K1": run(phase_kernels, group, pointcloud, gpu),
+             **run(phase_kernels_nn, nn, models[2], gpu),
+             "K5": run(phase_kernels_gather, gather, group, pointcloud, gpu),
+             "K6": run(phase_kernels_sa, sa, group, pointcloud, gpu),
+             "K7": run(phase_kernels_attention, gpu)}
+    timed["K7"]["text_eval"] = run(phase_text_eval, gpu)["K7"]
+    run(phase_grads, gather, group, sa, nn, pointcloud, models[2], gpu)
+    run(phase_slice_cpu_vs_gpu, gpu)
+    run(phase_slice_eval_cpu_vs_gpu, gpu)
+    run(phase_slice_train_cpu_vs_gpu, group, sa, gpu)
+    run(phase_slice_options_cpu_vs_gpu, gpu)
+    run(phase_skeleton_cpu_vs_gpu, group, nn, sa, gpu)
+    run(phase_sampler, group, nn, sa, models, gpu)
+    eval_launches, seeded_gate = run(phase_eval, group, nn, sa, models, gpu)
+    train_launches, option_launches = run(phase_train, group, nn, sa,
+                                          gather, gpu)
+    run(phase_profile, models, gpu)
+    run(phase_profile_train, gpu)
+    skeleton_launches = run(phase_skeleton, group, nn, sa, gpu)
+    run(phase_correction_cpu_vs_gpu, gpu)
+    correction_launches, at_train = run(phase_correction_train, group, nn,
+                                        sa, models[2], gpu)
+    refine_launches, at_refine = run(phase_refine, group, nn, sa, models[2],
                                      gpu)
-    phase_prepare_cpu_vs_gpu(gpu)
-    prepare_launches = phase_prepare(group, nn, sa, models, gpu)
-    render_launches = phase_render(group, nn, sa, models, gpu)
-    phase_diffusion_math(models, gpu)
-    dp_launches = phase_data_parallel(group, nn, sa, models[2], gpu)
+    run(phase_behave_cpu_vs_gpu, gpu)
+    behave_launches = run(phase_behave, group, nn, sa, models, gpu)
+    long_launches = run(phase_long_eval, group, nn, sa, models, gpu)
+    ckpt_launches = run(phase_ckpt, group, nn, sa, models, gpu)
+    trained_launches = run(phase_trained, group, nn, sa, models[2],
+                           seeded_gate, gpu)
+    run(phase_prepare_cpu_vs_gpu, gpu)
+    prepare_launches = run(phase_prepare, group, nn, sa, models, gpu)
+    render_launches = run(phase_render, group, nn, sa, models, gpu)
+    run(phase_diffusion_math, models, gpu)
+    dp_launches = run(phase_data_parallel, group, nn, sa, models[2], gpu)
     # every kernel must have run on a main path: the eval entry point's
     # (K1-K4; K6 on its opt-in route) or the training entry point's (K1; K6
     # on its opt-in route; K5 in the backward with respect to the cloud);
@@ -6207,6 +6388,10 @@ def main() -> int:
                                            "trained_skeleton_eval"]
     if any(by_path[p] != NO_LAUNCHES for p in no_kernel):
         raise AssertionError(f"a kernel ran on a skeleton path: {by_path}")
+    # K7 serves MDM's layers only: every other phase is InterDiff's
+    if any(n for name, n in k7_by_phase.items() if name not in (
+            "phase_kernels_attention", "phase_text_eval")):
+        raise AssertionError(f"K7 ran on an InterDiff phase: {k7_by_phase}")
     for key in ("K3", "K4"):
         timed[key]["at_slice_shapes"] = {"correction_train": at_train[key],
                                          "refine": at_refine[key]}
@@ -6235,7 +6420,16 @@ def main() -> int:
             ("K3", "K3 signed_nearest", "nn.cu", "pallas_nn.py:145"),
             ("K4", "K4 nearest_neighbor", "nn.cu", "pallas_nn.py:107"),
             ("K5", "K5 gather_rows", "gather.cu", "pallas_gather.py:72"),
-            ("K6", "K6 fused_sa_scale", "sa.cu", "pallas_sa.py:194"))]})
+            ("K6", "K6 fused_sa_scale", "sa.cu", "pallas_sa.py:194"))]
+        + [{"name": "K7 packed_attention", "route": "cuda",
+            "source": "interdiff_torch/csrc/attention.cu", "replaces": None,
+            "launches": timed["K7"]["text_eval"],
+            "launches_by_phase": {
+                name: n for name, n in k7_by_phase.items()
+                if name != "phase_kernels_attention"},
+            **{k: timed["K7"][k] for k in (
+                "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms", "library_device_ms")}}]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

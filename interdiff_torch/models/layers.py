@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from interdiff_torch.ops import packed_attention as k7
 from interdiff_torch.ops.attention import (
     banded_qan_attention,
     multi_head_attention,
@@ -185,6 +186,33 @@ class EncoderLayer(nn.Module):
         return self.norm2(x + drop(self.ff(x, train, generator)))
 
 
+class PackedEncoderLayer(EncoderLayer):
+    """`EncoderLayer` (MDM's stack, `models/mdm_text.py`) whose
+    self-attention, on the card without a gradient and out of training, is
+    two launches: one packed QKV product (``torch.addmm``, the bias in its
+    epilogue) and kernel K7 (`ops/packed_attention.py`), which reads q, k
+    and v in place from it and writes the heads concatenated for
+    ``out_proj``.  Anywhere else it is `EncoderLayer.forward` itself.  The
+    parameters and state-dict keys are `EncoderLayer`'s."""
+
+    def packed_path(self, x: torch.Tensor, train: bool) -> bool:
+        """Whether a call on ``x`` takes the packed path: CUDA, no
+        gradient recorded, ``train`` off.  There K7 runs or, for a head
+        size it is not built for, raises."""
+        return x.is_cuda and not train and not torch.is_grad_enabled()
+
+    def forward(self, x, memory=None, train: bool = False, generator=None):
+        if not self.packed_path(x, train):
+            return super().forward(x, memory, train, generator)
+        B, T, D = x.shape
+        attn = self.self_attn
+        qkv = torch.addmm(attn.in_proj_bias, x.reshape(B * T, D),
+                          attn.in_proj_kernel)
+        a = k7.packed_attention(qkv.view(B, T, 3 * D), attn.num_heads)
+        x = self.norm1(x + attn.out_proj(a))
+        return self.norm2(x + self.ff(x))
+
+
 class DecoderLayer(nn.Module):
     """Post-norm ``nn.TransformerDecoderLayer``."""
 
@@ -274,13 +302,14 @@ class QaNDecoderLayer(_QaNBlock):
 
 
 _KINDS = {"enc": EncoderLayer, "qan_enc": QaNEncoderLayer,
-          "dec": DecoderLayer, "qan_dec": QaNDecoderLayer}
+          "dec": DecoderLayer, "qan_dec": QaNDecoderLayer,
+          "enc_packed": PackedEncoderLayer}
 
 
 class TransformerStack(nn.Module):
     """Heterogeneous layer stack ``layer_0 .. layer_{n-1}``
     (`layers.py:177-269`); ``kinds`` entries are 'enc' | 'qan_enc' | 'dec' |
-    'qan_dec', and encoder kinds ignore ``memory``."""
+    'qan_dec' | 'enc_packed', and encoder kinds ignore ``memory``."""
 
     def __init__(self, d_model: int, num_heads: int, dim_feedforward: int,
                  kinds: Sequence[str], activation: str = "gelu",

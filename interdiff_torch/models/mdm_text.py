@@ -7,8 +7,10 @@ CLIP's pooled text (`models/clip_text.py`, the submodule ``clip``), encoded
 once a batch by :meth:`MDMText.encode_text`.  A denoiser call embeds
 ``emb = TE(t) + L_text(c)`` as the first token, the frames through
 ``L_pose`` after it, adds the sinusoidal positions, runs the post-norm
-encoder (no padding mask, as the source's ``trans_enc`` passes none) and
-maps every frame token but the first through ``L_final`` to x0.  The null
+encoder (no padding mask, as the source's ``trans_enc`` passes none; on
+the card each layer's attention is one packed QKV product and kernel K7,
+`models/layers.py::PackedEncoderLayer`) and maps every frame token but
+the first through ``L_final`` to x0.  The null
 condition is ``c = 0``, so a null row still carries ``L_text``'s bias (the
 source's ``mask_cond`` under ``force_mask``).
 
@@ -64,7 +66,7 @@ class MDMText(GraphedDenoiser):
         self.input_process = nn.Linear(njoints, latent_dim)
         self.sequence_pos_encoder = PositionalEncoding(latent_dim, dropout)
         self.seqTransEncoder = TransformerStack(
-            latent_dim, num_heads, ff_size, ("enc",) * num_layers,
+            latent_dim, num_heads, ff_size, ("enc_packed",) * num_layers,
             activation, dropout)
         self.output_process = nn.Linear(latent_dim, njoints)
         self.to(resolve_device(device))
@@ -108,9 +110,18 @@ class MDMText(GraphedDenoiser):
 
         Without a gradient, ``train`` and ``generator``, on CUDA, the call
         is replayed from a CUDA graph; either way no tensor handed in is
-        written and none handed out is written again."""
+        written and none handed out is written again.  Counted as well:
+        ``attention.layers`` (the encoder's layers) and
+        ``attention.fused_layers`` (those whose attention K7 serves under
+        this call's conditions, `PackedEncoderLayer.packed_path`)."""
         if scale is not None:
             profiling.count("guidance.calls", 1)
+        if profiling.recording():
+            stack = self.seqTransEncoder
+            n = len(stack.kinds)
+            profiling.count("attention.layers", n)
+            profiling.count("attention.fused_layers",
+                            n * stack.layer_0.packed_path(x, train))
         return self.replayed(self._denoise, (x, timesteps, text, scale),
                              train, generator, force_mask=force_mask)
 

@@ -15,9 +15,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from interdiff_torch.ops import _build, gather, group, nn, sa  # noqa: E402
+from interdiff_torch.ops import (  # noqa: E402
+    _build,
+    gather,
+    group,
+    nn,
+    packed_attention,
+    sa,
+)
 
-MODULES = [gather, group, nn, sa]
+MODULES = [gather, group, nn, sa, packed_attention]
 # the kind of a `ctypes` type as the C side declares it
 _TABLE_KIND = {"ptr": "pointer", "int*": "pointer", "int": "int",
                "i64": "long long", "f32": "float"}

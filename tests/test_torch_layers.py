@@ -39,9 +39,11 @@ def _check(flax_mod, torch_mod, cross):
     np.testing.assert_allclose(got, ref, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("kind", ["enc", "dec", "qan_enc", "qan_dec"])
+@pytest.mark.parametrize("kind", ["enc", "dec", "qan_enc", "qan_dec",
+                                  "enc_packed"])
 def test_layer_matches_flax(kind):
-    flax_cls = {"enc": jl.EncoderLayer, "dec": jl.DecoderLayer,
+    flax_cls = {"enc": jl.EncoderLayer, "enc_packed": jl.EncoderLayer,
+                "dec": jl.DecoderLayer,
                 "qan_enc": jl.QaNEncoderLayer,
                 "qan_dec": jl.QaNDecoderLayer}[kind]
     _check(flax_cls(D, H, FF), tl._KINDS[kind](D, H, FF),
