@@ -94,7 +94,7 @@ Phases, each printing JSON lines (any failure exits non-zero):
 5. sampler: the sampler at full width: `MDMSmpl` defaults, 32 clips of 35
    frames with 2048 object points,
    one `encode` (K1 launches twice), 2-fold diverse tiling to 64 rows, one
-   `make_sampler(use_correction=True)` call with 1000 DDPM steps on the
+   `make_sampler(projector=...)` call with 1000 DDPM steps on the
    V=6890 stand-in body: 11 firings of the correction (K2 and K4 launch 11
    times each), with the hook's time and the shares of flagged segments
    (from K2's prologue),
@@ -1721,8 +1721,8 @@ def _small_sampler_run(device, state, inputs, projector_state=None):
         projector.load_state_dict(projector_state, strict=True)
         extra = dict(smpl=build_smpl_body(seed=SEED, num_verts=256,
                                           device=device),
-                     projector=projector, use_correction=True,
-                     markers_idx=SMALL_MARKERS, trace=trace)
+                     projector=projector, markers_idx=SMALL_MARKERS,
+                     trace=trace)
     run = make_sampler(cfg, model, track.diffusion.build(device),
                        reuse_memory=True, **extra)
     gt, pts, hand, betas, noise, step_noise = (t.to(device) for t in inputs)
@@ -2470,7 +2470,7 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
     cfg = SmplEvalConfig()
     trace, flag_shares = [], []
     run = make_sampler(cfg, model, diffusion, smpl=body, projector=projector,
-                       use_correction=True, reuse_memory=True, trace=trace)
+                       reuse_memory=True, trace=trace)
     pruned = nn._signed_nearest_pruned_launch
 
     def recording_pruned(a, b, n, delta):
@@ -2516,8 +2516,8 @@ def phase_sampler(group, nn, sa, models, gpu: str) -> dict:
     short = DiffusionConfig(timestep_respacing="100").build()
     trace_full = []
     run_full = make_sampler(cfg_full, model, short, smpl=body,
-                            projector=projector, use_correction=True,
-                            reuse_memory=True, trace=trace_full)
+                            projector=projector, reuse_memory=True,
+                            trace=trace_full)
     _reset_launches(group, nn, sa)
     t0 = time.perf_counter()
     x = run_full(*tiled, generator=gen)
@@ -2619,7 +2619,7 @@ def phase_eval(group, nn, sa, models, gpu: str) -> tuple:
         np.random.default_rng(SEED + 11), CLIPS, FRAMES, POINTS, DEV)
     short = DiffusionConfig(timestep_respacing="100").build()
     run = make_sampler(cfg, model, short, smpl=body, projector=projector,
-                       use_correction=True, reuse_memory=True)
+                       reuse_memory=True)
 
     def encode_ms():
         torch.cuda.synchronize()
@@ -3134,7 +3134,7 @@ def phase_profile(models, gpu: str) -> None:
     trace = []
     run = make_sampler(SmplEvalConfig(correction_t_max=9, correction_every=5),
                        model, diffusion, smpl=body, projector=projector,
-                       use_correction=True, reuse_memory=True, trace=trace)
+                       reuse_memory=True, trace=trace)
     gt, pts, hand, betas = _main_path_inputs(rng, CLIPS * FOLD, FRAMES,
                                              POINTS, DEV)
     memory = model.encode(gt, pts)
@@ -3279,7 +3279,7 @@ def _small_skeleton_runs(device, rng_seed: int = 38):
     cfg = SkeletonEvalConfig(correction_t_max=9, correction_every=3)
     out, trace = {}, []
     for name, kwargs in (("plain", {}), ("corrected", dict(
-            projector=projector, use_correction=True, trace=trace))):
+            projector=projector, trace=trace))):
         x = make_skeleton_sampler(cfg, model, diffusion, **kwargs)(
             *(on[k] for k in SKEL_KEYS),
             noise=torch.from_numpy(noise[0]).to(device),
@@ -3509,7 +3509,7 @@ def phase_skeleton(group, nn, sa, gpu: str) -> dict:
     run = make_skeleton_sampler(
         SkeletonEvalConfig(correction_t_max=9, correction_every=5), model,
         DiffusionConfig(timestep_respacing="10").build(DEV), projector=projector,
-        use_correction=True, reuse_memory=True, trace=trace)
+        reuse_memory=True, trace=trace)
     memory, gt = model.encode(*(on_card[k] for k in SKEL_KEYS))
     args = tuple(on_card[k] for k in SKEL_KEYS) + (memory, gt)
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -4991,7 +4991,7 @@ def _trained_check_run(device, batch: dict, noise, step_noise) -> tuple:
                          report=lambda nb, means: None)
     trace = []
     run = make_sampler(cfg, model, diffusion, smpl=body, projector=projector,
-                       use_correction=True, reuse_memory=True, trace=trace)
+                       reuse_memory=True, trace=trace)
     b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
     gt = smpl_gt_from_raw(b["body_pose"][..., :66], b["body_trans"],
                           b["obj_angles"], b["obj_trans"])
@@ -6306,6 +6306,7 @@ def main() -> int:
         print(f"chip_smoke: sees {torch.cuda.device_count()} devices, runs "
               "on one: set CUDA_VISIBLE_DEVICES to one card", file=sys.stderr)
         return 2
+    from interdiff_torch import full_f32
     from interdiff_torch.ops import (
         gather,
         group,
@@ -6315,8 +6316,7 @@ def main() -> int:
         sa,
     )
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     gpu = gpu_name_and_power()
     # K7's launches in each phase on its own, the count set to 0 just
     # before it

@@ -21,3 +21,11 @@ def resolve_device(device=None) -> torch.device:
             "interdiff_torch runs on CUDA by default and no CUDA device is "
             "available; pass device='cpu' to run on the CPU")
     return torch.device("cuda")
+
+
+def full_f32() -> None:
+    """Turn TF32 off for CUDA matmuls and cuDNN convolutions, process-wide."""
+    # the JAX package pins Precision.HIGHEST, and the ball query's and the
+    # skinning's selections are decided at ties that TF32 products would move
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

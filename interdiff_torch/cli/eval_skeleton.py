@@ -143,8 +143,7 @@ def evaluate(cfg: SkeletonEvalConfig, model: MDMSkeleton,
     """
     device = next(model.parameters()).device
     sample = make_skeleton_sampler(
-        cfg, model, diffusion, projector=projector,
-        use_correction=projector is not None, reuse_memory=True,
+        cfg, model, diffusion, projector=projector, reuse_memory=True,
         trace=trace)
     if mesh is not None:  # draws for the global batch, cut to the rows
         sample = data_parallel_sample(sample, mesh)

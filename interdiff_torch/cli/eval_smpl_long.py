@@ -204,9 +204,7 @@ def evaluate_long(cfg: SmplEvalConfig, model: MDMSmpl,
     # largest index; the JAX package's gather clamps such indices
     markers_idx = np.minimum(MARKERSET_SSM67_SMPLH, smpl.num_verts - 1)
     sample = make_sampler(cfg, model, diffusion, smpl=smpl,
-                          projector=projector,
-                          use_correction=projector is not None,
-                          markers_idx=markers_idx)
+                          projector=projector, markers_idx=markers_idx)
 
     def sample_fn(gen, gt, obj_points6, hand, betas):
         return sample(gt, obj_points6, hand, betas, generator=gen)

@@ -167,8 +167,7 @@ def evaluate(cfg: SmplEvalConfig, model: MDMSmpl,
     device = next(model.parameters()).device
     sample = make_sampler(
         cfg, model, diffusion, smpl=smpl, projector=projector,
-        use_correction=projector is not None, markers_idx=markers_idx,
-        reuse_memory=True, sampler=sampler)
+        markers_idx=markers_idx, reuse_memory=True, sampler=sampler)
     if mesh is not None:  # draws for the global batch, cut to the rows
         sample = data_parallel_sample(sample, mesh)
     p = cfg.past_len
@@ -284,7 +283,7 @@ def build_parser() -> ArgumentParser:
     parser.add_argument("--respacing", default="",
                         help="timestep respacing, e.g. '100' or 'ddim50'")
     parser.add_argument("--sampler", default="ddpm",
-                        choices=["ddpm", "ddim", "plms"])
+                        choices=list(GaussianDiffusion.SAMPLERS))
     parser.add_argument("--synthetic", type=int, default=0,
                         help="evaluate N synthetic batches on the synthetic "
                              "stand-in body (no dataset, no pkl)")

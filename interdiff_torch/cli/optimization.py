@@ -147,8 +147,7 @@ def generate_and_refine(
     plus ``batches``, ``iters`` and ``extra``, also written to
     ``<out_dir>/summary.json``."""
     device = next(model.parameters()).device
-    sample = make_sampler(cfg, model, diffusion, smpl=smpl,
-                          use_correction=False)
+    sample = make_sampler(cfg, model, diffusion, smpl=smpl)
     penetration = make_penetration_fn(smpl, cfg.past_len)
     os.makedirs(out_dir, exist_ok=True)
 

@@ -37,7 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from interdiff_torch import resolve_device
+from interdiff_torch import full_f32, resolve_device
 from interdiff_torch.data.constants import SIMPLIFIED_MESH
 from interdiff_torch.data.mesh_io import load_mesh, sample_surface
 from interdiff_torch.geometry.rotations_np import rotvec_to_matrix_np
@@ -199,8 +199,7 @@ def prepare_sequence(seq_dir: str, object_path: str,
     model = smpl_models[info["gender"]]
     device = model.v_template.device
     # FK in full float32, as the eval entry point computes it
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     clock = {"fk": 0.0, "distance": 0.0, "labels": 0.0}
     _sync(device)
     t0 = time.perf_counter()

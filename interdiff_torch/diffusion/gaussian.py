@@ -22,7 +22,7 @@ import enum
 import functools
 import math
 import inspect
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,6 +56,13 @@ class Inpaint(NamedTuple):
 
     mask: torch.Tensor  # bool, same shape as x
     motion: torch.Tensor  # same shape as x
+
+    @classmethod
+    def past(cls, motion: torch.Tensor, past_len: int) -> "Inpaint":
+        """``motion`` [B, T, ...] on its first ``past_len`` frames."""
+        mask = torch.zeros_like(motion, dtype=torch.bool)
+        mask[:, :past_len] = True
+        return cls(mask, motion)
 
 
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -419,6 +426,28 @@ class GaussianDiffusion:
                     const_noise=const_noise)["sample"]
         return img
 
+    # -- one sampler by name ------------------------------------------------
+    SAMPLERS = ("ddpm", "ddim", "plms")
+
+    @staticmethod
+    def check_sampler(sampler: str) -> None:
+        """Raise unless ``sampler`` is one of :attr:`SAMPLERS`."""
+        if sampler not in GaussianDiffusion.SAMPLERS:
+            raise ValueError(f"unknown sampler {sampler!r}: the port has "
+                             "'ddpm', 'ddim' and 'plms'")
+
+    def sample_loop(self, sampler: str, model_fn, *, noise=None,
+                    step_noise=None, generator=None,
+                    inpaint: Optional[Inpaint] = None, denoised_fn=None):
+        """The loop of ``sampler`` (:attr:`SAMPLERS`) at its defaults;
+        ``step_noise`` goes to 'ddpm', :meth:`p_sample_loop`, alone."""
+        self.check_sampler(sampler)
+        loop = {"ddim": self.ddim_sample_loop, "plms": self.plms_sample_loop,
+                "ddpm": functools.partial(self.p_sample_loop,
+                                          step_noise=step_noise)}[sampler]
+        return loop(model_fn, noise=noise, generator=generator,
+                    inpaint=inpaint, denoised_fn=denoised_fn)
+
     # -- DDIM -------------------------------------------------------------------
     def ddim_sample(self, model_fn, x, t, *, generator=None,
                     clip_denoised=False, denoised_fn=None, cond_fn=None,
@@ -623,3 +652,30 @@ def _step_hook(denoised_fn: Optional[Callable]) -> Callable:
             denoised_fn).parameters:
         return lambda step: denoised_fn
     return lambda step: functools.partial(denoised_fn, step=step)
+
+
+def firing_hook(correct: Callable, *, t_max: int, every: int,
+                trace: Optional[List[Dict]] = None) -> Callable:
+    """The hook ``denoised_fn(x0, t, step=None)``: ``correct(x0, step) ->
+    (x0, extra)`` in the span ``hook.firing`` at ``step <= t_max``, ``step %
+    every == 0``; a firing's ``trace`` entry holds ``t``, ``extra`` and, on
+    the card, the span's events ``start`` and ``end``.  The loops pass
+    ``step`` (:func:`_step_hook`); with only ``t`` it reads ``t[0]``."""
+
+    def denoised_fn(x: torch.Tensor, t: torch.Tensor,
+                    step: Optional[int] = None) -> torch.Tensor:
+        if step is None:
+            step = int(t[0])
+        if step > t_max or step % every != 0:
+            return x
+        with profiling.span("hook.firing", cuda=x.is_cuda,
+                            keep=trace is not None, t=step) as firing:
+            out, extra = correct(x, step)
+        if trace is not None:
+            entry = {"t": step, **(extra or {})}
+            if firing.events is not None:
+                entry["start"], entry["end"] = firing.events
+            trace.append(entry)
+        return out
+
+    return denoised_fn

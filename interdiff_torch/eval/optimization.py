@@ -26,6 +26,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from interdiff_torch import full_f32
 from interdiff_torch.geometry.normals import vertex_normals
 from interdiff_torch.geometry.rotations import (
     axis_angle_to_matrix,
@@ -219,8 +220,7 @@ def descend(smpl: SmplModel, cfg: OptimConfig,
     starting parameters, when no iteration passed ``keep_after``) and the
     trace ``terms`` [C, iters, len(TERM_NAMES)].  TF32 is turned off: the
     JAX package pins full-f32 products."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     C, T = params["transl"].shape[:2]
     device = params["transl"].device
     leaves = [params[k].requires_grad_(True) for k in _PARAMS]

@@ -20,13 +20,18 @@ double loop (`eval_skeleton.py:29-31`), is one masked argmin here
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from interdiff_torch.diffusion.gaussian import GaussianDiffusion, Inpaint
+from interdiff_torch import full_f32
+from interdiff_torch.diffusion.gaussian import (
+    GaussianDiffusion,
+    Inpaint,
+    firing_hook,
+)
 from interdiff_torch.models.correction import ObjProjectorSkeleton
 from interdiff_torch.models.mdm_skeleton import (
     MDMSkeleton,
@@ -72,8 +77,8 @@ def make_correction_denoised_fn(
     (`eval_skeleton.py:84-113`): gt [B,T,106] is the clip's state, whose
     pose block the projector reads; zero_pose_obj [B,P,3].
 
-    ``step`` is the loop's index as a Python int (the loops pass it); a
-    caller with only ``t`` pays one read of ``t[0]``.  ``trace`` receives a
+    It fires as `diffusion.gaussian.firing_hook` decides from ``cfg``'s
+    ``correction_t_max`` and ``correction_every``.  ``trace`` receives a
     dict per firing: ``t`` and, on the card, the CUDA events ``start`` and
     ``end`` of the firing's span ``hook.firing``, whose children are
     ``hook.projector`` and ``hook.blend`` (the keypoints and the blend)."""
@@ -82,7 +87,7 @@ def make_correction_denoised_fn(
     pose_gt = gt[..., bd + od:]
     trans_gt, quat_gt = pose_gt[..., :3], pose_gt[..., 3:7]
 
-    def correct(x: torch.Tensor, step: int) -> torch.Tensor:
+    def correct(x: torch.Tensor, step: int) -> Tuple[torch.Tensor, None]:
         B, T = x.shape[:2]
         body = x[..., :bd]
         with profiling.span("hook.projector", cuda=x.is_cuda):
@@ -95,30 +100,19 @@ def make_correction_denoised_fn(
             x_corr = torch.cat([body, obj_proj, pose_proj], dim=-1)
             # the blend weights rounded as float32, as the JAX package's are
             frac = np.float32(step) / np.float32(1000.0)
-            return float(frac) * x + float(np.float32(1.0) - frac) * x_corr
+            return (float(frac) * x
+                    + float(np.float32(1.0) - frac) * x_corr), None
 
-    def denoised_fn(x: torch.Tensor, t: torch.Tensor,
-                    step: Optional[int] = None) -> torch.Tensor:
-        if step is None:
-            step = int(t[0])
-        if step > cfg.correction_t_max or step % cfg.correction_every != 0:
-            return x
-        with profiling.span("hook.firing", cuda=x.is_cuda,
-                            keep=trace is not None, t=step) as firing:
-            out = correct(x, step)
-        if trace is not None:
-            trace.append(profiling.firing_entry(step, firing))
-        return out
-
-    return denoised_fn
+    return firing_hook(correct, t_max=cfg.correction_t_max,
+                       every=cfg.correction_every, trace=trace)
 
 
 def make_skeleton_sampler(
     cfg: SkeletonEvalConfig, model: MDMSkeleton,
     diffusion: GaussianDiffusion, *,
     projector: Optional[ObjProjectorSkeleton] = None,
-    use_correction: bool = False, reuse_memory: bool = False,
-    sampler: str = "ddpm", trace: Optional[List[Dict]] = None,
+    reuse_memory: bool = False, sampler: str = "ddpm",
+    trace: Optional[List[Dict]] = None,
 ) -> Callable:
     """Build ``sample(skeleton, obj_points, poses, zero_pose_obj, *,
     noise=None, step_noise=None, generator=None) -> x [B,T,106]``
@@ -126,64 +120,46 @@ def make_skeleton_sampler(
     [B,T,12,3], poses [B,T,7], zero_pose_obj [B,12,3].  The first
     ``past_len`` frames are inpainted.
 
-    ``use_correction=True`` needs ``projector`` and runs
-    :func:`make_correction_denoised_fn` in the loop (``trace`` goes to it).
-    ``reuse_memory=True`` adds the arguments ``memory, gt`` (the pair that
-    ``model.encode`` returns) after ``zero_pose_obj``, so that a caller
-    encodes once.  ``noise`` [B,T,106] is the initial sample and
-    ``step_noise`` [steps,B,T,106] the DDPM loop's per-step draws; what is
-    not given is drawn from ``generator``.  ``sampler``: 'ddpm' | 'ddim' |
-    'plms'.  The sampler records no graph, whatever the caller's gradient
-    mode.
+    With a ``projector`` the loop runs :func:`make_correction_denoised_fn`
+    (``trace`` goes to it).  ``reuse_memory=True`` adds the arguments
+    ``memory, gt`` (the pair that ``model.encode`` returns) after
+    ``zero_pose_obj``, so that a caller encodes once.  ``noise``
+    [B,T,106] is the initial sample and ``step_noise`` [steps,B,T,106] the
+    DDPM loop's per-step draws; what is not given is drawn from
+    ``generator``.  ``sampler``: 'ddpm' | 'ddim' | 'plms'.  The sampler
+    records no graph, whatever the caller's gradient mode.
     """
-    if use_correction and projector is None:
-        raise ValueError("use_correction=True needs the `projector`")
-    if sampler not in ("ddpm", "ddim", "plms"):
-        raise ValueError(f"unknown sampler {sampler!r}: the port has "
-                         "'ddpm', 'ddim' and 'plms'")
-    # parity with the reference needs full-f32 matmuls
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    GaussianDiffusion.check_sampler(sampler)
+    full_f32()
 
     @torch.no_grad()
-    def _run(zero_pose_obj, memory, gt, *, noise=None, step_noise=None,
-             generator=None):
-        mask = torch.zeros_like(gt, dtype=torch.bool)
-        mask[:, : cfg.past_len] = True
+    def _run(skeleton, obj_points, poses, zero_pose_obj, memory, gt, *,
+             noise=None, step_noise=None, generator=None):
         denoised_fn = None
-        if use_correction:
+        if projector is not None:
             denoised_fn = make_correction_denoised_fn(
                 cfg, projector, gt=gt, zero_pose_obj=zero_pose_obj,
                 trace=trace)
         if noise is None:
             noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
-        kwargs = dict(noise=noise, generator=generator,
-                      inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
 
         def model_fn(x, ts):
             return model.denoise(x, ts, zero_pose_obj, memory)
 
-        if sampler == "ddim":
-            return diffusion.ddim_sample_loop(model_fn, **kwargs)
-        if sampler == "plms":
-            return diffusion.plms_sample_loop(model_fn, **kwargs)
-        return diffusion.p_sample_loop(model_fn, step_noise=step_noise,
-                                       **kwargs)
+        return diffusion.sample_loop(
+            sampler, model_fn, noise=noise, step_noise=step_noise,
+            generator=generator, inpaint=Inpaint.past(gt, cfg.past_len),
+            denoised_fn=denoised_fn)
 
     if reuse_memory:
-        def sample_mem(skeleton, obj_points, poses, zero_pose_obj, memory,
-                       gt, *, noise=None, step_noise=None, generator=None):
-            return _run(zero_pose_obj, memory, gt, noise=noise,
-                        step_noise=step_noise, generator=generator)
-
-        return sample_mem
+        return _run
 
     @torch.no_grad()
     def sample(skeleton, obj_points, poses, zero_pose_obj, *, noise=None,
                step_noise=None, generator=None):
         memory, gt = model.encode(skeleton, obj_points, poses, zero_pose_obj)
-        return _run(zero_pose_obj, memory, gt, noise=noise,
-                    step_noise=step_noise, generator=generator)
+        return _run(skeleton, obj_points, poses, zero_pose_obj, memory, gt,
+                    noise=noise, step_noise=step_noise, generator=generator)
 
     return sample
 

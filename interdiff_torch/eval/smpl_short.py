@@ -21,8 +21,13 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from interdiff_torch import full_f32
 from interdiff_torch.data.constants import MARKERSET_SSM67_SMPLH
-from interdiff_torch.diffusion.gaussian import GaussianDiffusion, Inpaint
+from interdiff_torch.diffusion.gaussian import (
+    GaussianDiffusion,
+    Inpaint,
+    firing_hook,
+)
 from interdiff_torch.geometry.normals import vertex_normals
 from interdiff_torch.geometry.rotations import (
     matrix_to_axis_angle,
@@ -87,10 +92,10 @@ def make_correction_denoised_fn(
     """Build the physics-informed ``denoised_fn(x0, t, step=None)``
     (`eval_smpl_short.py:84-130`).
 
-    ``step`` is the timestep as a Python int; `p_sample_loop` passes it, so
-    the decision whether the step fires costs no device read.  A caller that
-    has only ``t`` leaves it out and pays one read of ``t[0]``.  ``trace``
-    receives one dict per firing: ``t``, the gate's tensors, still on the
+    It fires at ``t <= cfg.correction_t_max``, every
+    ``cfg.correction_every`` steps, decided on the host by
+    `diffusion.gaussian.firing_hook`.  ``trace`` receives one dict per
+    firing: ``t``, the gate's tensors, still on the
     device (``condition`` [B] bool, the corrected rows; ``penetration`` [B]
     and ``distance`` [B], which the gate holds against 0.002 and 0.02;
     ``marker_d`` [B,T,M], held against 0.02 for the contact labels;
@@ -194,27 +199,14 @@ def make_correction_denoised_fn(
             "distance": distance, "marker_d": marker_d, "o2h_sq": o2h_sq,
             "o2h_dot": o2h_dot}
 
-    def denoised_fn(x: torch.Tensor, t: torch.Tensor,
-                    step: Optional[int] = None) -> torch.Tensor:
-        if step is None:
-            step = int(t[0])
-        if step > cfg.correction_t_max or step % cfg.correction_every != 0:
-            return x
-        with span("hook.firing", cuda=x.is_cuda, keep=trace is not None,
-                  t=step) as firing:
-            out, gate = correct(x, step)
-        if trace is not None:
-            trace.append(profiling.firing_entry(step, firing, gate))
-        return out
-
-    return denoised_fn
+    return firing_hook(correct, t_max=cfg.correction_t_max,
+                       every=cfg.correction_every, trace=trace)
 
 
 def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
                  diffusion: GaussianDiffusion, *,
                  smpl: Optional[SmplModel] = None,
                  projector: Optional[ObjProjectorSmpl] = None,
-                 use_correction: bool = False,
                  markers_idx: Optional[np.ndarray] = None,
                  reuse_memory: bool = False, sampler: str = "ddpm",
                  trace: Optional[List[Dict]] = None) -> Callable:
@@ -227,52 +219,41 @@ def make_sampler(cfg: SmplEvalConfig, model: MDMSmpl,
     normals, hand_pose [B,T,90] the gt hand poses and betas [B,T,10] the
     body shape; the last two feed the correction only.
 
-    ``use_correction=True`` needs ``smpl`` and ``projector`` and runs
-    :func:`make_correction_denoised_fn` in the loop (``markers_idx`` and
-    ``trace`` go to it).  ``reuse_memory=True`` adds a ``memory`` argument
-    after ``betas``: the conditioning encoder is deterministic, so best-of-N
+    With a ``projector`` (which needs ``smpl``) the loop runs
+    :func:`make_correction_denoised_fn` (``markers_idx`` and ``trace`` go
+    to it).  ``reuse_memory=True`` adds a ``memory`` argument after
+    ``betas``: the conditioning encoder is deterministic, so best-of-N
     evaluation encodes once and shares the memory across the diverse
     samples.  ``noise`` [B,T,144] is the initial sample and ``step_noise``
     [steps, B,T,144] the per-step draws; what is not given is drawn from
     ``generator``.  The sampler records no graph, whatever the caller's
     gradient mode (a trainer validates with it).
     """
-    if use_correction and (smpl is None or projector is None):
-        raise ValueError("use_correction=True needs the body model `smpl` "
-                         "and the `projector`")
-    if sampler not in ("ddpm", "ddim", "plms"):
-        raise ValueError(f"unknown sampler {sampler!r}: the port has "
-                         "'ddpm', 'ddim' and 'plms'")
-    # tie selection in the ball query, the skinning products and parity
-    # with the reference need full-f32 matmuls and convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    if projector is not None and smpl is None:
+        raise ValueError("the correction's `projector` needs the body model "
+                         "`smpl`")
+    GaussianDiffusion.check_sampler(sampler)
+    full_f32()
 
     @torch.no_grad()
     def _run(gt, obj_points6, hand_pose, betas, memory, *, noise=None,
              step_noise=None, generator=None):
-        mask = torch.zeros_like(gt, dtype=torch.bool)
-        mask[:, : cfg.past_len] = True
         denoised_fn = None
-        if use_correction:
+        if projector is not None:
             denoised_fn = make_correction_denoised_fn(
                 cfg, smpl, projector, gt=gt, hand_pose=hand_pose,
                 betas=betas, obj_points=obj_points6[..., :3],
                 markers_idx=markers_idx, trace=trace)
         if noise is None:
             noise = randn_rows(gt.shape, generator, gt.device, gt.dtype)
-        kwargs = dict(noise=noise, generator=generator,
-                      inpaint=Inpaint(mask, gt), denoised_fn=denoised_fn)
 
         def model_fn(x, ts):
             return model.denoise(x, ts, memory)
 
-        if sampler == "ddim":
-            return diffusion.ddim_sample_loop(model_fn, **kwargs)
-        if sampler == "plms":
-            return diffusion.plms_sample_loop(model_fn, **kwargs)
-        return diffusion.p_sample_loop(model_fn, step_noise=step_noise,
-                                       **kwargs)
+        return diffusion.sample_loop(
+            sampler, model_fn, noise=noise, step_noise=step_noise,
+            generator=generator, inpaint=Inpaint.past(gt, cfg.past_len),
+            denoised_fn=denoised_fn)
 
     if reuse_memory:
         return _run

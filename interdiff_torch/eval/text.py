@@ -17,6 +17,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from interdiff_torch import full_f32
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.models.mdm_text import MDMText
 from interdiff_torch.parallel.mesh import randn_rows
@@ -55,9 +56,7 @@ def make_text_sampler(cfg: TextEvalConfig, model: MDMText,
     row at ``cfg.guidance_param``.  ``noise`` is the initial sample and
     ``step_noise`` [steps, B, num_frames, njoints] the per-step draws; what
     is not given is drawn from ``generator``."""
-    # the reference's products are full float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
 
     @torch.no_grad()
     def sample(text: torch.Tensor, *, noise: Optional[torch.Tensor] = None,
@@ -73,9 +72,9 @@ def make_text_sampler(cfg: TextEvalConfig, model: MDMText,
         def model_fn(x, ts):
             return model.denoise(x, ts, text, scale)
 
-        return diffusion.p_sample_loop(model_fn, noise=noise,
-                                       step_noise=step_noise,
-                                       generator=generator)
+        return diffusion.sample_loop("ddpm", model_fn, noise=noise,
+                                     step_noise=step_noise,
+                                     generator=generator)
 
     return sample
 

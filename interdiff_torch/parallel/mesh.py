@@ -55,6 +55,8 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
+from interdiff_torch import full_f32
+
 # how long the other ranks wait for rank 0's work alone (a validation with
 # the full schedule, checkpoints, renders) in `wait_for_rank0`; a rank that
 # dies is stopped by its launcher (`launch`, torchrun), not by this limit
@@ -374,8 +376,7 @@ def _backend(device) -> str:
 def _pin_settings(threads: int, fused_sa: Optional[str]) -> None:
     """What a spawned rank does not inherit from its parent's interpreter."""
     torch.set_num_threads(threads)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
     if fused_sa is None:
         os.environ.pop("INTERDIFF_FUSED_SA", None)
     else:

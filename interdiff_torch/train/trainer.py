@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import torch
 
+from interdiff_torch import full_f32
 from interdiff_torch.diffusion.gaussian import GaussianDiffusion
 from interdiff_torch.diffusion.nn import update_ema
 from interdiff_torch.diffusion.resample import (
@@ -208,8 +209,7 @@ def make_skeleton_train_step(
     0 is refused (`_refuse_train_mode_rates`).
     """
     _refuse_train_mode_rates(model)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    full_f32()
 
     def step(state: TrainState, batch, generator=None, *, t=None,
              noise=None):
@@ -398,12 +398,6 @@ class CorrectionTrainState:
         return self
 
 
-def _no_tf32() -> None:
-    # parity with the JAX package, which pins Precision.HIGHEST
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
 def correction_smpl_inputs(batch: Dict[str, torch.Tensor], past_len: int
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(obj_gt [B,T,9] rot6d | trans, contact [B,P] the per-marker contact
@@ -431,7 +425,7 @@ def make_correction_smpl_train_step(
     which is how a test hands this step the JAX step's draw.  ``metrics``:
     ``loss`` and the 10 weighted terms, 0-d tensors on the device.
     """
-    _no_tf32()
+    full_f32()
     weights = weights or CorrectionLossWeights()
 
     def step(state: CorrectionTrainState, batch, generator=None,
@@ -460,7 +454,7 @@ def make_correction_skeleton_train_step(
     (state, metrics)``; ``batch`` holds ``skeleton`` [B,T,21,3] and
     ``poses`` [B,T,7] (trans | quat xyzw).  ``generator`` feeds dropout
     only; ``epoch`` is accepted for the SMPL step's signature."""
-    _no_tf32()
+    full_f32()
     weights = weights or CorrectionLossWeights()
 
     def step(state: CorrectionTrainState, batch, generator=None,

@@ -68,5 +68,4 @@ def make_tiny_correction_sampler(
     return make_sampler(
         cfg, model, diffusion,
         smpl=tiny_smpl_model(np.random.default_rng(body_seed), device=device),
-        projector=projector, use_correction=True,
-        markers_idx=np.arange(num_markers))
+        projector=projector, markers_idx=np.arange(num_markers))

@@ -393,16 +393,6 @@ def count(name: str, value) -> None:
         _REC.current.add(name, value)
 
 
-def firing_entry(t: int, firing, extra: Optional[Dict] = None) -> Dict:
-    """A correction hook's ``trace`` entry for its firing at ``t``: ``t``,
-    ``extra`` and, where the span ``firing`` recorded them, its CUDA events
-    as ``start`` and ``end``."""
-    entry = {"t": t, **(extra or {})}
-    if firing.events is not None:
-        entry["start"], entry["end"] = firing.events
-    return entry
-
-
 def timed(timings: Optional[Dict[str, float]], device: torch.device,
           name: str, fn: Callable, *args, **kwargs):
     """``fn(*args, **kwargs)`` inside the span ``name`` (``<scope>.<part>``,

@@ -151,7 +151,7 @@ def main(argv=None) -> dict:
         cfg_j, jmodel, jdiff, smpl=jbody, projector=jproj,
         projector_params=proj_vars, use_correction=True))
     trun = tss.make_sampler(cfg_t, model, diffusion, smpl=body,
-                            projector=projector, use_correction=True)
+                            projector=projector)
     jcalls, tcalls = [], []
 
     def j_sample(key, g, p, h, b):

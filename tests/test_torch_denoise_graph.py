@@ -168,7 +168,7 @@ def _sampler(track: str, device):
         args = cs._main_path_inputs(rng, 4, cs.FRAMES, cs.POINTS, device)
         sample = make_sampler(
             SmplEvalConfig(correction_t_max=9, correction_every=3), model,
-            diffusion, smpl=body, projector=projector, use_correction=True)
+            diffusion, smpl=body, projector=projector)
         cond = model.encode(args[0], args[1]).detach()
         shape = args[0].shape
         extra = ()
@@ -183,7 +183,7 @@ def _sampler(track: str, device):
         args = [torch.from_numpy(batch[k]).to(device) for k in cs.SKEL_KEYS]
         sample = make_skeleton_sampler(
             SkeletonEvalConfig(correction_t_max=9, correction_every=3),
-            model, diffusion, projector=projector, use_correction=True)
+            model, diffusion, projector=projector)
         cond, gt = model.encode(*args)
         cond, shape, extra = cond.detach(), gt.shape, (args[3],)
     noise = torch.from_numpy(rng.standard_normal(shape).astype(

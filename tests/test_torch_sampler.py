@@ -17,7 +17,11 @@ from interdiff_tpu.config import SmplTrackConfig as JTrack  # noqa: E402
 from interdiff_tpu.eval import smpl_short as jss  # noqa: E402
 from interdiff_tpu.models.mdm_smpl import MDMSmpl as JMDM  # noqa: E402
 from interdiff_tpu.parallel import sample_parallel as jsp  # noqa: E402
-from interdiff_torch.config import DiffusionConfig, SmplTrackConfig  # noqa: E402
+from interdiff_torch.config import (  # noqa: E402
+    CorrectionConfig,
+    DiffusionConfig,
+    SmplTrackConfig,
+)
 from interdiff_torch.eval import smpl_short as tss  # noqa: E402
 from interdiff_torch.parallel import sample_parallel as tsp  # noqa: E402
 from interdiff_torch.utils.convert import flax_to_torch_state_dict  # noqa: E402
@@ -114,15 +118,18 @@ def test_sampler_no_correction_matches_jax():
     np.testing.assert_allclose(obj.numpy(), np.asarray(jobj), atol=1e-4)
 
 
-@pytest.mark.parametrize("kw", [dict(use_correction=True),
-                                dict(sampler="plms", use_correction=True),
+@pytest.mark.parametrize("kw", [dict(projector=True),
+                                dict(sampler="plms", projector=True),
                                 dict(sampler="euler")])
 def test_unported_modes_raise(kw):
     track = SmplTrackConfig(**SMALL,
                             diffusion=DiffusionConfig(timestep_respacing="10"))
-    # correction without a body model and a projector, with any sampler, or
-    # a sampler the package does not have (DDIM and PLMS are ported:
+    # a projector without the body model, with any sampler, or a sampler
+    # the package does not have (DDIM and PLMS are ported:
     # tests/test_torch_samplers.py)
+    if kw.get("projector"):
+        kw = dict(kw, projector=CorrectionConfig(
+            num_nodes=40, dct=4).build_model("cpu"))
     with pytest.raises(ValueError,
                        match="unknown sampler|needs the body model"):
         tss.make_sampler(tss.SmplEvalConfig(), track.build_model("cpu"),

@@ -182,8 +182,8 @@ def test_sampler_with_correction_matches_jax(setup, delta):
 
     trace = []
     run = tss.make_sampler(tcfg, s["model"], s["diffusion"], smpl=s["smpl"],
-                           projector=s["proj"], use_correction=True,
-                           markers_idx=MARKERS, trace=trace)
+                           projector=s["proj"], markers_idx=MARKERS,
+                           trace=trace)
     got = run(*(torch.from_numpy(s[k])
                 for k in ("gt", "pts", "hand", "betas")),
               noise=torch.from_numpy(s["noise"]),
@@ -222,6 +222,7 @@ def test_postprocess_sample_matches_jax(setup):
 
 
 def test_correction_needs_body_and_projector(setup):
+    # a projector without the body model `smpl`
     with pytest.raises(ValueError, match="needs the body model"):
         tss.make_sampler(tss.SmplEvalConfig(), setup["model"],
-                         setup["diffusion"], use_correction=True)
+                         setup["diffusion"], projector=setup["proj"])

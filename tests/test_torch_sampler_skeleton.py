@@ -84,9 +84,9 @@ def _port_run(s, schedule, correction, sampler, trace=None,
               reuse_memory=False):
     diffusion = DiffusionConfig(**SCHEDULES[schedule]).build("cpu")
     run = tsk.make_skeleton_sampler(
-        tsk.SkeletonEvalConfig(), s["model"], diffusion, projector=s["proj"],
-        use_correction=correction, sampler=sampler, trace=trace,
-        reuse_memory=reuse_memory)
+        tsk.SkeletonEvalConfig(), s["model"], diffusion,
+        projector=s["proj"] if correction else None, sampler=sampler,
+        trace=trace, reuse_memory=reuse_memory)
     args = tuple(map(torch.from_numpy, s["inputs"]))
     if reuse_memory:
         with torch.no_grad():
@@ -141,9 +141,6 @@ def test_reuse_memory_is_the_same_sampler(setup):
         got, _port_run(setup, "100 steps", True, "ddpm"))
     np.testing.assert_allclose(got, _jax_run(setup, "100 steps", True,
                                              "ddpm"), atol=1e-4, rtol=1e-4)
-    with pytest.raises(ValueError, match="projector"):
-        tsk.make_skeleton_sampler(tsk.SkeletonEvalConfig(), setup["model"],
-                                  None, use_correction=True)
 
 
 def test_body_obj_contact_matches_jax():

@@ -180,7 +180,7 @@ def _rollouts(s, corrected: bool):
     extra_j = dict(smpl=s["jsmpl"], projector=s["jproj"],
                    projector_params=s["proj_vars"], use_correction=True,
                    markers_idx=MARKERS) if corrected else {}
-    extra_t = dict(smpl=s["smpl"], projector=s["proj"], use_correction=True,
+    extra_t = dict(smpl=s["smpl"], projector=s["proj"],
                    markers_idx=MARKERS) if corrected else {}
     jrun = jax.jit(jss.make_sampler(cfg_j, s["jmodel"], s["jdiff"],
                                     **extra_j))

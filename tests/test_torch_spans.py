@@ -287,7 +287,6 @@ def test_corrected_rows_are_the_gates_conditions(smpl):
     trace = []
     sample = make_sampler(s["cfg"], s["model"], s["diffusion"],
                           smpl=s["body"], projector=s["projector"],
-                          use_correction=True,
                           markers_idx=np.minimum(MARKERSET_SSM67_SMPLH, 127),
                           trace=trace)
     b = {k: torch.as_tensor(v) for k, v in s["batch"].items()}
